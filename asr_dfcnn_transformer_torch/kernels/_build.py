@@ -1,0 +1,149 @@
+"""Build the CUDA sources under ``csrc/`` into one shared library and bind it.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into a library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). The build runs at first use and lands in
+``_kernel_build/<hash of the sources and flags>/``, a directory that git
+ignores, so an edited source rebuilds and an unchanged one is reused.
+
+Also holds the launch counters: every kernel wrapper adds one to its name's
+count where it launches its kernel, so a run can show that its main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "_kernel_build"
+LIB_NAME = "libasr_torch_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: C entry points: name -> (argtypes, restype)
+_SIGNATURES = {
+    "asr_error_string": ((_I,), ctypes.c_char_p),
+    "asr_log_mel": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+                    _I),
+    "asr_cmvn": ((_P, _P, _P, _I, _I, _I, _P), _I),
+    "asr_masked_attention_smem": ((_I, _I, _I), ctypes.c_longlong),
+    "asr_masked_attention": ((_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _F, _I, _P), _I),
+}
+
+#: kernel name -> launches since the last reset_launches()
+LAUNCHES: Dict[str, int] = collections.Counter()
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME`` (default
+    ``/usr/local/cuda``); raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME "
+                       f"({home}); the CUDA kernels cannot be built")
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` (when not already built) and return the
+    library's path. The compiler's ``-Xptxas -v`` report (registers,
+    shared memory, spills per kernel) is kept beside it as ``build.log``."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    out_dir = BUILD_ROOT / _digest(sources)
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sources if s.suffix == ".cu"]]
+    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    (out_dir / "build.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, lib)   # atomic: a concurrent build reads a whole file
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+    return _lib
+
+
+def build_log() -> str:
+    """The compiler's report for the current sources ('' before a build)."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    log = BUILD_ROOT / _digest(sources) / "build.log"
+    return log.read_text() if log.is_file() else ""
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error; count it otherwise."""
+    if rc != 0:
+        msg = library().asr_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
+    LAUNCHES[name] += 1
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device all ``tensors`` lie on; raises otherwise."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA or CPU tensors, got "
+                         f"{dev.type}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return dev

@@ -1,0 +1,273 @@
+"""Building blocks: the port of ``asr_dfcnn_transformer_tpu.models.layers``.
+
+Parameters are float32; each block computes in its ``dtype`` (bfloat16 on
+the serving path), casting parameters at use, as the Flax modules do.
+Submodule and parameter names mirror the Flax tree (``Conv_0``,
+``BatchNorm_0``, ``Dense_0``, ``LayerNorm_0``, ``q``/``k``/``v``/``out``)
+so ``convert.py`` maps one onto the other by name. Layouts are PyTorch's:
+convolutions run NCHW, linear weights are [out, in].
+
+Initialisation draws from an explicit ``torch.Generator`` on the CPU and
+copies to ``device``; trained weights come through ``convert.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from asr_dfcnn_transformer_torch.kernels.attention import (BIG_NEG,
+                                                          masked_attention)
+
+BN_EPS = 1e-3      # every BatchNorm of the AM (layers.py ConvBnCell)
+LN_EPS = 1e-6      # Flax LayerNorm's default, not torch's 1e-5
+
+
+def _param(shape, std: float, generator: torch.Generator,
+           device) -> nn.Parameter:
+    w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
+    return nn.Parameter(w.to(device))
+
+
+def _const(shape, value: float, device) -> torch.Tensor:
+    return torch.full(shape, value, dtype=torch.float32, device=device)
+
+
+class Dense(nn.Module):
+    """``nn.Dense``: y = x W^T (+ b) in ``dtype``; weight [out, in] f32.
+
+    The bias is added after the product is rounded to ``dtype``, as Flax
+    does, rather than inside the product as ``F.linear`` would."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 bias: bool = True, dtype: torch.dtype, device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = _param((out_features, in_features),
+                             1.0 / math.sqrt(in_features), generator, device)
+        self.bias = (nn.Parameter(_const((out_features,), 0.0, device))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class Conv3x3(nn.Module):
+    """``nn.Conv(features, (3, 3), padding="SAME")`` in NCHW; weight OIHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, *, dtype: torch.dtype,
+                 device, generator: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = _param((out_ch, in_ch, 3, 3),
+                             1.0 / math.sqrt(in_ch * 9), generator, device)
+        self.bias = nn.Parameter(_const((out_ch,), 0.0, device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype), padding=1)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over channel axis 1 with Flax's arithmetic:
+    (x - mean) * (scale * rsqrt(var + eps)) + bias in f32, cast to dtype."""
+
+    def __init__(self, features: int, *, dtype: torch.dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(_const((features,), 1.0, device))
+        self.bias = nn.Parameter(_const((features,), 0.0, device))
+        self.register_buffer("running_mean", _const((features,), 0.0, device))
+        self.register_buffer("running_var", _const((features,), 1.0, device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        return (y + self.bias.view(shape)).to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm`` (eps 1e-6): statistics in f32, output dtype."""
+
+    def __init__(self, features: int, *, dtype: torch.dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(_const((features,), 1.0, device))
+        self.bias = nn.Parameter(_const((features,), 0.0, device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight,
+                         self.bias, LN_EPS)
+        return y.to(self.dtype)
+
+
+class ConvBnCell(nn.Module):
+    """Conv3x3 -> ReLU -> BatchNorm, optional 2x2 pooling (layers.py:52).
+    ``pool_type`` "avg" is the SE models' "maxpool" that average-pools."""
+
+    def __init__(self, in_ch: int, features: int, *, pool: bool = False,
+                 pool_type: str = "max", dtype: torch.dtype, device,
+                 generator: torch.Generator):
+        super().__init__()
+        if pool_type not in ("max", "avg"):
+            raise ValueError(f"unknown pool_type {pool_type!r}")
+        self.pool = pool
+        self.pool_type = pool_type
+        self.Conv_0 = Conv3x3(in_ch, features, dtype=dtype, device=device,
+                              generator=generator)
+        self.BatchNorm_0 = BatchNorm(features, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.BatchNorm_0(F.relu(self.Conv_0(x)))
+        if self.pool:
+            pool = F.max_pool2d if self.pool_type == "max" else F.avg_pool2d
+            x = pool(x, 2, 2)
+        return x
+
+
+class SqueezeExcite(nn.Module):
+    """BN -> global average pool -> Dense(c/ratio) ReLU -> Dense(c)
+    sigmoid -> channel scale (layers.py:94)."""
+
+    def __init__(self, features: int, ratio: int = 2, *, dtype: torch.dtype,
+                 device, generator: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        squeezed = max(features // ratio, 1)
+        self.BatchNorm_0 = BatchNorm(features, dtype=dtype, device=device)
+        self.Dense_0 = Dense(features, squeezed, dtype=dtype, device=device,
+                             generator=generator)
+        self.Dense_1 = Dense(squeezed, features, dtype=dtype, device=device,
+                             generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.BatchNorm_0(x)
+        squeeze = x.float().mean(dim=(2, 3)).to(self.dtype)    # [B, C]
+        e = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(squeeze))))
+        return x * e[:, :, None, None]
+
+
+class ScaledEmbed(nn.Module):
+    """Token embedding with a zeroed PAD row and sqrt(d) scaling applied
+    after the cast to ``dtype`` (layers.py:147)."""
+
+    def __init__(self, vocab_size: int, features: int, *,
+                 dtype: torch.dtype, device, generator: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        # sqrt(d) rounded to dtype, as Flax scales by it; the product of two
+        # dtype values is exact in f32, so it rounds as a dtype multiply
+        self.scale = torch.tensor(features ** 0.5, dtype=dtype).item()
+        self.embedding = _param((vocab_size, features),
+                                1.0 / math.sqrt(features), generator, device)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        out = F.embedding(ids, self.embedding)
+        out = out.masked_fill((ids == 0)[..., None], 0.0).to(self.dtype)
+        return out * self.scale
+
+
+class LearnedPositionEmbed(nn.Module):
+    """Learned absolute positions, ids clipped at max_length - 1
+    (layers.py:170)."""
+
+    def __init__(self, max_length: int, features: int, *,
+                 dtype: torch.dtype, device, generator: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.max_length = max_length
+        self.embedding = _param((max_length, features), 0.02, generator,
+                                device)
+
+    def forward(self, length: int) -> torch.Tensor:
+        idx = torch.clamp(torch.arange(length, device=self.embedding.device),
+                          max=self.max_length - 1)
+        return self.embedding[idx].to(self.dtype)
+
+
+def attention_mask(q_valid: torch.Tensor, k_valid: torch.Tensor,
+                   causal: bool = False) -> torch.Tensor:
+    """Additive [B, 1, Tq, Tk] mask from boolean validity vectors: 0 where
+    attendable, -1e9 elsewhere (layers.py:188)."""
+    mask = k_valid[:, None, None, :]
+    if causal:
+        tq, tk = q_valid.shape[-1], k_valid.shape[-1]
+        mask = mask & torch.ones((tq, tk), dtype=torch.bool,
+                                 device=k_valid.device).tril()
+    return torch.where(mask, 0.0, BIG_NEG)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with residual + LayerNorm, full-sequence
+    forward (layers.py:264-358). ``parity``: ReLU'd, bias-free Q/K/V/out
+    projections. The attention core is ``kernels.masked_attention``
+    (the CUDA kernel on the card, its twin on the CPU); the head split is
+    head-major, ``[B, T, H, Dh]``."""
+
+    def __init__(self, d_model: int, num_heads: int, *, parity: bool = False,
+                 dtype: torch.dtype, device, generator: torch.Generator):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError("d_model must divide into num_heads")
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.parity = parity
+        kw = dict(bias=not parity, dtype=dtype, device=device,
+                  generator=generator)
+        self.q = Dense(d_model, d_model, **kw)
+        self.k = Dense(d_model, d_model, **kw)
+        self.v = Dense(d_model, d_model, **kw)
+        self.out = Dense(d_model, d_model, **kw)
+        self.LayerNorm_0 = LayerNorm(d_model, dtype=dtype, device=device)
+
+    def _act(self, y: torch.Tensor) -> torch.Tensor:
+        return F.relu(y) if self.parity else y
+
+    def _heads(self, y: torch.Tensor) -> torch.Tensor:
+        b, t, _ = y.shape
+        return y.view(b, t, self.num_heads, -1).transpose(1, 2).contiguous()
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                values: Optional[torch.Tensor] = None, *,
+                k_valid: Optional[torch.Tensor] = None,
+                causal: bool = False) -> torch.Tensor:
+        """``k_valid`` [B, Tk] bool + ``causal``: the structured form of
+        ``attention_mask(q_valid, k_valid, causal)``."""
+        if values is None:
+            values = keys
+        b, tq, _ = queries.shape
+        q = self._heads(self._act(self.q(queries)))
+        k = self._heads(self._act(self.k(keys)))
+        v = self._heads(self._act(self.v(values)))
+        out = masked_attention(q, k, v, k_valid, causal=causal)
+        out = out.transpose(1, 2).reshape(b, tq, self.d_model)
+        out = self._act(self.out(out)) + queries
+        return self.LayerNorm_0(out)
+
+
+class FeedForward(nn.Module):
+    """relu(x W1 + b1) W2 + b2, residual, LayerNorm (layers.py:403; the
+    unfused path, parameters under Dense_0 / Dense_1)."""
+
+    def __init__(self, d_model: int, inner: Optional[int] = None, *,
+                 dtype: torch.dtype, device, generator: torch.Generator):
+        super().__init__()
+        inner = inner or 4 * d_model
+        self.Dense_0 = Dense(d_model, inner, dtype=dtype, device=device,
+                             generator=generator)
+        self.Dense_1 = Dense(inner, d_model, dtype=dtype, device=device,
+                             generator=generator)
+        self.LayerNorm_0 = LayerNorm(d_model, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.Dense_1(F.relu(self.Dense_0(x)))
+        return self.LayerNorm_0(y + x)

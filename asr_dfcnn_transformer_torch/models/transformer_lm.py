@@ -1,0 +1,93 @@
+"""Transformer-encoder LM, pinyin ids -> hanzi logits: the port of
+``models/transformer_lm.py:41 TransformerLM`` (inference forward).
+
+Scaled zero-PAD token embedding + learned positions (cap 100), then
+``num_blocks`` self-attention + FFN blocks (two stacks of them with
+``two_stack``), then an f32 projection to the hanzi vocabulary. Keys are
+masked where the id is PAD, and causally by default (the reference's
+language_model.py:48 quirk).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from asr_dfcnn_transformer_tpu.core import constants
+from asr_dfcnn_transformer_torch.models.layers import (Dense, FeedForward,
+                                                       LearnedPositionEmbed,
+                                                       MultiHeadAttention,
+                                                       ScaledEmbed)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerLMConfig:
+    """The Flax ``TransformerLM``'s fields, name for name.
+    ``dropout_rate`` only acts in training; ``logits_matmul`` supports
+    "f32"; ``fused_attention`` / ``fused_ffn`` choose among the JAX
+    package's backends — the port always runs its attention kernel and
+    the unfused FFN."""
+
+    input_vocab_size: int
+    output_vocab_size: int
+    d_model: int = 512
+    num_heads: int = 8
+    num_blocks: int = 12
+    position_max_length: int = 100
+    dropout_rate: float = 0.5
+    causal: bool = True
+    parity_attention: bool = True
+    two_stack: bool = False
+    logits_matmul: str = "f32"
+    fused_attention: str = "auto"
+    fused_ffn: str = "auto"
+    dtype: torch.dtype = torch.bfloat16
+
+
+class TransformerLM(nn.Module):
+    def __init__(self, config: TransformerLMConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = config
+        if c.logits_matmul != "f32":
+            raise ValueError("the port computes the hanzi logits in f32 "
+                             f"only, got logits_matmul={c.logits_matmul!r}")
+        self.config = c
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        kw = dict(dtype=c.dtype, device=device, generator=gen)
+        self.token_embed = ScaledEmbed(c.input_vocab_size, c.d_model, **kw)
+        self.pos_embed = LearnedPositionEmbed(c.position_max_length,
+                                              c.d_model, **kw)
+        for s in range(self.n_stacks):
+            for i in range(c.num_blocks):
+                self.add_module(f"block{s}_{i}_attn", MultiHeadAttention(
+                    c.d_model, c.num_heads, parity=c.parity_attention, **kw))
+                self.add_module(f"block{s}_{i}_ffn",
+                                FeedForward(c.d_model, **kw))
+        self.output = Dense(c.d_model, c.output_vocab_size,
+                            dtype=torch.float32, device=device,
+                            generator=gen)
+
+    @property
+    def n_stacks(self) -> int:
+        return 2 if self.config.two_stack else 1
+
+    @property
+    def position_max_length(self) -> int:
+        return self.config.position_max_length
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        """ids [B, T] pinyin ids (0 = PAD) -> [B, T, out_vocab] f32 logits."""
+        c = self.config
+        valid = ids != constants.PAD
+        x = self.token_embed(ids) + self.pos_embed(ids.shape[1])
+        for s in range(self.n_stacks):
+            for i in range(c.num_blocks):
+                x = getattr(self, f"block{s}_{i}_attn")(
+                    x, x, k_valid=valid, causal=c.causal)
+                x = getattr(self, f"block{s}_{i}_ffn")(x)
+        return self.output(x)

@@ -1,0 +1,135 @@
+"""Where one recognition batch spends its time on the card, stage by stage.
+
+    python -m asr_dfcnn_transformer_torch.profile_stages [--out PATH]
+
+Builds the full-width bf16 SE-DFCNN + Transformer LM from a seeded
+``torch.Generator`` and, for each of the server's buckets at its batch of
+8, times the four stages of ``pipeline_program`` (fbank, AM, greedy
+decode, LM + argmax) with CUDA events, beside the host's wall time for
+the whole batch. Then it traces a few batches at the largest bucket with
+``torch.profiler`` and reports the device's busy share and its top
+kernels. Needs one CUDA device; exits non-zero without one. Writes the
+full kernel table to ``--out`` (default ``profile_stages.txt``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from asr_dfcnn_transformer_torch import vocab
+from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
+                                                     batched_fbank,
+                                                     samples_for_frames)
+from asr_dfcnn_transformer_torch.infer.pipeline import pipeline_program
+from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
+                                                TransformerLM,
+                                                TransformerLMConfig,
+                                                frames_from_samples,
+                                                logit_lengths)
+from asr_dfcnn_transformer_torch.ops import ctc_greedy_decode
+
+STAGES = ("fbank", "am", "decode", "lm")
+BATCH = 8
+BUCKETS = (400, 800, 1200, 1600)
+ITERS = 10
+TRACE_BATCHES = 5
+SEED = 0
+
+
+def _stages(am, lm, sig, lens, bucket, cfg):
+    """One batch, stage by stage; returns the CUDA events around them."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    feats, _ = batched_fbank(sig, lens, cfg=cfg, out_frames=bucket)
+    ev[1].record()
+    logits = am(feats[:, None])
+    ev[2].record()
+    in_len = logit_lengths(frames_from_samples(lens), logits.shape[1])
+    ids, ids_len = ctc_greedy_decode(logits, in_len, max_output_len=100)
+    ev[3].record()
+    han = torch.argmax(lm(ids.long()), dim=-1)
+    ev[4].record()
+    return ev, (ids_len, han)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="profile_stages.txt")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_stages: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    gen = torch.Generator().manual_seed(SEED)
+    am = SEDFCNN(SEDFCNNConfig(av.size), device=dev, generator=gen).eval()
+    lm = TransformerLM(TransformerLMConfig(av.size, lv.size), device=dev,
+                       generator=gen).eval()
+    cfg = FbankConfig()
+    rng = np.random.default_rng(SEED)
+    print(f"device {torch.cuda.get_device_name(0)}, batch {BATCH}, "
+          f"bf16, times in ms (CUDA events, mean of {ITERS})")
+    with torch.inference_mode():
+        for bucket in BUCKETS:
+            s = samples_for_frames(bucket)
+            sig = torch.from_numpy(
+                0.1 * rng.standard_normal((BATCH, s)).astype(np.float32)
+            ).to(dev)
+            lens = torch.full((BATCH,), s, dtype=torch.int32,
+                              device=dev)
+            for _ in range(3):
+                _stages(am, lm, sig, lens, bucket, cfg)
+            torch.cuda.synchronize()
+            sums = np.zeros(len(STAGES))
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                ev, _ = _stages(am, lm, sig, lens, bucket, cfg)
+                torch.cuda.synchronize()
+                sums += [ev[i].elapsed_time(ev[i + 1])
+                         for i in range(len(STAGES))]
+            wall = (time.perf_counter() - t0) * 1e3 / ITERS
+            per = sums / ITERS
+            cells = ", ".join(f"{n} {t:.3f}" for n, t in zip(STAGES, per))
+            print(f"bucket {bucket}: {cells}; device sum {per.sum():.3f}, "
+                  f"host wall {wall:.3f} per batch")
+
+        bucket = max(BUCKETS)
+        s = samples_for_frames(bucket)
+        sig = torch.from_numpy(0.1 * rng.standard_normal(
+            (BATCH, s)).astype(np.float32)).to(dev)
+        lens = torch.full((BATCH,), s, dtype=torch.int32, device=dev)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TRACE_BATCHES):
+                pipeline_program(am, lm, sig, lens, bucket, fbank_cfg=cfg,
+                                 lm_max_len=100)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    # kernels and copies are the device-side events; CPU ops would count
+    # their kernels a second time
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"trace, bucket {bucket}, {TRACE_BATCHES} batches: device "
+          f"kernel time {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+          f"wall (busy {100 * dev_us / wall_us:.1f}%)")
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w", encoding="utf-8") as f:
+        f.write(table)
+    print("\n".join(table.splitlines()[:16]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
