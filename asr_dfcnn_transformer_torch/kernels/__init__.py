@@ -8,8 +8,16 @@ from asr_dfcnn_transformer_torch.kernels._build import (  # noqa: F401
     reset_launches,
 )
 from asr_dfcnn_transformer_torch.kernels.attention import (  # noqa: F401
+    MaskedAttention,
     masked_attention,
+    masked_attention_bwd_reference,
     masked_attention_reference,
+)
+from asr_dfcnn_transformer_torch.kernels.ctc import (  # noqa: F401
+    alpha_stack_reference,
+    beta_xi_reference,
+    ctc_alpha,
+    ctc_beta_xi,
 )
 from asr_dfcnn_transformer_torch.kernels.fbank import (  # noqa: F401
     cmvn,

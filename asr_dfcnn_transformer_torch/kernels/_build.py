@@ -1,6 +1,7 @@
 """Build the CUDA sources under ``csrc/`` into one shared library and bind it.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into a library with a
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, all started together) and links the objects into a library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). The build runs at first use and lands in
 ``_kernel_build/<hash of the sources and flags>/``, a directory that git
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_kernel_build"
 LIB_NAME = "libasr_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,8 +42,15 @@ _SIGNATURES = {
                     _I),
     "asr_cmvn": ((_P, _P, _P, _I, _I, _I, _P), _I),
     "asr_masked_attention_smem": ((_I, _I, _I), ctypes.c_longlong),
-    "asr_masked_attention": ((_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _F, _I, _P), _I),
+    "asr_masked_attention": ((_I, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I,
+                              _I, _I, _F, _I, _P), _I),
+    "asr_masked_attention_bwd_smem": ((_I, _I, _I, _I), ctypes.c_longlong),
+    "asr_masked_attention_bwd": ((_I, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _F, _I, _P), _I),
+    "asr_ctc_max_states": ((), _I),
+    "asr_ctc_alpha": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "asr_ctc_beta_xi": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+                        _I),
 }
 
 #: kernel name -> launches since the last reset_launches()
@@ -78,6 +86,20 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Run the commands concurrently; raise on the first failure, else
+    return their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` (when not already built) and return the
     library's path. The compiler's ``-Xptxas -v`` report (registers,
@@ -89,14 +111,17 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (out_dir / "build.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
+    tag = os.getpid()
+    units = [s for s in sources if s.suffix == ".cu"]
+    objs = [out_dir / f"{s.stem}.{tag}.o" for s in units]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                    for s, o in zip(units, objs)])
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    log += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                      *[str(o) for o in objs]]])
+    (out_dir / "build.log").write_text(log)
+    for o in objs:
+        o.unlink()
     os.replace(tmp, lib)   # atomic: a concurrent build reads a whole file
     return lib
 

@@ -1,14 +1,21 @@
-"""``masked_attention``: the LM self-attention kernel, with its twin.
+"""``masked_attention``: the LM self-attention kernels, with their twins.
 
-Replaces the forward of ``ops/pallas/attn_kernel.py: masked_flash_attention``
-(no dropout); the CUDA source is ``csrc/attention.cu``. The wrapper runs the
-plain-PyTorch twin (``masked_attention_reference``) for CPU tensors,
-launches the kernel for CUDA tensors, and raises for anything else.
+Replaces ``ops/pallas/attn_kernel.py: masked_flash_attention``: the forward
+with and without dropout (``_mflash_fwd_kernel``) and the recompute
+backward (``_mflash_bwd_kernel``); the CUDA source is ``csrc/attention.cu``.
+``masked_attention`` is the ``MaskedAttention`` autograd Function: its
+forward and its backward each run the plain-PyTorch twin
+(``masked_attention_reference`` / ``masked_attention_bwd_reference``) for
+CPU tensors, launch the kernel for CUDA tensors, and raise for anything
+else, so the CPU tests run the same Function the card runs.
+
+Dropout is a keep mask [B, H, Tq, Tk] drawn by the caller, as in the JAX
+package: the backward re-applies the same mask, so the VJP is exact.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,32 +30,164 @@ def _scale(dh: int) -> float:
     return 1.0 / float(dh) ** 0.5
 
 
-def masked_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, k_valid: torch.Tensor,
-                               causal: bool = False) -> torch.Tensor:
-    """Plain-PyTorch twin of the kernel: f32 scores scaled by 1/sqrt(Dh),
-    additive -1e9 for invalid or (causal) future keys, f32 softmax,
-    probabilities rounded to q's dtype before P.V, f32 accumulation."""
+def _scores(q, k, k_valid, causal):
+    """f32 scores scaled by 1/sqrt(Dh) plus the additive -1e9 mask."""
     tq, tk, dh = q.shape[2], k.shape[2], q.shape[3]
     ok = k_valid[:, None, None, :].to(q.device)
     if causal:
         ok = ok & torch.ones((tq, tk), dtype=torch.bool,
                              device=q.device).tril()
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale(dh)
-    scores = scores + torch.where(ok, 0.0, BIG_NEG)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return scores + torch.where(ok, 0.0, BIG_NEG)
+
+
+def _drop(probs: torch.Tensor, keep_mask: torch.Tensor,
+          keep_prob: float) -> torch.Tensor:
+    """flax Dropout on probabilities in their type: (p / keep) * mask."""
+    keep = torch.tensor(keep_prob, dtype=probs.dtype)   # a scalar anywhere
+    return (probs / keep) * keep_mask.to(probs.dtype)
+
+
+def masked_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, k_valid: torch.Tensor,
+                               causal: bool = False,
+                               keep_mask: Optional[torch.Tensor] = None,
+                               keep_prob: float = 1.0) -> torch.Tensor:
+    """Plain-PyTorch twin of the forward kernel: f32 scores scaled by
+    1/sqrt(Dh), additive -1e9 for invalid or (causal) future keys, f32
+    softmax, probabilities rounded to q's dtype (then dropped with
+    ``keep_mask``) before P.V, f32 accumulation."""
+    probs = torch.softmax(_scores(q, k, k_valid, causal), dim=-1).to(q.dtype)
+    if keep_mask is not None:
+        probs = _drop(probs, keep_mask, keep_prob)
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+def masked_attention_bwd_reference(q, k, v, k_valid, dout, causal=False,
+                                   keep_mask=None, keep_prob=1.0
+                                   ) -> Tuple[torch.Tensor, ...]:
+    """Plain-PyTorch twin of the backward kernel: (dq, dk, dv) in q's dtype
+    by recompute, with ``_mflash_bwd_kernel``'s arithmetic (exp / sum in
+    f32, dsum over the undropped f32 P, dS rounded to the dtype)."""
+    scale = _scale(q.shape[3])
+    scores = _scores(q, k, k_valid, causal)
+    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    dout = dout.to(q.dtype)
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    if keep_mask is not None:
+        dropped = _drop(probs.to(q.dtype), keep_mask, keep_prob)
+        dp = dp * (keep_mask.float() / keep_prob)
+    else:
+        dropped = probs.to(q.dtype)
+    dsum = torch.sum(dp * probs, dim=-1, keepdim=True)
+    ds = (probs * (dp - dsum) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(dropped.float().transpose(-1, -2), dout.float())
+    return tuple(x.to(q.dtype) for x in (dq, dk, dv))
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors if t is not None)
+
+
+def _check_smem(name: str, smem: int, tq: int, tk: int, dh: int) -> None:
+    if smem > MAX_SMEM:
+        raise ValueError(f"{name}: Tq={tq}, Tk={tk}, Dh={dh} needs {smem} "
+                         f"bytes of shared memory, above {MAX_SMEM}")
+
+
+def _forward(q, k, v, k_valid, causal, keep_mask, keep_prob):
+    if _on_cpu(q, k, v, k_valid, keep_mask):
+        return masked_attention_reference(q, k, v, k_valid, causal,
+                                          keep_mask, keep_prob)
+    tensors = [t for t in (q, k, v, k_valid, keep_mask) if t is not None]
+    dev = _build.require_cuda("masked_attention", *tensors)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    code = _DTYPE_CODES[q.dtype]
+    lib = _build.library()
+    _check_smem("masked_attention", lib.asr_masked_attention_smem(code, tk, dh),
+                tq, tk, dh)
+    name = "masked_attention" if keep_mask is None else "masked_attention_drop"
+    with torch.cuda.device(dev):
+        rc = lib.asr_masked_attention(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_valid.data_ptr(),
+            None if keep_mask is None else keep_mask.data_ptr(),
+            keep_prob, out.data_ptr(), b, h, tq, tk, dh, _scale(dh),
+            int(causal), _build.stream_ptr(dev))
+    _build.check(name, rc)
+    return out
+
+
+def _backward(q, k, v, k_valid, dout, causal, keep_mask, keep_prob):
+    if _on_cpu(q, k, v, k_valid, dout, keep_mask):
+        return masked_attention_bwd_reference(q, k, v, k_valid, dout, causal,
+                                              keep_mask, keep_prob)
+    dout = dout.to(q.dtype).contiguous()
+    tensors = [t for t in (q, k, v, k_valid, dout, keep_mask)
+               if t is not None]
+    dev = _build.require_cuda("masked_attention_bwd", *tensors)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    code = _DTYPE_CODES[q.dtype]
+    lib = _build.library()
+    _check_smem("masked_attention_bwd",
+                lib.asr_masked_attention_bwd_smem(code, tq, tk, dh),
+                tq, tk, dh)
+    with torch.cuda.device(dev):
+        rc = lib.asr_masked_attention_bwd(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_valid.data_ptr(),
+            None if keep_mask is None else keep_mask.data_ptr(),
+            keep_prob, dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, tq, tk, dh, _scale(dh), int(causal),
+            _build.stream_ptr(dev))
+    _build.check("masked_attention_bwd", rc)
+    return dq, dk, dv
+
+
+class MaskedAttention(torch.autograd.Function):
+    """Forward: the attention kernel (or its twin). Backward: the recompute
+    backward kernel (or its twin). Saves q, k, v, k_valid and the keep
+    mask, not P."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_valid, keep_mask, keep_prob, causal):
+        ctx.save_for_backward(q, k, v, k_valid, keep_mask)
+        ctx.causal, ctx.keep_prob = causal, keep_prob
+        return _forward(q, k, v, k_valid, causal, keep_mask, keep_prob)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, k_valid, keep_mask = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, k_valid, dout, ctx.causal, keep_mask,
+                               ctx.keep_prob)
+        return dq, dk, dv, None, None, None, None
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_valid: Optional[torch.Tensor] = None, *,
-                     causal: bool = False) -> torch.Tensor:
-    """Multi-head attention with key-validity and causal masks.
+                     causal: bool = False,
+                     keep_mask: Optional[torch.Tensor] = None,
+                     keep_prob: float = 1.0) -> torch.Tensor:
+    """Multi-head attention with key-validity and causal masks, and
+    attention-probability dropout.
 
     q [B, H, Tq, Dh]; k/v [B, H, Tk, Dh] (float32 or bfloat16, one dtype);
     k_valid [B, Tk] bool (True = attendable; None = all valid); ``causal``
-    masks keys with col > row (jnp.tril semantics, Tq != Tk too). Returns
-    [B, H, Tq, Dh] in q's dtype. Dh <= 128; Tk is bounded by shared memory.
+    masks keys with col > row (jnp.tril semantics, Tq != Tk too);
+    ``keep_mask`` [B, H, Tq, Tk] bool (True = keep; None = no dropout) with
+    ``keep_prob``. Returns [B, H, Tq, Dh] in q's dtype; differentiable in
+    q, k and v. Dh <= 128; Tk is bounded by shared memory.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("masked_attention: q, k, v must be [B, H, T, Dh]")
@@ -68,23 +207,12 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_valid = torch.ones((b, tk), dtype=torch.bool, device=q.device)
     if k_valid.shape != (b, tk) or k_valid.dtype != torch.bool:
         raise ValueError("masked_attention: k_valid must be [B, Tk] bool")
-    tensors = (q, k, v, k_valid)
-    if all(t.device.type == "cpu" for t in tensors):
-        return masked_attention_reference(q, k, v, k_valid, causal)
-    dev = _build.require_cuda("masked_attention", *tensors)
-    if q.numel() == 0:
-        return torch.empty_like(q)
-    code = _DTYPE_CODES[q.dtype]
-    lib = _build.library()
-    smem = lib.asr_masked_attention_smem(code, tk, dh)
-    if smem > MAX_SMEM:
-        raise ValueError(f"masked_attention: Tk={tk}, Dh={dh} needs {smem} "
-                         f"bytes of shared memory, above {MAX_SMEM}")
-    out = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        rc = lib.asr_masked_attention(
-            code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            k_valid.data_ptr(), out.data_ptr(), b, h, tq, tk, dh,
-            _scale(dh), int(causal), _build.stream_ptr(dev))
-    _build.check("masked_attention", rc)
-    return out
+    if keep_mask is not None:
+        if keep_mask.shape != (b, h, tq, tk) or keep_mask.dtype != torch.bool:
+            raise ValueError("masked_attention: keep_mask must be "
+                             "[B, H, Tq, Tk] bool")
+        if not 0.0 < keep_prob <= 1.0:
+            raise ValueError(f"masked_attention: keep_prob {keep_prob} is "
+                             "not in (0, 1]")
+    return MaskedAttention.apply(q, k, v, k_valid, keep_mask,
+                                 float(keep_prob), bool(causal))

@@ -4,7 +4,9 @@ fbank [B, 1, T, F] (NCHW; the JAX package feeds NHWC [B, T, F, 1]) ->
 pinyin CTC logits [B, T/8, vocab] f32. Stage = pooled cell -> unpooled cell
 -> + SE (residual); the pooled cell's "maxpool" average-pools
 (acoustic_model2.py:115-117), and the head reshapes channels-last, F major
-and C minor, as the NHWC original does.
+and C minor, as the NHWC original does. ``forward`` follows the module's
+mode: in training the BatchNorms use batch statistics (and update their
+running ones) and dropout acts before the logits head (dfcnn.py:156).
 """
 
 from __future__ import annotations
@@ -17,14 +19,14 @@ from torch import nn
 
 from asr_dfcnn_transformer_torch.audio.fbank import FbankConfig, valid_frames
 from asr_dfcnn_transformer_torch.models.layers import (ConvBnCell, Dense,
-                                                       SqueezeExcite)
+                                                       Dropout, SqueezeExcite)
 
 
 @dataclasses.dataclass(frozen=True)
 class SEDFCNNConfig:
-    """The Flax ``SEDFCNN``'s fields, name for name. ``dropout_rate`` and
-    ``remat_stages`` only act in training, which the port does not run
-    yet; ``logits_matmul`` supports "f32"."""
+    """The Flax ``SEDFCNN``'s fields, name for name. ``dropout_rate`` acts
+    in training only; ``remat_stages`` is not supported yet (it changes no
+    value, only the backward's memory); ``logits_matmul`` supports "f32"."""
 
     vocab_size: int
     stage_features: Sequence[int] = (32, 64, 128, 128, 128)
@@ -72,12 +74,15 @@ class SEDFCNN(nn.Module):
             f = f // 2 if pool else f
         self.add_module(f"ConvBnCell_{2 * n}",
                         ConvBnCell(in_ch, c.head_features, **kw))
+        self.dropout = Dropout(c.dropout_rate)
         self.Dense_0 = Dense(f * c.head_features, c.vocab_size,
                              dtype=torch.float32, device=device,
                              generator=gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, 1, T, F] -> logits [B, T', vocab] float32."""
+    def forward(self, x: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, 1, T, F] -> logits [B, T', vocab] float32. ``generator``
+        draws the dropout mask in training."""
         c = self.config
         if c.space_to_depth:
             b, ch, t, f = x.shape
@@ -94,7 +99,7 @@ class SEDFCNN(nn.Module):
         x = getattr(self, f"ConvBnCell_{2 * len(c.stage_features)}")(x)
         b, ch, t, f = x.shape
         x = x.permute(0, 2, 3, 1).reshape(b, t, f * ch)   # F major, C minor
-        return self.Dense_0(x)
+        return self.Dense_0(self.dropout(x, generator))
 
 
 def logit_lengths(frame_lengths: torch.Tensor,

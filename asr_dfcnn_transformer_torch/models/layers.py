@@ -8,7 +8,11 @@ so ``convert.py`` maps one onto the other by name. Layouts are PyTorch's:
 convolutions run NCHW, linear weights are [out, in].
 
 Initialisation draws from an explicit ``torch.Generator`` on the CPU and
-copies to ``device``; trained weights come through ``convert.py``.
+copies to ``device``; trained weights come through ``convert.py``. In
+training mode (``.train()``) BatchNorm normalises with batch statistics and
+updates its running ones, and dropout draws its keep masks from the
+``generator`` a forward is given (on the tensor's device), as Flax draws
+from its ``dropout`` rng.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from asr_dfcnn_transformer_torch.kernels.attention import (BIG_NEG,
                                                           masked_attention)
 
 BN_EPS = 1e-3      # every BatchNorm of the AM (layers.py ConvBnCell)
+BN_MOMENTUM = 0.99  # Flax BatchNorm's default (ra = m * ra + (1 - m) * stat)
 LN_EPS = 1e-6      # Flax LayerNorm's default, not torch's 1e-5
 
 
@@ -77,8 +82,14 @@ class Conv3x3(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over channel axis 1 with Flax's arithmetic:
-    (x - mean) * (scale * rsqrt(var + eps)) + bias in f32, cast to dtype."""
+    """BatchNorm over channel axis 1 with Flax's arithmetic:
+    (x - mean) * (scale * rsqrt(var + eps)) + bias in f32, cast to dtype.
+
+    Evaluation uses the running statistics. Training uses the batch's, as
+    ``flax.linen.BatchNorm(use_running_average=False)`` computes them (f32,
+    ``var = E[x^2] - E[x]^2`` clipped at 0), and updates the running ones
+    with Flax's rule and the biased variance: ``ra = 0.99 ra + 0.01 stat``
+    (not ``F.batch_norm``'s unbiased rule or its meaning of momentum)."""
 
     def __init__(self, features: int, *, dtype: torch.dtype, device):
         super().__init__()
@@ -90,9 +101,52 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        xf = x.float()
+        if self.training:
+            axes = (0,) + tuple(range(2, x.dim()))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(self.dtype)
+
+
+def keep_mask(shape, keep_prob: float, device,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A bool keep mask: uniform [0, 1) draws below ``keep_prob``, as
+    ``jax.random.bernoulli`` draws them (from ``generator``, on
+    ``device``; None = torch's default generator)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u < keep_prob
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``, active in training mode only:
+    ``where(keep, x / keep_prob, 0)`` in x's dtype."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = keep_mask(x.shape, 1.0 - self.rate, x.device, generator)
+        # keep_prob rounded to x's dtype first, as JAX's weak typing rounds
+        # it; a CPU 0-dim tensor acts as a scalar on any device, so no
+        # blocking host -> device copy per call
+        kp = torch.tensor(1.0 - self.rate, dtype=x.dtype)
+        return torch.where(keep, x / kp, 0.0)
 
 
 class LayerNorm(nn.Module):
@@ -210,16 +264,20 @@ class MultiHeadAttention(nn.Module):
     """Multi-head attention with residual + LayerNorm, full-sequence
     forward (layers.py:264-358). ``parity``: ReLU'd, bias-free Q/K/V/out
     projections. The attention core is ``kernels.masked_attention``
-    (the CUDA kernel on the card, its twin on the CPU); the head split is
-    head-major, ``[B, T, H, Dh]``."""
+    (the CUDA kernels on the card, their twins on the CPU); the head split
+    is head-major, ``[B, T, H, Dh]``. In training, ``dropout_rate`` drops
+    attention probabilities through a keep mask [B, H, Tq, Tk] that the
+    kernel applies (layers.py:321-330)."""
 
-    def __init__(self, d_model: int, num_heads: int, *, parity: bool = False,
+    def __init__(self, d_model: int, num_heads: int, *,
+                 dropout_rate: float = 0.0, parity: bool = False,
                  dtype: torch.dtype, device, generator: torch.Generator):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must divide into num_heads")
         self.d_model = d_model
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.parity = parity
         kw = dict(bias=not parity, dtype=dtype, device=device,
                   generator=generator)
@@ -239,16 +297,24 @@ class MultiHeadAttention(nn.Module):
     def forward(self, queries: torch.Tensor, keys: torch.Tensor,
                 values: Optional[torch.Tensor] = None, *,
                 k_valid: Optional[torch.Tensor] = None,
-                causal: bool = False) -> torch.Tensor:
+                causal: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``k_valid`` [B, Tk] bool + ``causal``: the structured form of
-        ``attention_mask(q_valid, k_valid, causal)``."""
+        ``attention_mask(q_valid, k_valid, causal)``. ``generator`` draws
+        the dropout keep mask in training."""
         if values is None:
             values = keys
         b, tq, _ = queries.shape
         q = self._heads(self._act(self.q(queries)))
         k = self._heads(self._act(self.k(keys)))
         v = self._heads(self._act(self.v(values)))
-        out = masked_attention(q, k, v, k_valid, causal=causal)
+        drop, keep = None, 1.0
+        if self.training and self.dropout_rate > 0.0:
+            keep = 1.0 - self.dropout_rate
+            drop = keep_mask((b, self.num_heads, tq, k.shape[2]), keep,
+                             q.device, generator)
+        out = masked_attention(q, k, v, k_valid, causal=causal,
+                               keep_mask=drop, keep_prob=keep)
         out = out.transpose(1, 2).reshape(b, tq, self.d_model)
         out = self._act(self.out(out)) + queries
         return self.LayerNorm_0(out)
@@ -256,7 +322,8 @@ class MultiHeadAttention(nn.Module):
 
 class FeedForward(nn.Module):
     """relu(x W1 + b1) W2 + b2, residual, LayerNorm (layers.py:403; the
-    unfused path, parameters under Dense_0 / Dense_1)."""
+    unfused path, parameters under Dense_0 / Dense_1). No dropout: the LM
+    builds its FFNs with the default rate 0."""
 
     def __init__(self, d_model: int, inner: Optional[int] = None, *,
                  dtype: torch.dtype, device, generator: torch.Generator):
@@ -271,3 +338,10 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.Dense_1(F.relu(self.Dense_0(x)))
         return self.LayerNorm_0(y + x)
+
+
+def label_smoothing(one_hot: torch.Tensor, epsilon: float = 0.1
+                    ) -> torch.Tensor:
+    """Uniform label smoothing (layers.py:456)."""
+    v = one_hot.shape[-1]
+    return (1.0 - epsilon) * one_hot + epsilon / v

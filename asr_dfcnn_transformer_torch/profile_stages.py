@@ -1,6 +1,6 @@
 """Where one recognition batch spends its time on the card, stage by stage.
 
-    python -m asr_dfcnn_transformer_torch.profile_stages [--out PATH]
+    python -m asr_dfcnn_transformer_torch.profile_stages [--out PATH] [--train]
 
 Builds the full-width bf16 SE-DFCNN + Transformer LM from a seeded
 ``torch.Generator`` and, for each of the server's buckets at its batch of
@@ -10,6 +10,12 @@ the whole batch. Then it traces a few batches at the largest bucket with
 ``torch.profiler`` and reports the device's busy share and its top
 kernels. Needs one CUDA device; exits non-zero without one. Writes the
 full kernel table to ``--out`` (default ``profile_stages.txt``).
+
+``--train`` profiles the training path instead: for each full-width
+trainer (``AMTrainer`` at batch 16, bucket 1600; ``LMTrainer`` at 64 x 64,
+dropout 0.5), a few steps after warm-up under ``torch.profiler``: wall per
+step, device kernel time and the top kernels (tables to ``<out>.am`` and
+``<out>.lm``).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -26,6 +33,7 @@ from asr_dfcnn_transformer_torch import vocab
 from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
                                                      batched_fbank,
                                                      samples_for_frames)
+from asr_dfcnn_transformer_torch.data import AMBatch, LMBatch
 from asr_dfcnn_transformer_torch.infer.pipeline import pipeline_program
 from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
                                                 TransformerLM,
@@ -33,6 +41,7 @@ from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
                                                 frames_from_samples,
                                                 logit_lengths)
 from asr_dfcnn_transformer_torch.ops import ctc_greedy_decode
+from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer
 
 STAGES = ("fbank", "am", "decode", "lm")
 BATCH = 8
@@ -58,9 +67,70 @@ def _stages(am, lm, sig, lens, bucket, cfg):
     return ev, (ids_len, han)
 
 
+def _trace(fn, steps: int):
+    """(wall ms per step, device kernel ms per step, profiler events) of
+    ``steps`` calls of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    # kernels and copies are the device-side events; CPU ops would count
+    # their kernels a second time, and so would a user annotation's device
+    # range (the optimizer's step is one)
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
+    return wall_us / 1e3 / steps, dev_us / 1e3 / steps, events
+
+
+def _write_table(events, path: str) -> None:
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(table)
+    print("\n".join(table.splitlines()[:16]))
+
+
+def profile_training(am, lm, av, lv, out: str, steps: int = 3) -> None:
+    """The training path's breakdown, one trainer at a time."""
+    rng = np.random.default_rng(SEED)
+    s = samples_for_frames(1600)
+    sig = (0.1 * rng.standard_normal((16, s))).astype(np.float32)
+    lens = np.full(16, s, np.int32)
+    pny = np.zeros((16, 64), np.int32)
+    pny[:, :48] = rng.integers(1, av.size - 1, (16, 48))
+    pny_len = np.full(16, 48, np.int32)
+    frames = np.full(16, 1600, np.int32)
+    am_batch = AMBatch(sig, lens, frames, pny, pny_len, pny, pny_len,
+                       np.ones(16, np.float32), 1600)
+    ids = rng.integers(1, av.size, (64, 64)).astype(np.int32)
+    lm_batch = LMBatch(ids, rng.integers(1, lv.size, (64, 64)).astype(
+        np.int32), np.full(64, 64, np.int32), np.ones(64, np.float32))
+    with tempfile.TemporaryDirectory() as workdir:
+        for name, tr, batch in (
+                ("am", AMTrainer(am, os.path.join(workdir, "am")), am_batch),
+                ("lm", LMTrainer(lm, os.path.join(workdir, "lm")),
+                 lm_batch)):
+            for _ in range(2):
+                tr.train_step(batch)
+            wall, dev_ms, events = _trace(lambda: tr.train_step(batch), steps)
+            print(f"train {name}: {steps} steps traced, wall {wall:.3f} ms "
+                  f"per step, device kernel time {dev_ms:.3f} ms per step "
+                  f"(busy {100 * dev_ms / wall:.1f}%)")
+            _write_table(events, f"{out}.{name}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="profile_stages.txt")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the training path instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_stages: no CUDA device", file=sys.stderr)
@@ -73,10 +143,14 @@ def main(argv=None) -> int:
     am = SEDFCNN(SEDFCNNConfig(av.size), device=dev, generator=gen).eval()
     lm = TransformerLM(TransformerLMConfig(av.size, lv.size), device=dev,
                        generator=gen).eval()
+    print(f"device {torch.cuda.get_device_name(0)}")
+    if args.train:
+        profile_training(am, lm, av, lv, args.out)
+        return 0
     cfg = FbankConfig()
     rng = np.random.default_rng(SEED)
-    print(f"device {torch.cuda.get_device_name(0)}, batch {BATCH}, "
-          f"bf16, times in ms (CUDA events, mean of {ITERS})")
+    print(f"batch {BATCH}, bf16, times in ms (CUDA events, mean of "
+          f"{ITERS})")
     with torch.inference_mode():
         for bucket in BUCKETS:
             s = samples_for_frames(bucket)
@@ -106,28 +180,15 @@ def main(argv=None) -> int:
         sig = torch.from_numpy(0.1 * rng.standard_normal(
             (BATCH, s)).astype(np.float32)).to(dev)
         lens = torch.full((BATCH,), s, dtype=torch.int32, device=dev)
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(TRACE_BATCHES):
-                pipeline_program(am, lm, sig, lens, bucket, fbank_cfg=cfg,
-                                 lm_max_len=100)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    # kernels and copies are the device-side events; CPU ops would count
-    # their kernels a second time
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        wall, dev_ms, events = _trace(
+            lambda: pipeline_program(am, lm, sig, lens, bucket,
+                                     fbank_cfg=cfg, lm_max_len=100),
+            TRACE_BATCHES)
     print(f"trace, bucket {bucket}, {TRACE_BATCHES} batches: device "
-          f"kernel time {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
-          f"wall (busy {100 * dev_us / wall_us:.1f}%)")
-    table = events.table(sort_by="self_device_time_total", row_limit=40)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w", encoding="utf-8") as f:
-        f.write(table)
-    print("\n".join(table.splitlines()[:16]))
+          f"kernel time {dev_ms * TRACE_BATCHES:.3f} ms of "
+          f"{wall * TRACE_BATCHES:.3f} ms wall (busy "
+          f"{100 * dev_ms / wall:.1f}%)")
+    _write_table(events, args.out)
     return 0
 
 

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's AM -> LM serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi), then a build of
-   every CUDA kernel of the path from ``asr_dfcnn_transformer_torch/csrc``.
+   every CUDA kernel of both paths from ``asr_dfcnn_transformer_torch/csrc``.
 2. Kernels against their plain-PyTorch twins on the card, on seeded inputs
-   at the main path's shapes (``log_mel`` + ``cmvn``, ``masked_attention``
-   in f32 and bf16), each with its tolerance; then each kernel's time
-   beside its twin's (CUDA events after warm-up).
+   at the main paths' shapes (``log_mel`` + ``cmvn``; ``masked_attention``
+   in f32 and bf16; ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129;
+   the attention backward and the dropout forward at the LM's training
+   shape), each with its tolerance; then each kernel's time beside its
+   twin's (CUDA events after warm-up, in turns).
 3. The served main path: full-width SE-DFCNN + 12-block Transformer LM in
    bf16 from a seeded ``torch.Generator``, behind the port's ``Pipeline``
    and ``BatchingServer`` (max_batch 8, buckets 400/800/1200/1600), answering
@@ -19,6 +21,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 4. Card against CPU: two utterances at bucket 400 in f32, on the card
    through the kernels and on the CPU through the twins; pinyin (per-frame)
    and hanzi ids must agree wherever the CPU's top-2 logit margin >= 1e-3.
+5. The training path at full width, bf16 compute and f32 parameters: 10
+   ``AMTrainer`` steps (SE-DFCNN, batch 16 at bucket 1600, 48-token labels
+   padded to 64) and 10 ``LMTrainer`` steps (12x512x8 LM, dropout 0.5,
+   batch 64 x 64) on one fixed synthetic batch each; every loss finite,
+   the last below the first, every parameter with a finite gradient after
+   the first step; ms/step and peak memory; one eval step and one epoch of
+   ``fit`` with a checkpoint each. The launch counters are reset just
+   before and read just after: every training kernel must have run.
+6. Card against CPU for one training step of each trainer, f32, small
+   widths, dropout 0, the same weights: the gradients must agree.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -29,8 +41,11 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import as_completed
 
@@ -51,7 +66,24 @@ KERNELS = {
     "masked_attention": (
         "asr_dfcnn_transformer_torch/csrc/attention.cu",
         "asr_dfcnn_transformer_tpu/ops/pallas/attn_kernel.py:531"),
+    "masked_attention_drop": (
+        "asr_dfcnn_transformer_torch/csrc/attention.cu",
+        "asr_dfcnn_transformer_tpu/ops/pallas/attn_kernel.py:484"),
+    "masked_attention_bwd": (
+        "asr_dfcnn_transformer_torch/csrc/attention.cu",
+        "asr_dfcnn_transformer_tpu/ops/pallas/attn_kernel.py:411"),
+    "ctc_alpha": ("asr_dfcnn_transformer_torch/csrc/ctc.cu",
+                  "asr_dfcnn_transformer_tpu/ops/pallas/ctc_kernel.py:123"),
+    "ctc_beta_xi": ("asr_dfcnn_transformer_torch/csrc/ctc.cu",
+                    "asr_dfcnn_transformer_tpu/ops/pallas/ctc_kernel.py:156"),
 }
+SERVED = ("log_mel", "cmvn", "masked_attention")      # launched by phase 3
+TRAINED = ("masked_attention_drop", "masked_attention_bwd", "ctc_alpha",
+           "ctc_beta_xi")                              # launched by phase 5
+AM_BATCH, AM_BUCKET, AM_LABELS = 16, 1600, (48, 64)   # AmConfig.batch_size
+LM_BATCH, LM_LEN = 64, 64                             # LmConfig.batch_size
+TRAIN_STEPS, WARMUP_STEPS = 10, 2
+LM_LR = 5e-4          # 10x LmConfig.lr: ten steps show the fit through dropout
 
 
 class PhaseError(RuntimeError):
@@ -202,9 +234,156 @@ def phase_kernels(results):
                     lambda: masked_attention_reference(qd, kd, vd, k_valid,
                                                        True))
                 results["masked_attention"].update(ms=k_ms, plain_ms=p_ms)
+    check_ctc_kernels(results, rng)
+    check_attention_training_kernels(results, rng)
     for name, r in results.items():
         print(f"time {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms")
+
+
+def ctc_problem(rng, b=AM_BATCH, t=200, lmax=64, v=1536):
+    """Seeded CTC inputs at the AM's training shape: ragged logit lengths,
+    label lengths up to ``lmax`` with an empty label and one unsatisfiable
+    row (more labels than frames)."""
+    logits = (2.0 * rng.standard_normal((b, t, v))).astype(np.float32)
+    logit_len = rng.integers(t // 2, t + 1, size=b).astype(np.int32)
+    label_len = rng.integers(1, lmax + 1, size=b).astype(np.int32)
+    logit_len[0], label_len[0] = t, lmax
+    label_len[1] = 0                                  # empty label
+    logit_len[2], label_len[2] = lmax // 2, lmax      # unsatisfiable
+    labels = rng.integers(0, v - 1, size=(b, lmax)).astype(np.int32)
+    return logits, logit_len, labels, label_len
+
+
+def check_ctc_kernels(results, rng):
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import (alpha_stack_reference,
+                                                     beta_xi_reference,
+                                                     ctc_alpha, ctc_beta_xi)
+    from asr_dfcnn_transformer_torch.ops import ctc as ctc_ops
+    dev = torch.device(DEVICE)
+    logits, logit_len, labels, label_len = ctc_problem(rng)
+    v = logits.shape[-1]
+    lp = torch.log_softmax(torch.from_numpy(logits).to(dev), -1)
+    lens = torch.from_numpy(logit_len).to(dev)
+    lab_len = torch.from_numpy(label_len).to(dev)
+    ext, valid, can_skip = ctc_ops._extended_labels(
+        torch.from_numpy(labels).long().to(dev), lab_len, v - 1)
+    emit = ctc_ops._emissions(lp, ext)
+    init = ctc_ops._alpha0(lp, emit, lab_len, valid, v - 1)
+    alphas = ctc_alpha(emit, init, can_skip, valid, lens)
+    alphas_ref = alpha_stack_reference(emit, init, can_skip, valid, lens)
+    ok_a, err_a = close_enough(alphas, alphas_ref, 1e-5, 1e-5)
+    total = ctc_ops._total_from_alpha(alphas_ref[-1], lab_len, lens)
+    binit = ctc_ops._beta_init(valid, lab_len)
+    skip_from = torch.nn.functional.pad(can_skip, (0, 2))[:, 2:].contiguous()
+    xi_args = (emit, alphas_ref, binit, skip_from, valid, lens, total)
+    xi = ctc_beta_xi(*xi_args)
+    xi_ref = beta_xi_reference(*xi_args)
+    ok_x, err_x = close_enough(xi, xi_ref, 0.0, 1e-6)
+    dead = bool((xi[:, 2] == 0).all())
+    print(f"ctc_alpha {list(emit.shape)}: max abs err {err_a:.3g} (rtol "
+          f"1e-5, atol 1e-5) {'ok' if ok_a else 'FAIL'}; ctc_beta_xi: max "
+          f"abs err {err_x:.3g} (atol 1e-6) {'ok' if ok_x else 'FAIL'}, "
+          f"unsatisfiable row all zero: {dead}")
+    require(ok_a and ok_x and dead, "a CTC DP kernel disagrees with its twin")
+    results["ctc_alpha"]["max_abs_err"] = err_a
+    results["ctc_beta_xi"]["max_abs_err"] = err_x
+    results["ctc_alpha"].update(zip(("ms", "plain_ms"), paired_ms(
+        lambda: ctc_alpha(emit, init, can_skip, valid, lens),
+        lambda: alpha_stack_reference(emit, init, can_skip, valid, lens))))
+    results["ctc_beta_xi"].update(zip(("ms", "plain_ms"), paired_ms(
+        lambda: ctc_beta_xi(*xi_args), lambda: beta_xi_reference(*xi_args))))
+
+    # the loss and its gradient on the card against the CPU's twins
+    loss_grad = {}
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, len(logit_len))
+                         .astype(np.float32))
+    for where in ("cpu", DEVICE):
+        x = torch.from_numpy(logits).to(where).requires_grad_(True)
+        loss = ctc_ops.ctc_loss(x, torch.from_numpy(logit_len).to(where),
+                                torch.from_numpy(labels).to(where),
+                                torch.from_numpy(label_len).to(where))
+        (grad,) = torch.autograd.grad(loss, x, g.to(where))
+        loss_grad[where] = (loss.detach().cpu(), grad.cpu())
+    (lc, gc), (lg, gg) = loss_grad["cpu"], loss_grad[DEVICE]
+    ok_l, err_l = close_enough(lg, lc, 1e-5, 0.0)
+    # The card's expf/logf and the CPU's differ in the last bit, and one
+    # ulp of a log-probability of ~-1800 (200 random frames) is ~1.2e-4, so
+    # the posteriors exp(alpha + beta - log P) carry that much relative
+    # error on either device: the gradient's atol is 8 ulps of the largest
+    # finite loss, not the twins' 1e-5 (on the card the kernels and their
+    # twins agree exactly, above).
+    big = float(lc[lc < 1e29].abs().max())
+    atol = 8 * float(np.spacing(np.float32(big)))
+    ok_g, err_g = close_enough(gg, gc, 1e-4, atol)
+    finite = bool(torch.isfinite(gg).all())
+    print(f"ctc_loss card vs CPU: loss max abs err {err_l:.3g} (rtol 1e-5) "
+          f"grad max abs err {err_g:.3g} (rtol 1e-4, atol {atol:.3g} = 8 "
+          f"ulps of the largest loss {big:.1f}) finite {finite} "
+          f"{'ok' if ok_l and ok_g else 'FAIL'}")
+    require(ok_l and ok_g and finite, "ctc_loss on the card disagrees with "
+            "the CPU")
+
+
+def check_attention_training_kernels(results, rng):
+    """The backward kernel and the dropout forward against their twins at
+    the LM's training shape [64, 8, 64, 64]: causal, ragged keys with one
+    fully invalid row, keep mask off and at 0.5."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    dev = torch.device(DEVICE)
+    b, h, t, dh = LM_BATCH, 8, LM_LEN, 64
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+        (b, h, t, dh)).astype(np.float32)).to(dev) for _ in range(4))
+    k_valid = torch.from_numpy(rng.uniform(size=(b, t)) > 0.3).to(dev)
+    k_valid[:, 0] = True
+    k_valid[0] = False                           # one fully invalid row
+    keep = torch.from_numpy(rng.uniform(size=(b, h, t, t)) < 0.5).to(dev)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd, dd = (x.to(dtype) for x in (q, k, v, dout))
+        for mask in (None, keep):
+            kp = 1.0 if mask is None else 0.5
+            errs, ok = [], True
+            if mask is not None:
+                got = attn._forward(qd, kd, vd, k_valid, True, mask, kp)
+                want = attn.masked_attention_reference(qd, kd, vd, k_valid,
+                                                       True, mask, kp)
+                good, err_f = close_enough(got, want, tol[dtype], tol[dtype])
+                good &= bool(torch.isfinite(got.float()).all())
+                ok &= good
+                errs.append(f"out {err_f:.3g}")
+            got = attn._backward(qd, kd, vd, k_valid, dd, True, mask, kp)
+            want = attn.masked_attention_bwd_reference(qd, kd, vd, k_valid,
+                                                       dd, True, mask, kp)
+            err_b = 0.0
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                good, err = close_enough(x, y, tol[dtype], tol[dtype])
+                good &= bool(torch.isfinite(x.float()).all())
+                ok &= good
+                err_b = max(err_b, err)
+                errs.append(f"{name} {err:.3g}")
+            print(f"attention training kernels [{b}, {h}, {t}, {dh}] {dtype} "
+                  f"keep {kp}: max abs err {', '.join(errs)} (tol "
+                  f"{tol[dtype]}) {'ok' if ok else 'FAIL'}")
+            require(ok, "an attention training kernel disagrees with its twin")
+            if dtype != torch.bfloat16 or mask is None:
+                continue
+            results["masked_attention_drop"]["max_abs_err"] = err_f
+            results["masked_attention_bwd"]["max_abs_err"] = err_b
+            results["masked_attention_drop"].update(zip(
+                ("ms", "plain_ms"), paired_ms(
+                    lambda: attn._forward(qd, kd, vd, k_valid, True, mask,
+                                          kp),
+                    lambda: attn.masked_attention_reference(
+                        qd, kd, vd, k_valid, True, mask, kp))))
+            results["masked_attention_bwd"].update(zip(
+                ("ms", "plain_ms"), paired_ms(
+                    lambda: attn._backward(qd, kd, vd, k_valid, dd, True,
+                                           mask, kp),
+                    lambda: attn.masked_attention_bwd_reference(
+                        qd, kd, vd, k_valid, dd, True, mask, kp))))
 
 
 def build_models(dtype, device):
@@ -216,9 +395,9 @@ def build_models(dtype, device):
     av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
     gen = torch.Generator().manual_seed(SEED)
     am = SEDFCNN(SEDFCNNConfig(av.size, dtype=dtype), device=device,
-                 generator=gen)
+                 generator=gen).eval()
     lm = TransformerLM(TransformerLMConfig(av.size, lv.size, dtype=dtype),
-                       device=device, generator=gen)
+                       device=device, generator=gen).eval()
     return am, lm, av, lv
 
 
@@ -267,7 +446,7 @@ def phase_served(results):
     print(f"example: {len(outs[0][0])} pinyin, first "
           f"{' '.join(outs[0][0][:5])!r}, hanzi {outs[0][1][:8]!r}")
     print(f"launch counts on the served path: {counts}")
-    for name in KERNELS:
+    for name in SERVED:
         require(counts.get(name, 0) > 0, f"{name} was never launched")
         results[name]["launches"] = counts[name]
 
@@ -329,6 +508,176 @@ def phase_card_vs_cpu():
         require(seq_equal, "decoded pinyin differs with every margin >= 1e-3")
 
 
+def am_batch(rng, batch, bucket, labels, vocab):
+    """A fixed synthetic AM batch: tone utterances of ragged length (the
+    first fills the bucket), ``labels`` = (tokens, padded width) random
+    pinyin ids (never 0, never the blank)."""
+    from asr_dfcnn_transformer_torch.audio.fbank import samples_for_frames
+    from asr_dfcnn_transformer_torch.data import AMBatch
+    n = samples_for_frames(bucket)
+    lens = rng.integers(int(0.6 * n), n + 1, size=batch).astype(np.int32)
+    lens[0] = n
+    sig = np.zeros((batch, n), np.float32)
+    for i, m in enumerate(lens):
+        sig[i, :m] = tone_utterance(rng, int(m))
+    frames = (1 + np.ceil((lens - 400) / 160)).astype(np.int32)
+    n_tok, width = labels
+    pinyin = np.zeros((batch, width), np.int32)
+    pinyin[:, :n_tok] = rng.integers(1, vocab - 1, size=(batch, n_tok))
+    pny_len = np.full(batch, n_tok, np.int32)
+    return AMBatch(sig, lens, frames, pinyin, pny_len, pinyin.copy(),
+                   pny_len.copy(), np.ones(batch, np.float32), bucket)
+
+
+def lm_batch(rng, batch, length, in_vocab, out_vocab):
+    """A fixed synthetic LM batch: ragged pinyin/hanzi id rows with PAD
+    tails, the last row back-filled (weight 0)."""
+    from asr_dfcnn_transformer_torch.data import LMBatch
+    lens = rng.integers(length // 2, length + 1, size=batch).astype(np.int32)
+    lens[0] = length
+    pinyin = np.zeros((batch, length), np.int32)
+    hanzi = np.zeros((batch, length), np.int32)
+    for i, m in enumerate(lens):
+        pinyin[i, :m] = rng.integers(1, in_vocab, m)
+        hanzi[i, :m] = rng.integers(1, out_vocab, m)
+    weights = np.ones(batch, np.float32)
+    weights[-1] = 0.0
+    return LMBatch(pinyin, hanzi, lens, weights)
+
+
+def train_steps(name, tr, batch):
+    """TRAIN_STEPS steps on one batch; the checks of phase 5; returns the
+    losses, ms/step over the steps after WARMUP_STEPS, and peak memory."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [tr.train_step(batch, gen)["loss"]]
+    params = dict(tr.model.named_parameters())
+    no_grad = [n for n, p in params.items() if p.grad is None]
+    not_finite = [n for n, p in params.items() if p.grad is not None
+                  and not bool(torch.isfinite(p.grad).all())]
+    print(f"{name}: after step 1, {len(params) - len(no_grad)} of "
+          f"{len(params)} parameters have a gradient, {len(not_finite)} "
+          f"non-finite")
+    require(not no_grad, f"{name}: no gradient for {no_grad[:5]}")
+    require(not not_finite, f"{name}: non-finite gradient in "
+            f"{not_finite[:5]}")
+    for _ in range(WARMUP_STEPS - 1):
+        losses.append(tr.train_step(batch, gen)["loss"])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_STEPS - WARMUP_STEPS):
+        losses.append(tr.train_step(batch, gen)["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (TRAIN_STEPS - WARMUP_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    print(f"{name}: {TRAIN_STEPS} steps, losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"{name}: {ms:.2f} ms/step over steps {WARMUP_STEPS + 1}-"
+          f"{TRAIN_STEPS} (CUDA events), peak memory {peak / 2**30:.2f} GiB")
+    require(all(np.isfinite(losses)), f"{name}: a loss is not finite")
+    require(losses[-1] < losses[0], f"{name}: the loss did not fall")
+    ev = {k: float(v) for k, v in tr.eval_step(batch).items()}
+    print(f"{name}: eval step {ev}")
+    require(all(np.isfinite(list(ev.values()))), f"{name}: eval not finite")
+    out = tr.fit(lambda: iter([batch]), lambda: iter([batch]), epochs=1,
+                 generator=gen)
+    saved = tr.ckpt.latest_step()
+    print(f"{name}: fit epoch {out}, checkpoint step {saved}, best metric "
+          f"{tr.ckpt.best_metric()}")
+    require(saved == 0 and np.isfinite(out["dev_loss"]),
+            f"{name}: fit saved no checkpoint")
+    return {"losses": losses, "ms_per_step": ms, "peak_bytes": peak}
+
+
+def phase_training(results):
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer
+    am, lm, av, lv = build_models(torch.bfloat16, DEVICE)
+    rng = np.random.default_rng(SEED + 3)
+    amb = am_batch(rng, AM_BATCH, AM_BUCKET, AM_LABELS, av.size)
+    lmb = lm_batch(rng, LM_BATCH, LM_LEN, av.size, lv.size)
+    print(f"training: AM batch {AM_BATCH} at bucket {AM_BUCKET}, "
+          f"{AM_LABELS[0]} labels padded to {AM_LABELS[1]}; LM batch "
+          f"{LM_BATCH} x {LM_LEN}, dropout {lm.config.dropout_rate}; "
+          f"bf16 compute, f32 parameters, Adam (AM lr 7e-4, LM lr {LM_LR})")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        reset_launches()
+        train_steps("am", AMTrainer(am, os.path.join(workdir, "am")), amb)
+        train_steps("lm", LMTrainer(lm, os.path.join(workdir, "lm"),
+                                    lr=LM_LR), lmb)
+        counts = dict(LAUNCHES)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"launch counts on the training path: {counts}")
+    for name in TRAINED:
+        require(counts.get(name, 0) > 0, f"{name} was never launched")
+        results[name]["launches"] = counts[name]
+
+
+def phase_train_card_vs_cpu():
+    """One step of each trainer at small widths, f32, dropout 0, the same
+    weights on the card (kernels) and the CPU (twins); both AM steps read
+    the CPU's fbank features, which phase 2 holds to the kernels'."""
+    import torch
+    from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
+                                                    TransformerLM,
+                                                    TransformerLMConfig)
+    from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer
+    rng = np.random.default_rng(SEED + 4)
+    gen = torch.Generator().manual_seed(SEED)
+    am = SEDFCNN(SEDFCNNConfig(48, stage_features=(8, 8, 16, 16, 16),
+                               head_features=16, dropout_rate=0.0,
+                               dtype=torch.float32), generator=gen)
+    lm = TransformerLM(TransformerLMConfig(48, 64, d_model=64, num_heads=4,
+                                           num_blocks=2, dropout_rate=0.0,
+                                           dtype=torch.float32),
+                       generator=gen)
+    amb = am_batch(rng, 4, 128, (8, 12), 48)
+    lmb = lm_batch(rng, 4, 16, 48, 64)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cmp_")
+    try:
+        feats = None
+        for name, model, make, batch in (("am", am, AMTrainer, amb),
+                                         ("lm", lm, LMTrainer, lmb)):
+            out = {}
+            for where in ("cpu", DEVICE):
+                tr = make(copy.deepcopy(model).to(where),
+                          os.path.join(workdir, f"{name}_{where}"))
+                if name == "am":
+                    if feats is None:
+                        feats = tr.features(torch.from_numpy(batch.signals),
+                                            torch.from_numpy(
+                                                batch.signal_lengths),
+                                            batch.bucket_frames)
+                    tr.features = lambda *a, _d=where: feats.to(_d)
+                loss = float(tr.train_step(batch)["loss"])
+                grads = {n: p.grad.cpu()
+                         for n, p in tr.model.named_parameters()}
+                out[where] = loss, grads
+            (lc, gc), (lg, gg) = out["cpu"], out[DEVICE]
+            worst, worst_name, ok = 0.0, "", abs(lg - lc) <= 1e-5 * abs(lc)
+            for n, want in gc.items():
+                atol = 1e-5 * max(1.0, float(want.abs().max()))
+                good, err = close_enough(gg[n], want, 1e-4, atol)
+                ok &= good
+                if err >= worst:
+                    worst, worst_name = err, n
+            print(f"train step card vs CPU, {name}: loss {lg:.6f} vs "
+                  f"{lc:.6f}; {len(gc)} gradients, max abs err {worst:.3g} "
+                  f"({worst_name}; rtol 1e-4, atol 1e-5 x max(1, |grad|max)) "
+                  f"{'ok' if ok else 'FAIL'}")
+            require(ok, f"{name}: card and CPU training steps disagree")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -343,6 +692,8 @@ def main() -> int:
     phase_kernels(results)
     phase_served(results)
     phase_card_vs_cpu()
+    phase_training(results)
+    phase_train_card_vs_cpu()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

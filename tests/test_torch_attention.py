@@ -1,9 +1,12 @@
-"""The port's masked-attention twin against the JAX masked_flash_attention
-(Pallas, interpret mode on the CPU) and the einsum path's attention_mask.
+"""The port's masked-attention twins against the JAX masked_flash_attention
+(Pallas, interpret mode on the CPU) and the einsum path's attention_mask:
+the forward with and without dropout, and the VJP through the port's
+``MaskedAttention`` autograd Function.
 
-The CUDA kernel is held against this twin on the card by chip_smoke.py.
+The CUDA kernels are held against these twins on the card by chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +18,8 @@ from asr_dfcnn_transformer_tpu.models.layers import (
 from asr_dfcnn_transformer_tpu.ops.pallas.attn_kernel import (
     masked_flash_attention,
 )
-from asr_dfcnn_transformer_torch.kernels import masked_attention
+from asr_dfcnn_transformer_torch.kernels import (MaskedAttention, cmvn,
+                                                 log_mel, masked_attention)
 from asr_dfcnn_transformer_torch.models.layers import attention_mask
 
 torch.set_num_threads(2)
@@ -109,3 +113,96 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         m = q.to("meta")
         masked_attention(m, m, m)
+
+
+def _vjp_both(q, k, v, k_valid, g, causal, dtype, keep):
+    """(out, dq, dk, dv) from the JAX kernel's custom VJP (interpreted) and
+    from the port's Function, on one shared numpy keep mask (or none)."""
+    jdt, tdt, _ = _DTYPES[dtype]
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    dmask = None
+    if keep < 1.0:
+        dmask = np.random.default_rng(11).uniform(size=(b, h, tq, tk)) < keep
+    kv = jnp.asarray(k_valid)
+
+    def jax_fn(q_, k_, v_):
+        return masked_flash_attention(
+            q_, k_, v_, kv, causal=causal,
+            dropout_mask=None if dmask is None else jnp.asarray(dmask),
+            keep_prob=keep, interpret=True)
+
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    out, vjp = jax.vjp(jax_fn, jq, jk, jv)
+    want = [out] + list(vjp(jnp.asarray(g, jdt)))
+
+    tq_, tk_, tv_ = (torch.from_numpy(x).to(tdt).requires_grad_(True)
+                     for x in (q, k, v))
+    got_out = masked_attention(
+        tq_, tk_, tv_, torch.from_numpy(k_valid), causal=causal,
+        keep_mask=None if dmask is None else torch.from_numpy(dmask),
+        keep_prob=keep)
+    got = [got_out] + list(torch.autograd.grad(
+        got_out, (tq_, tk_, tv_), torch.from_numpy(g).to(tdt)))
+    return ([x.detach().float().numpy() for x in got],
+            [np.asarray(x, np.float32) for x in want])
+
+
+@pytest.mark.parametrize("keep", [1.0, 0.5])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vjp_matches_masked_flash(dtype, causal, keep):
+    """dq, dk, dv (and the forward) against jax.vjp of the interpreted
+    kernel, ragged keys with one fully invalid row, with and without a
+    dropout keep mask at 0.5."""
+    q, k, v, k_valid = _inputs(5, 3, 2, 12, 12, 32, ragged=True,
+                               full_invalid_row=True)
+    g = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
+    got, want = _vjp_both(q, k, v, k_valid, g, causal, dtype, keep)
+    tol = _DTYPES[dtype][2]
+    for name, x, y in zip(("out", "dq", "dk", "dv"), got, want):
+        assert np.all(np.isfinite(x)), name
+        np.testing.assert_allclose(x, y, atol=tol, rtol=tol, err_msg=name)
+
+
+def test_vjp_rectangular_matches_masked_flash():
+    q, k, v, k_valid = _inputs(7, 2, 2, 8, 20, 16, ragged=True)
+    g = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
+    got, want = _vjp_both(q, k, v, k_valid, g, True, "float32", 0.5)
+    for name, x, y in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(x, y, atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def test_masked_attention_is_differentiable():
+    """On the CPU the wrapper goes through the port's autograd Function, so
+    q, k and v all receive gradients, as they must on the card."""
+    q, k, v = (torch.randn(2, 2, 5, 8, requires_grad=True) for _ in range(3))
+    out = masked_attention(q, k, v, causal=True)
+    assert type(out.grad_fn).__name__ == f"{MaskedAttention.__name__}Backward"
+    out.square().sum().backward()
+    for x in (q, k, v):
+        assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+        assert float(x.grad.abs().sum()) > 0
+
+
+def test_front_end_kernels_refuse_grad():
+    """log_mel and cmvn have no backward: an input that requires grad is
+    refused rather than silently cut from the graph."""
+    sig = torch.zeros((1, 800), requires_grad=True)
+    lens = torch.tensor([800], dtype=torch.int32)
+    with pytest.raises(ValueError, match="no backward"):
+        log_mel(sig, lens, 3)
+    feat = torch.zeros((1, 3, 200), requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        cmvn(feat, torch.tensor([3], dtype=torch.int32))
+
+
+def test_keep_mask_is_checked():
+    q = torch.zeros((1, 2, 4, 8))
+    with pytest.raises(ValueError, match="keep_mask"):
+        masked_attention(q, q, q, keep_mask=torch.ones((1, 2, 4, 4)),
+                         keep_prob=0.5)
+    with pytest.raises(ValueError, match="keep_prob"):
+        masked_attention(q, q, q,
+                         keep_mask=torch.ones((1, 2, 4, 4), dtype=torch.bool),
+                         keep_prob=0.0)

@@ -1,11 +1,13 @@
-"""The port's SEDFCNN, TransformerLM and greedy decode against the Flax
-models on bridged weights (convert.py), at f32 and small widths."""
+"""The port's SEDFCNN, TransformerLM, their layers, losses, greedy decode
+and edit distance against the Flax models and the JAX package's functions
+on bridged weights (convert.py), at f32 and small widths."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import linen as fnn
 
 from asr_dfcnn_transformer_tpu.models import SEDFCNN as JaxSEDFCNN
 from asr_dfcnn_transformer_tpu.models import TransformerLM as JaxLM
@@ -15,9 +17,16 @@ from asr_dfcnn_transformer_tpu.models.dfcnn import (
 from asr_dfcnn_transformer_tpu.models.dfcnn import (
     logit_lengths as jax_logit_lengths,
 )
+from asr_dfcnn_transformer_tpu.models.transformer_lm import (
+    lm_loss_and_acc as jax_lm_loss_and_acc,
+)
 from asr_dfcnn_transformer_tpu.ops.ctc_decode import (
     ctc_greedy_decode as jax_greedy,
 )
+from asr_dfcnn_transformer_tpu.ops.edit_distance import (
+    batched_edit_distance as jax_batched_edit_distance,
+)
+from asr_dfcnn_transformer_torch.models import layers
 from asr_dfcnn_transformer_torch.convert import am_state_dict, lm_state_dict
 from asr_dfcnn_transformer_torch.models import (
     SEDFCNN,
@@ -27,7 +36,9 @@ from asr_dfcnn_transformer_torch.models import (
     frames_from_samples,
     logit_lengths,
 )
-from asr_dfcnn_transformer_torch.ops import ctc_greedy_decode
+from asr_dfcnn_transformer_torch.models.transformer_lm import lm_loss_and_acc
+from asr_dfcnn_transformer_torch.ops import (batched_edit_distance,
+                                             ctc_greedy_decode, edit_distance)
 
 torch.set_num_threads(2)
 
@@ -74,6 +85,7 @@ def test_sedfcnn_matches_flax(se_first, space_to_depth):
 
     am = SEDFCNN(SEDFCNNConfig(dtype=torch.float32, **kw), feature_dim=f)
     am.load_state_dict(am_state_dict(variables), strict=True)
+    am.eval()               # inference: BatchNorm on the running statistics
     with torch.inference_mode():
         got = am(torch.from_numpy(x)[:, None]).numpy()
     assert got.shape == want.shape == (b, t // 8, 48)
@@ -156,3 +168,115 @@ def test_state_dict_layout():
     assert sd["Dense_0.weight"].shape == (16, 2 * 8)                 # [out, in]
     with pytest.raises(ValueError, match="batch_stats"):
         am_state_dict({"params": _np_tree(variables)["params"]})
+
+
+@pytest.mark.parametrize("shape,relu", [((4, 3, 5, 6), False),
+                                        ((2, 8, 7, 3), True)])
+def test_batchnorm_train_matches_flax(shape, relu):
+    """Training mode: batch statistics (fast variance, f32) for the output,
+    and Flax's momentum-0.99 update of the running statistics with the
+    biased variance. ``relu``: non-negative inputs, as the AM's cells give
+    their BatchNorms."""
+    rng = np.random.default_rng(12)
+    b, c, h, w = shape
+    x = (rng.standard_normal(shape) * 1.5).astype(np.float32)
+    if relu:
+        x = np.maximum(x, 0.0)
+    variables = {
+        "params": {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                   "bias": (0.1 * rng.standard_normal(c)).astype(np.float32)},
+        "batch_stats": {"mean": rng.standard_normal(c).astype(np.float32),
+                        "var": rng.uniform(0.5, 2.0, c).astype(np.float32)}}
+    flax_bn = fnn.BatchNorm(use_running_average=False, epsilon=1e-3,
+                            momentum=0.99, dtype=jnp.float32)
+    want, upd = flax_bn.apply(variables, jnp.asarray(x.transpose(0, 2, 3, 1)),
+                              mutable=["batch_stats"])
+    want = np.asarray(want).transpose(0, 3, 1, 2)
+
+    bn = layers.BatchNorm(c, dtype=torch.float32, device="cpu")
+    bn.load_state_dict({"weight": torch.from_numpy(variables["params"]["scale"]),
+                        "bias": torch.from_numpy(variables["params"]["bias"]),
+                        "running_mean": torch.from_numpy(
+                            variables["batch_stats"]["mean"]),
+                        "running_var": torch.from_numpy(
+                            variables["batch_stats"]["var"])})
+    bn.train()
+    got = bn(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(upd["batch_stats"]["mean"]),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(upd["batch_stats"]["var"]),
+                               rtol=1e-6, atol=1e-6)
+    # evaluation mode reads the running statistics and changes nothing
+    bn.eval()
+    before = bn.running_mean.clone()
+    bn(torch.from_numpy(x))
+    assert torch.equal(bn.running_mean, before)
+
+
+@pytest.mark.parametrize("rate", [0.3, 0.5])
+def test_dropout_matches_flax(rate, monkeypatch):
+    """The port's Dropout against flax.linen.Dropout on flax's own keep
+    mask, injected through the port's ``keep_mask`` hook."""
+    rng = np.random.default_rng(13)
+    x = rng.uniform(0.5, 1.5, (4, 6, 8)).astype(np.float32)   # no zeros
+    for dtype, jdt in ((torch.float32, jnp.float32),
+                       (torch.bfloat16, jnp.bfloat16)):
+        xj = jnp.asarray(x, jdt)
+        want = fnn.Dropout(rate).apply({}, xj, deterministic=False,
+                                       rngs={"dropout": jax.random.PRNGKey(3)})
+        keep = torch.from_numpy(np.asarray(want, np.float32) != 0.0)
+        assert 0 < int(keep.sum()) < keep.numel()
+        monkeypatch.setattr(layers, "keep_mask",
+                            lambda shape, p, device, generator=None: keep)
+        drop = layers.Dropout(rate).train()
+        got = drop(torch.from_numpy(x).to(dtype))
+        assert got.dtype == dtype
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want, np.float32))
+    xt = torch.from_numpy(x)
+    assert layers.Dropout(rate).eval()(xt) is xt
+    assert layers.Dropout(0.0).train()(xt) is xt
+
+
+def test_keep_mask_draws_from_its_generator():
+    a = layers.keep_mask((64, 64), 0.7, "cpu",
+                         torch.Generator().manual_seed(1))
+    b = layers.keep_mask((64, 64), 0.7, "cpu",
+                         torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and a.dtype == torch.bool
+    assert abs(float(a.float().mean()) - 0.7) < 0.03
+
+
+def test_lm_loss_and_acc_matches_jax():
+    rng = np.random.default_rng(14)
+    logits = rng.standard_normal((3, 7, 11)).astype(np.float32)
+    targets = rng.integers(1, 11, size=(3, 7)).astype(np.int32)
+    targets[0, 4:] = 0
+    targets[2] = 0                                     # an all-PAD row
+    targets[1, 2] = np.argmax(logits[1, 2])            # one sure hit
+    want = jax_lm_loss_and_acc(jnp.asarray(logits), jnp.asarray(targets))
+    got = lm_loss_and_acc(torch.from_numpy(logits),
+                          torch.from_numpy(targets).long())
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-6)
+
+
+def test_edit_distance_matches_jax():
+    rng = np.random.default_rng(15)
+    a = rng.integers(1, 5, size=(6, 9)).astype(np.int32)
+    b = rng.integers(1, 5, size=(6, 7)).astype(np.int32)
+    a_len = np.array([9, 0, 4, 9, 3, 1], np.int32)
+    b_len = np.array([7, 3, 0, 2, 7, 1], np.int32)
+    want = np.asarray(jax_batched_edit_distance(
+        jnp.asarray(a), jnp.asarray(a_len), jnp.asarray(b),
+        jnp.asarray(b_len)))
+    got = batched_edit_distance(torch.from_numpy(a), torch.from_numpy(a_len),
+                                torch.from_numpy(b), torch.from_numpy(b_len))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    for i in range(6):
+        assert edit_distance(list(a[i, :a_len[i]]),
+                             list(b[i, :b_len[i]])) == want[i]

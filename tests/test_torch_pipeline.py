@@ -132,6 +132,12 @@ def test_package_never_imports_jax():
         "import asr_dfcnn_transformer_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "need = ['ops.ctc', 'ops.edit_distance', 'kernels.ctc',\n"
+        "        'train.trainer', 'train.checkpoint', 'train.schedule',\n"
+        "        'data.batches']\n"
+        "missing = [n for n in need if p.__name__ + '.' + n"
+        " not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')"
         " or (m.startswith('asr_dfcnn_transformer_tpu.')"
         " and not m.startswith('asr_dfcnn_transformer_tpu.core'))]\n"
