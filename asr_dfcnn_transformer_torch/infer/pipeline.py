@@ -1,7 +1,8 @@
 """Batched AM -> LM recognition: the port of ``infer/pipeline.py``.
 
 One batch runs fbank (the ``log_mel`` and ``cmvn`` kernels) -> SE-DFCNN ->
-greedy CTC decode capped at the LM's positions -> Transformer LM (the
+CTC decode capped at the LM's positions (greedy, or the prefix beam search
+on the ``topk_last`` and ``beam_search`` kernels) -> Transformer LM (the
 ``masked_attention`` kernel in every block) -> argmax, on the models'
 device. Host-side callers hand in numpy arrays and get numpy arrays back.
 """
@@ -13,21 +14,27 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from asr_dfcnn_transformer_tpu.core import constants
-from asr_dfcnn_transformer_tpu.core.vocab import Vocab
 from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
                                                      batched_fbank,
                                                      frames_for_samples,
                                                      samples_for_frames)
+from asr_dfcnn_transformer_torch.core import constants
+from asr_dfcnn_transformer_torch.core.vocab import Vocab
 from asr_dfcnn_transformer_torch.models.dfcnn import (frames_from_samples,
                                                       logit_lengths)
-from asr_dfcnn_transformer_torch.ops.ctc_decode import ctc_greedy_decode
+from asr_dfcnn_transformer_torch.ops.ctc_decode import (ctc_beam_search_decode,
+                                                        ctc_greedy_decode)
+
+DECODES = ("greedy", "beam")
 
 
 def pipeline_program(am_model, lm_model, signals: torch.Tensor,
                      signal_lengths: torch.Tensor, bucket_frames: int, *,
-                     fbank_cfg: FbankConfig, lm_max_len: int):
-    """fbank -> AM -> greedy decode -> LM argmax on one padded batch.
+                     fbank_cfg: FbankConfig, decode: str, beam_width: int,
+                     lm_max_len: int):
+    """fbank -> AM -> CTC decode -> LM argmax on one padded batch.
+
+    ``decode`` "greedy" or "beam" (W = K = ``beam_width``, blank last).
 
     signals [B, S] f32 and signal_lengths [B] on the models' device ->
     (pinyin ids [B, lm_max_len] int32, pinyin lengths [B] int32, hanzi ids
@@ -38,8 +45,13 @@ def pipeline_program(am_model, lm_model, signals: torch.Tensor,
     logits = am_model(feats[:, None])
     in_len = logit_lengths(frames_from_samples(signal_lengths),
                            logits.shape[1])
-    pny_ids, pny_len = ctc_greedy_decode(logits, in_len, blank_id=-1,
-                                         max_output_len=lm_max_len)
+    if decode == "beam":
+        pny_ids, pny_len, _ = ctc_beam_search_decode(
+            logits, in_len, beam_width=beam_width, topk=beam_width,
+            blank_id=-1, max_decode_len=lm_max_len)
+    else:
+        pny_ids, pny_len = ctc_greedy_decode(logits, in_len, blank_id=-1,
+                                             max_output_len=lm_max_len)
     han_ids = None
     if lm_model is not None:
         # the decoded dense pinyin ids go straight into the LM; 0 = PAD
@@ -64,21 +76,23 @@ class Pipeline:
       am_model: the port's ``SEDFCNN`` (its device is the pipeline's).
       lm_model: the port's ``TransformerLM`` on the same device, or None
         (then only pinyin comes back).
-      decode: "greedy" (the only decode ported so far).
+      decode: "greedy" (``tf.nn.ctc_greedy_decoder`` parity) or "beam"
+        (the prefix beam search, ``beam_width`` beams and extensions).
     """
 
     def __init__(self, am_model, lm_model=None, *, acoustic_vocab: Vocab,
                  language_vocab: Optional[Vocab] = None,
                  feature_dim: int = 200, decode: str = "greedy",
-                 lm_max_len: Optional[int] = None):
-        if decode != "greedy":
-            raise ValueError(f"decode={decode!r} is not ported; use greedy")
+                 beam_width: int = 8, lm_max_len: Optional[int] = None):
+        if decode not in DECODES:
+            raise ValueError(f"decode={decode!r}: expected one of {DECODES}")
         self.am_model = am_model.eval()
         self.lm_model = lm_model.eval() if lm_model is not None else None
         self.av = acoustic_vocab
         self.lv = language_vocab
         self.fbank_cfg = FbankConfig(nfilt=feature_dim)
         self.decode = decode
+        self.beam_width = beam_width
         if lm_max_len is None:
             # decode up to the LM's position cap (the reference feeds the
             # whole decoded sequence to the LM); the 64-label training cap
@@ -100,6 +114,8 @@ class Pipeline:
                                device=self.device)
         out = pipeline_program(self.am_model, self.lm_model, sig, lens,
                                bucket_frames, fbank_cfg=self.fbank_cfg,
+                               decode=self.decode,
+                               beam_width=self.beam_width,
                                lm_max_len=self.lm_max_len)
         return tuple(None if o is None else o.cpu().numpy() for o in out)
 

@@ -13,6 +13,10 @@ from asr_dfcnn_transformer_torch.kernels.attention import (  # noqa: F401
     masked_attention_bwd_reference,
     masked_attention_reference,
 )
+from asr_dfcnn_transformer_torch.kernels.beam import (  # noqa: F401
+    beam_search,
+    beam_search_reference,
+)
 from asr_dfcnn_transformer_torch.kernels.ctc import (  # noqa: F401
     alpha_stack_reference,
     beta_xi_reference,
@@ -24,4 +28,8 @@ from asr_dfcnn_transformer_torch.kernels.fbank import (  # noqa: F401
     cmvn_reference,
     log_mel,
     log_mel_reference,
+)
+from asr_dfcnn_transformer_torch.kernels.topk import (  # noqa: F401
+    topk_last,
+    topk_last_reference,
 )

@@ -51,6 +51,13 @@ _SIGNATURES = {
     "asr_ctc_alpha": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "asr_ctc_beta_xi": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
                         _I),
+    "asr_topk_max_v": ((), _I),
+    "asr_topk_max_k": ((), _I),
+    "asr_topk_last": ((_P, _P, _P, _I, _I, _I, _P), _I),
+    "asr_beam_search_smem": ((_I, _I, _I), ctypes.c_longlong),
+    "asr_beam_search_max_candidates": ((), _I),
+    "asr_beam_search": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _P), _I),
 }
 
 #: kernel name -> launches since the last reset_launches()

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from asr_dfcnn_transformer_torch.audio.fbank import FbankConfig, valid_frames
+from asr_dfcnn_transformer_torch.core.device import default_device
 from asr_dfcnn_transformer_torch.models.layers import (ConvBnCell, Dense,
                                                        Dropout, SqueezeExcite)
 
@@ -45,7 +46,8 @@ class SEDFCNN(nn.Module):
     def __init__(self, config: SEDFCNNConfig, *, feature_dim: int = 200,
                  device=None, generator: Optional[torch.Generator] = None):
         """``feature_dim`` (F) sizes the logits head, which Flax infers from
-        the first input."""
+        the first input. ``device`` defaults to ``cuda`` (raises without
+        CUDA: pass ``device="cpu"`` for the CPU)."""
         super().__init__()
         c = config
         if c.logits_matmul != "f32":
@@ -56,6 +58,7 @@ class SEDFCNN(nn.Module):
             raise ValueError("stage_features, stage_pool and se_ratio must "
                              "have one entry per stage")
         self.config = c
+        device = default_device(device)
         gen = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         kw = dict(dtype=c.dtype, device=device, generator=gen)

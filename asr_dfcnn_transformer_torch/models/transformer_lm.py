@@ -18,7 +18,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from asr_dfcnn_transformer_tpu.core import constants
+from asr_dfcnn_transformer_torch.core import constants
+from asr_dfcnn_transformer_torch.core.device import default_device
 from asr_dfcnn_transformer_torch.models.layers import (Dense, Dropout,
                                                        FeedForward,
                                                        LearnedPositionEmbed,
@@ -54,12 +55,15 @@ class TransformerLMConfig:
 class TransformerLM(nn.Module):
     def __init__(self, config: TransformerLMConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
+        """``device`` defaults to ``cuda`` (raises without CUDA: pass
+        ``device="cpu"`` for the CPU)."""
         super().__init__()
         c = config
         if c.logits_matmul != "f32":
             raise ValueError("the port computes the hanzi logits in f32 "
                              f"only, got logits_matmul={c.logits_matmul!r}")
         self.config = c
+        device = default_device(device)
         gen = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         kw = dict(dtype=c.dtype, device=device, generator=gen)

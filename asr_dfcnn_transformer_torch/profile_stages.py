@@ -1,15 +1,19 @@
 """Where one recognition batch spends its time on the card, stage by stage.
 
-    python -m asr_dfcnn_transformer_torch.profile_stages [--out PATH] [--train]
+    python -m asr_dfcnn_transformer_torch.profile_stages [--out PATH]
+        [--decode greedy|beam] [--train]
 
 Builds the full-width bf16 SE-DFCNN + Transformer LM from a seeded
 ``torch.Generator`` and, for each of the server's buckets at its batch of
-8, times the four stages of ``pipeline_program`` (fbank, AM, greedy
-decode, LM + argmax) with CUDA events, beside the host's wall time for
-the whole batch. Then it traces a few batches at the largest bucket with
-``torch.profiler`` and reports the device's busy share and its top
-kernels. Needs one CUDA device; exits non-zero without one. Writes the
-full kernel table to ``--out`` (default ``profile_stages.txt``).
+8, times the four stages of ``pipeline_program`` (fbank, AM, CTC decode,
+LM + argmax) with CUDA events, beside the host's wall time for the whole
+batch. ``--decode beam`` times the prefix beam search (W = K = 8, the
+``topk_last`` and ``beam_search`` kernels) in place of the greedy decode.
+Then it traces a few batches at the largest bucket with ``torch.profiler``
+and reports the device's busy share, its top kernels and the device time
+per launch of each of the port's own kernels. Needs one CUDA device;
+exits non-zero without one. Writes the full kernel table to ``--out``
+(default ``profile_stages.txt``).
 
 ``--train`` profiles the training path instead: for each full-width
 trainer (``AMTrainer`` at batch 16, bucket 1600; ``LMTrainer`` at 64 x 64,
@@ -40,7 +44,8 @@ from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
                                                 TransformerLMConfig,
                                                 frames_from_samples,
                                                 logit_lengths)
-from asr_dfcnn_transformer_torch.ops import ctc_greedy_decode
+from asr_dfcnn_transformer_torch.ops import (ctc_beam_search_decode,
+                                             ctc_greedy_decode)
 from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer
 
 STAGES = ("fbank", "am", "decode", "lm")
@@ -49,9 +54,15 @@ BUCKETS = (400, 800, 1200, 1600)
 ITERS = 10
 TRACE_BATCHES = 5
 SEED = 0
+BEAM_WIDTH = 8
+LM_MAX_LEN = 100
+PORT_KERNELS = ("log_mel_kernel", "cmvn_kernel", "masked_attention_kernel",
+                "masked_attention_bwd_kernel", "ctc_alpha_kernel",
+                "ctc_beta_xi_kernel", "topk_last_kernel",
+                "beam_search_kernel")   # the __global__ functions of csrc/
 
 
-def _stages(am, lm, sig, lens, bucket, cfg):
+def _stages(am, lm, sig, lens, bucket, cfg, decode):
     """One batch, stage by stage; returns the CUDA events around them."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     ev[0].record()
@@ -60,7 +71,13 @@ def _stages(am, lm, sig, lens, bucket, cfg):
     logits = am(feats[:, None])
     ev[2].record()
     in_len = logit_lengths(frames_from_samples(lens), logits.shape[1])
-    ids, ids_len = ctc_greedy_decode(logits, in_len, max_output_len=100)
+    if decode == "beam":
+        ids, ids_len, _ = ctc_beam_search_decode(
+            logits, in_len, beam_width=BEAM_WIDTH, topk=BEAM_WIDTH,
+            max_decode_len=LM_MAX_LEN)
+    else:
+        ids, ids_len = ctc_greedy_decode(logits, in_len,
+                                         max_output_len=LM_MAX_LEN)
     ev[3].record()
     han = torch.argmax(lm(ids.long()), dim=-1)
     ev[4].record()
@@ -95,6 +112,14 @@ def _write_table(events, path: str) -> None:
     with open(path, "w", encoding="utf-8") as f:
         f.write(table)
     print("\n".join(table.splitlines()[:16]))
+    # the port's own kernels (csrc/*.cu), whatever their rank in the table
+    for e in events:
+        name = e.key.split("(anonymous namespace)::")[-1].split("(")[0]
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.count
+                and name.split("<")[0] in PORT_KERNELS):
+            each = e.self_device_time_total / e.count
+            print(f"port kernel {name}: {e.count} launches, {each:.3f} us "
+                  "of device time each")
 
 
 def profile_training(am, lm, av, lv, out: str, steps: int = 3) -> None:
@@ -129,6 +154,8 @@ def profile_training(am, lm, av, lv, out: str, steps: int = 3) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="profile_stages.txt")
+    ap.add_argument("--decode", choices=("greedy", "beam"),
+                    default="greedy", help="the serving path's CTC decode")
     ap.add_argument("--train", action="store_true",
                     help="profile the training path instead")
     args = ap.parse_args(argv)
@@ -149,8 +176,8 @@ def main(argv=None) -> int:
         return 0
     cfg = FbankConfig()
     rng = np.random.default_rng(SEED)
-    print(f"batch {BATCH}, bf16, times in ms (CUDA events, mean of "
-          f"{ITERS})")
+    print(f"batch {BATCH}, bf16, decode {args.decode}, times in ms (CUDA "
+          f"events, mean of {ITERS})")
     with torch.inference_mode():
         for bucket in BUCKETS:
             s = samples_for_frames(bucket)
@@ -160,12 +187,12 @@ def main(argv=None) -> int:
             lens = torch.full((BATCH,), s, dtype=torch.int32,
                               device=dev)
             for _ in range(3):
-                _stages(am, lm, sig, lens, bucket, cfg)
+                _stages(am, lm, sig, lens, bucket, cfg, args.decode)
             torch.cuda.synchronize()
             sums = np.zeros(len(STAGES))
             t0 = time.perf_counter()
             for _ in range(ITERS):
-                ev, _ = _stages(am, lm, sig, lens, bucket, cfg)
+                ev, _ = _stages(am, lm, sig, lens, bucket, cfg, args.decode)
                 torch.cuda.synchronize()
                 sums += [ev[i].elapsed_time(ev[i + 1])
                          for i in range(len(STAGES))]
@@ -182,7 +209,9 @@ def main(argv=None) -> int:
         lens = torch.full((BATCH,), s, dtype=torch.int32, device=dev)
         wall, dev_ms, events = _trace(
             lambda: pipeline_program(am, lm, sig, lens, bucket,
-                                     fbank_cfg=cfg, lm_max_len=100),
+                                     fbank_cfg=cfg, decode=args.decode,
+                                     beam_width=BEAM_WIDTH,
+                                     lm_max_len=LM_MAX_LEN),
             TRACE_BATCHES)
     print(f"trace, bucket {bucket}, {TRACE_BATCHES} batches: device "
           f"kernel time {dev_ms * TRACE_BATCHES:.3f} ms of "

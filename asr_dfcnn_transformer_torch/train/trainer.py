@@ -25,8 +25,8 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from asr_dfcnn_transformer_tpu.core import constants
 from asr_dfcnn_transformer_torch.audio.fbank import FbankConfig, batched_fbank
+from asr_dfcnn_transformer_torch.core import constants
 from asr_dfcnn_transformer_torch.data.batches import AMBatch, LMBatch
 from asr_dfcnn_transformer_torch.models.dfcnn import (frames_from_samples,
                                                       logit_lengths)

@@ -11,16 +11,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    at the main paths' shapes (``log_mel`` + ``cmvn``; ``masked_attention``
    in f32 and bf16; ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129;
    the attention backward and the dropout forward at the LM's training
-   shape), each with its tolerance; then each kernel's time beside its
-   twin's (CUDA events after warm-up, in turns).
+   shape; ``topk_last`` at [1600, 1536], k 8, and ``beam_search`` at
+   [8, 200, 1536], W = K = 8, L 100, with batch-1, exhausted-candidate and
+   tie-heavy cases), each with its tolerance; then each kernel's time
+   beside its twin's (CUDA events after warm-up, in turns), its bound
+   computed from the inputs, and the time of the one PyTorch call that
+   computes the same function, where there is one.
 3. The served main path: full-width SE-DFCNN + 12-block Transformer LM in
    bf16 from a seeded ``torch.Generator``, behind the port's ``Pipeline``
    and ``BatchingServer`` (max_batch 8, buckets 400/800/1200/1600), answering
-   16 synthetic tone utterances. The launch counters are reset just before
-   and read just after: every kernel must have been launched.
+   16 synthetic tone utterances, once with ``decode="greedy"`` and once with
+   ``decode="beam"`` (W = K = 8). The launch counters are reset just before
+   and read just after each: every kernel of that path must have been
+   launched.
 4. Card against CPU: two utterances at bucket 400 in f32, on the card
    through the kernels and on the CPU through the twins; pinyin (per-frame)
-   and hanzi ids must agree wherever the CPU's top-2 logit margin >= 1e-3.
+   and hanzi ids must agree wherever the CPU's top-2 logit margin >= 1e-3;
+   the beam decode of the CPU's logits on both devices must give the same
+   ids and lengths.
 5. The training path at full width, bf16 compute and f32 parameters: 10
    ``AMTrainer`` steps (SE-DFCNN, batch 16 at bucket 1600, 48-token labels
    padded to 64) and 10 ``LMTrainer`` steps (12x512x8 LM, dropout 0.5,
@@ -76,14 +84,26 @@ KERNELS = {
                   "asr_dfcnn_transformer_tpu/ops/pallas/ctc_kernel.py:123"),
     "ctc_beta_xi": ("asr_dfcnn_transformer_torch/csrc/ctc.cu",
                     "asr_dfcnn_transformer_tpu/ops/pallas/ctc_kernel.py:156"),
+    "topk_last": ("asr_dfcnn_transformer_torch/csrc/topk.cu",
+                  "asr_dfcnn_transformer_tpu/ops/pallas/topk_kernel.py:66"),
+    "beam_search": ("asr_dfcnn_transformer_torch/csrc/beam.cu",
+                    "asr_dfcnn_transformer_tpu/ops/pallas/beam_kernel.py:543"),
 }
-SERVED = ("log_mel", "cmvn", "masked_attention")      # launched by phase 3
+SERVED = {"greedy": ("log_mel", "cmvn", "masked_attention"),
+          "beam": ("log_mel", "cmvn", "masked_attention", "topk_last",
+                   "beam_search")}                     # launched by phase 3
+BEAM_WIDTH = 8        # Pipeline's default: W = K = 8
+LM_MAX_LEN = 100      # the LM's positions: the decode's prefix cap
 TRAINED = ("masked_attention_drop", "masked_attention_bwd", "ctc_alpha",
            "ctc_beta_xi")                              # launched by phase 5
 AM_BATCH, AM_BUCKET, AM_LABELS = 16, 1600, (48, 64)   # AmConfig.batch_size
 LM_BATCH, LM_LEN = 64, 64                             # LmConfig.batch_size
 TRAIN_STEPS, WARMUP_STEPS = 10, 2
 LM_LR = 5e-4          # 10x LmConfig.lr: ten steps show the fit through dropout
+# Peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): memory, and
+# operations by type (f64 and f32 outside the tensor cores, bf16 on them).
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"f64": 34e12, "f32": 67e12, "bf16": 989e12}
 
 
 class PhaseError(RuntimeError):
@@ -123,13 +143,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(kernel_fn, plain_fn):
+def paired_ms(kernel_fn, plain_fn, plain_iters: int = 20):
     """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain_fn)
+    p1 = cuda_ms(plain_fn, plain_iters, min(3, plain_iters))
     k1 = cuda_ms(kernel_fn)
     k2 = cuda_ms(kernel_fn)
-    p2 = cuda_ms(plain_fn)
+    p2 = cuda_ms(plain_fn, plain_iters, min(3, plain_iters))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def set_bound(result, n_bytes: float, ops: dict) -> None:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations ({type: count}) over each type's peak."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items()) * 1e3
+    result["bound_ms"] = max(t_bytes, t_ops)
+    result["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
 def close_enough(got, want, rtol: float, atol: float):
@@ -163,12 +196,15 @@ def phase_device():
 
 def phase_kernels(results):
     import torch
-    from asr_dfcnn_transformer_torch.audio.fbank import (mel_filterbank,
+    import torch.nn.functional as F
+    from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
+                                                         mel_filterbank,
                                                          samples_for_frames,
                                                          valid_frames)
     from asr_dfcnn_transformer_torch.kernels import (
         cmvn, cmvn_reference, log_mel, log_mel_reference, masked_attention,
         masked_attention_reference)
+    from asr_dfcnn_transformer_torch.kernels import fbank as kfbank
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
     empty = torch.from_numpy(np.flatnonzero(mel_filterbank().sum(0) == 0))
@@ -206,6 +242,19 @@ def phase_kernels(results):
             k_ms, p_ms = paired_ms(lambda: cmvn(feat, valid),
                                    lambda: cmvn_reference(feat, valid))
             results["cmvn"].update(ms=k_ms, plain_ms=p_ms)
+            # per frame: the 512-point DFT power as 400 x 257 cos and sin
+            # FMAs in f64, the 257 x 200 mel FMAs in f32; the bases are
+            # inputs too. No one PyTorch call computes either function.
+            frames = sig.shape[0] * out_frames
+            set_bound(results["log_mel"],
+                      nbytes(sig_d, lens_d, feat,
+                             *kfbank._bases(FbankConfig(), dev)),
+                      {"f64": frames * 400 * 257 * 4,
+                       "f32": frames * 257 * 200 * 2})
+            set_bound(results["cmvn"], nbytes(feat, valid, norm),
+                      {"f32": 6 * feat.numel()})
+            results["log_mel"]["library_ms"] = None
+            results["cmvn"]["library_ms"] = None
 
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     for shape in ((16, 8, 100, 100, 64), (2, 2, 7, 7, 32),
@@ -227,18 +276,31 @@ def phase_kernels(results):
                   f"{'ok' if ok else 'FAIL'}")
             require(ok and finite, "masked_attention disagrees with its twin")
             if b == MAX_BATCH and dtype == torch.bfloat16:
-                results["masked_attention"]["max_abs_err"] = err
+                r = results["masked_attention"]
+                r["max_abs_err"] = err
                 k_ms, p_ms = paired_ms(
                     lambda: masked_attention(qd, kd, vd, k_valid,
                                              causal=True),
                     lambda: masked_attention_reference(qd, kd, vd, k_valid,
                                                        True))
-                results["masked_attention"].update(ms=k_ms, plain_ms=p_ms)
+                r.update(ms=k_ms, plain_ms=p_ms)
+                # QK^T and PV over the causal triangle
+                set_bound(r, nbytes(qd, kd, vd, k_valid, got),
+                          {"bf16": 4 * b * h * tq * (tq + 1) // 2 * dh})
+                mask = (torch.ones(tq, tk, dtype=torch.bool, device=dev)
+                        .tril()[None, None] & k_valid[:, None, None, :])
+                r["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qd, kd, vd, attn_mask=mask))
     check_ctc_kernels(results, rng)
     check_attention_training_kernels(results, rng)
+    check_beam_kernels(results, rng)
     for name, r in results.items():
+        lib = ("—" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"time {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms")
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), library {lib}")
 
 
 def ctc_problem(rng, b=AM_BATCH, t=200, lmax=64, v=1536):
@@ -294,6 +356,29 @@ def check_ctc_kernels(results, rng):
         lambda: alpha_stack_reference(emit, init, can_skip, valid, lens))))
     results["ctc_beta_xi"].update(zip(("ms", "plain_ms"), paired_ms(
         lambda: ctc_beta_xi(*xi_args), lambda: beta_xi_reference(*xi_args))))
+    # a chain of T dependent steps; ~14 (alpha) and ~20 (beta + xi) f32
+    # operations per state and step
+    set_bound(results["ctc_alpha"],
+              nbytes(emit, init, can_skip, valid, lens, alphas),
+              {"f32": 14 * emit.numel()})
+    set_bound(results["ctc_beta_xi"], nbytes(*xi_args, xi),
+              {"f32": 20 * emit.numel()})
+    print(f"ctc DPs: a chain of {emit.shape[0]} dependent steps each")
+    # the library yardstick: F.ctc_loss's forward, and its backward (the
+    # forward + backward time less the forward's)
+    x = lp.transpose(0, 1).contiguous().requires_grad_(True)
+    tgt = torch.from_numpy(labels).long().to(dev)
+
+    def lib_loss():
+        return torch.nn.functional.ctc_loss(
+            x, tgt, lens.long(), lab_len.long(), blank=v - 1,
+            reduction="sum", zero_infinity=True)
+
+    with torch.no_grad():
+        fwd = cuda_ms(lib_loss)
+    both = cuda_ms(lambda: torch.autograd.grad(lib_loss(), x))
+    results["ctc_alpha"]["library_ms"] = fwd
+    results["ctc_beta_xi"]["library_ms"] = both - fwd
 
     # the loss and its gradient on the card against the CPU's twins
     loss_grad = {}
@@ -347,11 +432,11 @@ def check_attention_training_kernels(results, rng):
             kp = 1.0 if mask is None else 0.5
             errs, ok = [], True
             if mask is not None:
-                got = attn._forward(qd, kd, vd, k_valid, True, mask, kp)
+                fwd = attn._forward(qd, kd, vd, k_valid, True, mask, kp)
                 want = attn.masked_attention_reference(qd, kd, vd, k_valid,
                                                        True, mask, kp)
-                good, err_f = close_enough(got, want, tol[dtype], tol[dtype])
-                good &= bool(torch.isfinite(got.float()).all())
+                good, err_f = close_enough(fwd, want, tol[dtype], tol[dtype])
+                good &= bool(torch.isfinite(fwd.float()).all())
                 ok &= good
                 errs.append(f"out {err_f:.3g}")
             got = attn._backward(qd, kd, vd, k_valid, dd, True, mask, kp)
@@ -384,6 +469,113 @@ def check_attention_training_kernels(results, rng):
                                            mask, kp),
                     lambda: attn.masked_attention_bwd_reference(
                         qd, kd, vd, k_valid, dd, True, mask, kp))))
+            # over the causal triangle: QK^T and PV forward; S again, dV,
+            # dP, dQ and dK backward. No PyTorch call takes a keep mask.
+            pairs = b * h * t * (t + 1) // 2
+            set_bound(results["masked_attention_drop"],
+                      nbytes(qd, kd, vd, k_valid, mask, fwd),
+                      {"bf16": 4 * pairs * dh})
+            set_bound(results["masked_attention_bwd"],
+                      nbytes(qd, kd, vd, k_valid, dd, mask, *got),
+                      {"bf16": 10 * pairs * dh})
+            results["masked_attention_drop"]["library_ms"] = None
+            results["masked_attention_bwd"]["library_ms"] = None
+
+
+def check_beam_kernels(results, rng):
+    """``topk_last`` and ``beam_search`` against their twins: at the beam
+    path's shapes ([8, 200, 1536] log-probs with ragged lengths and a 0,
+    W = K = 8, L 100), at batch 1, with W > K + 1 (live candidates run out,
+    as in tests/test_pallas_beam.py, and a 1-frame row keeps dead beams)
+    and on quantised, tie-heavy values.
+    Ids, lengths and prefixes must be equal; pb / pnb within 1e-5."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import (beam_search,
+                                                     beam_search_reference,
+                                                     topk_last,
+                                                     topk_last_reference)
+    dev = torch.device(DEVICE)
+    b, t, v, w = MAX_BATCH, 200, 1536, BEAM_WIDTH
+
+    def topk_case(name, x, k):
+        vals, ids = topk_last(x, k)
+        want_v, want_i = topk_last_reference(x, k)
+        same = torch.equal(ids, want_i) and torch.equal(vals, want_v)
+        err = float((vals - want_v).abs().max())
+        print(f"topk_last {name} {list(x.shape)} k {k}: ids and values "
+              f"equal {same} (max abs err {err:.3g})")
+        require(same, f"topk_last disagrees with its twin ({name})")
+        return vals, ids, err
+
+    def beam_case(name, lp, lens, w, k, lcap):
+        top_lp, top_ids, _ = topk_case(f"for {name}", lp, k)
+        kw = dict(beam_width=w, topk=k, blank=lp.shape[-1] - 1,
+                  max_decode_len=lcap)
+        args = (lp, top_lp, top_ids, lens)
+        got = beam_search(*args, **kw)
+        want = beam_search_reference(*args, **kw)
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ok_b, err_b = close_enough(got[2], want[2], 0.0, 1e-5)
+        ok_n, err_n = close_enough(got[3], want[3], 0.0, 1e-5)
+        err = max(err_b, err_n)
+        print(f"beam_search {name} {list(lp.shape)} W {w} K {k} L {lcap} "
+              f"lens {lens.tolist()}: prefixes and lengths equal {same}, "
+              f"pb / pnb max abs err {err:.3g} (atol 1e-5), longest prefix "
+              f"{int(got[1].max())} "
+              f"{'ok' if same and ok_b and ok_n else 'FAIL'}")
+        require(same and ok_b and ok_n,
+                f"beam_search disagrees with its twin ({name})")
+        return args, kw, got, err
+
+    def log_probs(shape):
+        x = torch.from_numpy((2.0 * rng.standard_normal(shape))
+                             .astype(np.float32)).to(dev)
+        return torch.log_softmax(x, -1)
+
+    lens = torch.tensor([200, 0, 150, 50, 100, 173, 200, 1],
+                        dtype=torch.int32, device=dev)
+    args, kw, got, err = beam_case("path", log_probs((b, t, v)), lens, w, w,
+                                   LM_MAX_LEN)
+    beam_case("batch 1", log_probs((1, t, v)),
+              torch.tensor([t], dtype=torch.int32, device=dev), w, w,
+              LM_MAX_LEN)
+    # the 1-frame row keeps dead beams to the end: their order among equal
+    # totals (ties to the lower candidate index) reaches the output
+    beam_case("W > K + 1", log_probs((3, 10, 12)),
+              torch.tensor([10, 7, 1], dtype=torch.int32, device=dev), 6, 2,
+              6)
+    x2d = args[0].view(-1, v)
+    _, _, err_t = topk_case("path", x2d, w)
+    ties = torch.round(torch.from_numpy(rng.standard_normal((b * t, v))
+                                        .astype(np.float32)).to(dev) * 2) / 2
+    topk_case("quantised ties", ties, w)
+
+    r = results["topk_last"]
+    r["max_abs_err"] = err_t
+    r.update(zip(("ms", "plain_ms"), paired_ms(
+        lambda: topk_last(x2d, w), lambda: topk_last_reference(x2d, w))))
+    # each row read once, k picks of V compares each
+    set_bound(r, nbytes(x2d) + x2d.shape[0] * w * 8,
+              {"f32": x2d.shape[0] * w * v})
+    r["library_ms"] = cuda_ms(lambda: torch.topk(x2d, w, dim=-1))
+
+    r = results["beam_search"]
+    r["max_abs_err"] = err
+    # the twin is some 10^4 small launches a call: fewer iterations
+    r.update(zip(("ms", "plain_ms"), paired_ms(
+        lambda: beam_search(*args, **kw),
+        lambda: beam_search_reference(*args, **kw), plain_iters=2)))
+    # what this run's data needs: per valid frame, W + 1 log-probs and the
+    # K top-k pairs read, ~9 f32 operations per candidate pair (hash
+    # compares, max, exp, sum, rank) over M = W (K + 1) candidates; the
+    # outputs written once
+    frames = int(lens.clamp(max=t).sum())
+    m = w * (w + 1)
+    set_bound(r, frames * (w + 1 + 2 * w) * 4 + nbytes(lens, *got),
+              {"f32": frames * 9 * m * m})
+    r["library_ms"] = None          # no PyTorch call does a beam search
+    print(f"beam_search: a chain of up to {t} dependent frames "
+          f"({frames} valid frames in all)")
 
 
 def build_models(dtype, device):
@@ -409,46 +601,50 @@ def phase_served(results):
     n_params = sum(p.numel() for m in (am, lm) for p in m.parameters())
     print(f"models: SE-DFCNN 32/64/128/128/128 head 256 vocab {av.size}, "
           f"LM 12x512x8 vocab {lv.size}, bf16, {n_params / 1e6:.1f} M params")
-    pipe = Pipeline(am, lm, acoustic_vocab=av, language_vocab=lv)
     rng = np.random.default_rng(SEED + 1)
     warm = [tone_utterance(rng, (b - 20) * 160) for b in BUCKETS]
     utts = [tone_utterance(rng, int(sec * SAMPLE_RATE))
             for sec in SERVED_SECONDS]
-
-    reset_launches()
-    with BatchingServer(pipe, max_batch=MAX_BATCH, max_wait_ms=20.0,
-                        bucket_bounds=BUCKETS) as srv:
-        for f in [srv.submit(u) for u in warm]:
-            f.result(timeout=600)
-        # latency: submit -> the future is seen resolved (as_completed
-        # wakes on each completion; a done-callback could still be pending
-        # when result() returns)
-        t0 = time.perf_counter()
-        futures = {srv.submit(u): i for i, u in enumerate(utts)}
-        lat = {}
-        for fut in as_completed(futures, timeout=600):
-            lat[futures[fut]] = time.perf_counter() - t0
-        outs = [fut.result() for fut in futures]
-        stats = srv.stats
-    counts = dict(LAUNCHES)
-    for pinyin, hanzi in outs:
-        require(isinstance(pinyin, list)
-                and all(isinstance(p, str) for p in pinyin)
-                and isinstance(hanzi, str), "result is not (pinyin, hanzi)")
-    wall = max(lat.values())
-    lat = sorted(lat.values())
-    print(f"served {len(outs)} utterances ({stats.requests} requests "
-          f"incl. {len(warm)} warm-up, {stats.batches} batches, occupancy "
-          f"{stats.mean_occupancy:.2f}, per bucket {stats.per_bucket})")
-    print(f"served burst of {len(utts)}: {len(utts) / wall:.2f} utt/s, "
-          f"p50 latency {1e3 * lat[len(lat) // 2]:.1f} ms, max "
-          f"{1e3 * lat[-1]:.1f} ms")
-    print(f"example: {len(outs[0][0])} pinyin, first "
-          f"{' '.join(outs[0][0][:5])!r}, hanzi {outs[0][1][:8]!r}")
-    print(f"launch counts on the served path: {counts}")
-    for name in SERVED:
-        require(counts.get(name, 0) > 0, f"{name} was never launched")
-        results[name]["launches"] = counts[name]
+    for decode, names in SERVED.items():
+        pipe = Pipeline(am, lm, acoustic_vocab=av, language_vocab=lv,
+                        decode=decode, beam_width=BEAM_WIDTH)
+        reset_launches()
+        with BatchingServer(pipe, max_batch=MAX_BATCH, max_wait_ms=20.0,
+                            bucket_bounds=BUCKETS) as srv:
+            for f in [srv.submit(u) for u in warm]:
+                f.result(timeout=600)
+            # latency: submit -> the future is seen resolved (as_completed
+            # wakes on each completion; a done-callback could still be
+            # pending when result() returns)
+            t0 = time.perf_counter()
+            futures = {srv.submit(u): i for i, u in enumerate(utts)}
+            lat = {}
+            for fut in as_completed(futures, timeout=600):
+                lat[futures[fut]] = time.perf_counter() - t0
+            outs = [fut.result() for fut in futures]
+            stats = srv.stats
+        counts = dict(LAUNCHES)
+        for pinyin, hanzi in outs:
+            require(isinstance(pinyin, list)
+                    and all(isinstance(p, str) for p in pinyin)
+                    and isinstance(hanzi, str),
+                    "result is not (pinyin, hanzi)")
+        wall = max(lat.values())
+        lat = sorted(lat.values())
+        print(f"{decode}: served {len(outs)} utterances ({stats.requests} "
+              f"requests incl. {len(warm)} warm-up, {stats.batches} batches, "
+              f"occupancy {stats.mean_occupancy:.2f}, per bucket "
+              f"{stats.per_bucket})")
+        print(f"{decode}: served burst of {len(utts)}: "
+              f"{len(utts) / wall:.2f} utt/s, p50 latency "
+              f"{1e3 * lat[len(lat) // 2]:.1f} ms, max {1e3 * lat[-1]:.1f} ms")
+        print(f"{decode}: example: {len(outs[0][0])} pinyin, first "
+              f"{' '.join(outs[0][0][:5])!r}, hanzi {outs[0][1][:8]!r}")
+        print(f"{decode}: launch counts on the served path: {counts}")
+        for name in names:
+            require(counts.get(name, 0) > 0,
+                    f"{name} was never launched ({decode})")
+            results[name].setdefault("launches", counts[name])
 
 
 def phase_card_vs_cpu():
@@ -457,7 +653,8 @@ def phase_card_vs_cpu():
                                                          samples_for_frames)
     from asr_dfcnn_transformer_torch.models import (frames_from_samples,
                                                     logit_lengths)
-    from asr_dfcnn_transformer_torch.ops import ctc_greedy_decode
+    from asr_dfcnn_transformer_torch.ops import (ctc_beam_search_decode,
+                                                 ctc_greedy_decode)
     am_cpu, lm_cpu, _, _ = build_models(torch.float32, "cpu")
     am_gpu = copy.deepcopy(am_cpu).to(DEVICE).eval()
     lm_gpu = copy.deepcopy(lm_cpu).to(DEVICE).eval()
@@ -506,6 +703,23 @@ def phase_card_vs_cpu():
     require(am_bad == 0 and lm_bad == 0, "card and CPU ids disagree")
     if bool((margin(c_logits)[frames] >= 1e-3).all()):
         require(seq_equal, "decoded pinyin differs with every margin >= 1e-3")
+
+    # the beam decode of the CPU's logits: the twins on the CPU, the
+    # kernels on the card
+    kw = dict(beam_width=BEAM_WIDTH, topk=BEAM_WIDTH,
+              max_decode_len=LM_MAX_LEN)
+    with torch.inference_mode():
+        c_beam = ctc_beam_search_decode(c_logits, c_len, **kw)
+        g_beam = [x.cpu() for x in ctc_beam_search_decode(
+            c_logits.to(DEVICE), c_len.to(DEVICE), **kw)]
+    same = (torch.equal(c_beam[0], g_beam[0])
+            and torch.equal(c_beam[1], g_beam[1]))
+    ok, err = close_enough(g_beam[2], c_beam[2], 1e-5, 1e-4)
+    print(f"  beam decode (W = K = {BEAM_WIDTH}, L {LM_MAX_LEN}) card vs "
+          f"CPU: lengths {c_beam[1].tolist()}, ids equal {same}, "
+          f"neg-log-prob {c_beam[2].tolist()} max abs diff {err:.3g} (rtol "
+          f"1e-5, atol 1e-4) {'ok' if same and ok else 'FAIL'}")
+    require(same and ok, "beam decode differs between card and CPU")
 
 
 def am_batch(rng, batch, bucket, labels, vocab):
@@ -634,11 +848,12 @@ def phase_train_card_vs_cpu():
     gen = torch.Generator().manual_seed(SEED)
     am = SEDFCNN(SEDFCNNConfig(48, stage_features=(8, 8, 16, 16, 16),
                                head_features=16, dropout_rate=0.0,
-                               dtype=torch.float32), generator=gen)
+                               dtype=torch.float32), device="cpu",
+                 generator=gen)
     lm = TransformerLM(TransformerLMConfig(48, 64, d_model=64, num_heads=4,
                                            num_blocks=2, dropout_rate=0.0,
                                            dtype=torch.float32),
-                       generator=gen)
+                       device="cpu", generator=gen)
     amb = am_batch(rng, 4, 128, (8, 12), 48)
     lmb = lm_batch(rng, 4, 16, 48, 64)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_cmp_")
@@ -695,7 +910,7 @@ def main() -> int:
     phase_training(results)
     phase_train_card_vs_cpu()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -83,7 +83,8 @@ def test_sedfcnn_matches_flax(se_first, space_to_depth):
     variables = _perturb_stats(variables, seed=2)
     want = np.asarray(flax_am.apply(variables, jnp.asarray(x)[..., None]))
 
-    am = SEDFCNN(SEDFCNNConfig(dtype=torch.float32, **kw), feature_dim=f)
+    am = SEDFCNN(SEDFCNNConfig(dtype=torch.float32, **kw), feature_dim=f,
+                 device="cpu")
     am.load_state_dict(am_state_dict(variables), strict=True)
     am.eval()               # inference: BatchNorm on the running statistics
     with torch.inference_mode():
@@ -104,7 +105,8 @@ def test_transformer_lm_matches_flax(fused):
     want = np.asarray(flax_lm.apply(variables, jnp.asarray(ids)))
 
     lm = TransformerLM(TransformerLMConfig(32, 48, fused_attention=fused,
-                                           dtype=torch.float32, **kw))
+                                           dtype=torch.float32, **kw),
+                       device="cpu")
     lm.load_state_dict(lm_state_dict(variables), strict=True)
     with torch.inference_mode():
         got = lm(torch.from_numpy(ids).long()).numpy()
@@ -118,7 +120,8 @@ def test_two_stack_lm_matches_flax():
     flax_lm = JaxLM(16, 20, dtype=jnp.float32, **kw)
     variables = flax_lm.init(jax.random.PRNGKey(5), jnp.asarray(ids))
     want = np.asarray(flax_lm.apply(variables, jnp.asarray(ids)))
-    lm = TransformerLM(TransformerLMConfig(16, 20, dtype=torch.float32, **kw))
+    lm = TransformerLM(TransformerLMConfig(16, 20, dtype=torch.float32, **kw),
+                       device="cpu")
     lm.load_state_dict(lm_state_dict(_np_tree(variables)), strict=True)
     with torch.inference_mode():
         got = lm(torch.from_numpy(ids).long()).numpy()
@@ -161,7 +164,8 @@ def test_state_dict_layout():
     variables = am.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1)))
     sd = am_state_dict(_np_tree(variables))
     port = SEDFCNN(SEDFCNNConfig(16, stage_features=(4, 4, 8, 8, 8),
-                                 head_features=8), feature_dim=16)
+                                 head_features=8), feature_dim=16,
+                   device="cpu")
     want = {k: tuple(v.shape) for k, v in port.state_dict().items()}
     assert {k: tuple(v.shape) for k, v in sd.items()} == want
     assert sd["ConvBnCell_0.Conv_0.weight"].shape == (4, 1, 3, 3)   # OIHW

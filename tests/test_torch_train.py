@@ -153,7 +153,7 @@ def test_am_train_step_matches_jax(tmp_path, monkeypatch):
                              cfg=JaxFbankConfig(nfilt=FEATS),
                              out_frames=BUCKET)
     am = SEDFCNN(SEDFCNNConfig(dtype=torch.float32, **AM_KW),
-                 feature_dim=FEATS)
+                 feature_dim=FEATS, device="cpu")
     am.load_state_dict(am_state_dict(variables), strict=True)
     tr = AMTrainer(am, str(tmp_path / "port"), lr=7e-4, feature_dim=FEATS)
     monkeypatch.setattr(tr, "features", lambda *a: torch.from_numpy(
@@ -192,7 +192,7 @@ def test_lm_train_step_matches_jax(tmp_path):
     want = jtr.train_step(jbatch, jax.random.PRNGKey(4))
 
     lm = TransformerLM(TransformerLMConfig(32, 48, dtype=torch.float32,
-                                           **LM_KW))
+                                           **LM_KW), device="cpu")
     lm.load_state_dict(lm_state_dict({"params": params}), strict=True)
     tr = LMTrainer(lm, str(tmp_path / "port"), lr=5e-5)
     got = tr.train_step(LMBatch(**arrays))
@@ -224,7 +224,8 @@ def test_adam_and_schedule_match_optax(tmp_path):
         want = optax.apply_updates(want, updates)
 
     lm = TransformerLM(TransformerLMConfig(16, 20, d_model=16, num_heads=2,
-                                           num_blocks=1, dtype=torch.float32))
+                                           num_blocks=1, dtype=torch.float32),
+                       device="cpu")
     lm.load_state_dict(lm_state_dict({"params": params}), strict=True)
     tr = LMTrainer(lm, str(tmp_path), lr=1e-3, decay_steps=2, min_lr=1e-6)
     lrs = []
@@ -260,7 +261,8 @@ def test_lm_dropout_step_runs_and_is_seeded(tmp_path):
     def step(rate, seed):
         lm = TransformerLM(TransformerLMConfig(
             32, 48, d_model=32, num_heads=4, num_blocks=2, dropout_rate=rate,
-            dtype=torch.float32), generator=torch.Generator().manual_seed(7))
+            dtype=torch.float32), device="cpu",
+            generator=torch.Generator().manual_seed(7))
         tr = LMTrainer(lm, str(tmp_path / f"{rate}_{seed}"))
         gen = torch.Generator().manual_seed(seed)
         return float(tr.train_step(LMBatch(**arrays), gen)["loss"])
@@ -272,7 +274,7 @@ def test_lm_dropout_step_runs_and_is_seeded(tmp_path):
 def _tiny_am(seed=0):
     kw = dict(AM_KW, vocab_size=24)
     return SEDFCNN(SEDFCNNConfig(dtype=torch.float32, **kw), feature_dim=200,
-                   generator=torch.Generator().manual_seed(seed))
+                   device="cpu", generator=torch.Generator().manual_seed(seed))
 
 
 def test_am_fit_saves_resumes_and_gates_best(tmp_path):
@@ -306,7 +308,7 @@ def test_am_fit_saves_resumes_and_gates_best(tmp_path):
 def test_lm_fit_gates_on_accuracy(tmp_path):
     batches = [LMBatch(**_lm_arrays(s)) for s in (0, 1)]
     lm = TransformerLM(TransformerLMConfig(32, 48, dtype=torch.float32,
-                                           **LM_KW))
+                                           **LM_KW), device="cpu")
     tr = LMTrainer(lm, str(tmp_path), lr=3e-3)
     out = tr.fit(lambda: iter(batches), lambda: iter(batches[:1]), epochs=2)
     assert out["epoch"] == 1
@@ -330,7 +332,8 @@ def test_checkpoint_manager_keeps_the_newest(tmp_path):
 def test_nan_guard_aborts_after_the_limit(tmp_path):
     tr = LMTrainer(TransformerLM(TransformerLMConfig(8, 8, d_model=8,
                                                      num_heads=2,
-                                                     num_blocks=1)),
+                                                     num_blocks=1),
+                                 device="cpu"),
                    str(tmp_path))
     for _ in range(4):
         tr.nan_guard(float("nan"))
