@@ -302,18 +302,11 @@ __global__ void beam_search_kernel(const float* __restrict__ lp,
 
 extern "C" {
 
-// Shared memory one block needs, in bytes (the wrapper refuses a shape
-// above the card's 227 KB per block).
-long long asr_beam_search_smem(int W, int K, int L) {
-  return static_cast<long long>(smem_words(W, K, L) * sizeof(uint32_t));
-}
-
-// Most candidates W (K + 1) one block takes.
-int asr_beam_search_max_candidates() { return kMaxCandidates; }
-
 // lp [B, T, V] f32, top_lp [B, T, K] f32, top_ids [B, T, K] int32,
 // lens [B] int32 -> prefixes [B, W, L] int32, plen [B, W] int32,
-// pb / pnb [B, W] f32.
+// pb / pnb [B, W] f32. Takes W (K + 1) <= 256 candidates (one block) and
+// a state of at most 227 KB of shared memory; other sizes return
+// cudaErrorInvalidValue.
 int asr_beam_search(const void* lp, const void* top_lp, const void* top_ids,
                     const void* lens, void* prefixes, void* plen, void* pb,
                     void* pnb, int B, int T, int V, int W, int K, int blank,

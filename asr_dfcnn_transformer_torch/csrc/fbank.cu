@@ -14,10 +14,14 @@
 //   python_speech_features reference is f64 too). Power, mel projection
 //   (a sum of non-negative terms) and log stay f32.
 //
-//   Bound: f64 FMAs. One frame costs 400 x 257 x 2 FMAs for the DFT and
-//   257 x 200 f32 ones for the mel bank, so a [8, 1600] batch is ~2.6 G
-//   f64 FMAs (H100 SXM: 34 TFLOP/s of f64 outside the tensor cores)
-//   against a few MB of signal and output.
+//   Bound: bytes. The function reads the signal and writes the features,
+//   ~18 MB at [8, 1600] frames, ~5.6 us at 3.35 TB/s; its operations are
+//   fewer in FFT form (~12 k f64 a frame for a 512-point real FFT, and the
+//   mel bank is sparse) and take ~3 us even at the 67 TFLOP/s of f64 on
+//   the tensor cores. This kernel's direct DFT instead costs 400 x 257 x 2
+//   f64 FMAs a frame (~2.6 G a batch, ~30x the FFT's operations) on the
+//   34 TFLOP/s of f64 outside the tensor cores, and so runs ~80x over the
+//   function's bound.
 //   Design: one block per (utterance, 8-frame tile). The tile's
 //   pre-emphasised, masked samples sit in shared memory (1520 values, the
 //   2.5x frame matrix is never built), widened to f64 once. Thread k owns
@@ -29,8 +33,9 @@
 //   cuBLAS. Tiles of 16 frames measured slower (0.62 vs 0.46 ms at
 //   [8, 1600] on an H100 SXM at 700 W), likely from fewer blocks in
 //   flight per SM.
-//   It still runs at ~1/3 of the f64 FMA rate. Later work: tensor-core
-//   products (f64 DMMA, or split f32) over the frame matrix.
+//   It runs at ~1/3 of the non-tensor f64 FMA rate. Later work: an FFT
+//   form in f64, or tensor-core products (f64 DMMA, or split f32) over the
+//   frame matrix, towards the bound of bytes.
 //
 // asr_cmvn replaces fbank_kernel.py pallas_cmvn (_cmvn_kernel): per
 // utterance and per bin, masked mean and std over the valid frames (ddof 0,

@@ -102,11 +102,9 @@ cudaError_t launch(const float* x, float* vals, int* ids, int N, int V, int k,
 
 extern "C" {
 
-// Largest last-axis size and k the kernel takes.
-int asr_topk_max_v() { return 64 * 32; }
-int asr_topk_max_k() { return kMaxK; }
-
-// x [N, V] f32 -> vals [N, k] f32, ids [N, k] int32.
+// x [N, V] f32 -> vals [N, k] f32, ids [N, k] int32. Takes V <= 2048 (64
+// values a lane) and k <= V, k <= 32; other sizes return
+// cudaErrorInvalidValue.
 int asr_topk_last(const void* x, void* vals, void* ids, int N, int V, int k,
                   void* stream) {
   if (N <= 0) return static_cast<int>(cudaSuccess);

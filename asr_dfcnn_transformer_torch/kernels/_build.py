@@ -51,11 +51,7 @@ _SIGNATURES = {
     "asr_ctc_alpha": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "asr_ctc_beta_xi": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
                         _I),
-    "asr_topk_max_v": ((), _I),
-    "asr_topk_max_k": ((), _I),
     "asr_topk_last": ((_P, _P, _P, _I, _I, _I, _P), _I),
-    "asr_beam_search_smem": ((_I, _I, _I), ctypes.c_longlong),
-    "asr_beam_search_max_candidates": ((), _I),
     "asr_beam_search": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P), _I),
 }
@@ -158,12 +154,16 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check(name: str, rc: int) -> None:
-    """Raise if a launch returned a CUDA error; count it otherwise."""
+def check(name: str, rc: int, sizes: str = "") -> None:
+    """Raise if a launch returned a CUDA error; count it otherwise. A
+    launcher refuses sizes outside what its kernel takes (the limits stand
+    in its ``csrc/`` source) with CUDA's invalid-argument error, so the
+    message carries the launch's ``sizes``."""
     if rc != 0:
         msg = library().asr_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
+        at = f" at {sizes}" if sizes else ""
+        raise RuntimeError(f"{name} kernel launch failed{at}: CUDA error "
+                           f"{rc} ({msg})")
     LAUNCHES[name] += 1
 
 

@@ -200,15 +200,6 @@ def beam_search(lp: torch.Tensor, top_lp: torch.Tensor,
     dev = _build.require_cuda("beam_search", *tensors)
     b, t, v = lp.shape
     w, k, lcap = beam_width, topk, max_decode_len
-    lib = _build.library()
-    if w * (k + 1) > lib.asr_beam_search_max_candidates():
-        raise ValueError(f"beam_search: W (K + 1) = {w * (k + 1)} candidates, "
-                         f"above the {lib.asr_beam_search_max_candidates()} "
-                         "one block takes")
-    smem = lib.asr_beam_search_smem(w, k, lcap)
-    if smem > 227 * 1024:
-        raise ValueError(f"beam_search: {smem} bytes of shared memory for "
-                         f"W {w}, K {k}, L {lcap}, above a block's 227 KB")
     prefixes = torch.empty((b, w, lcap), dtype=torch.int32, device=dev)
     plen = torch.empty((b, w), dtype=torch.int32, device=dev)
     pb = torch.empty((b, w), dtype=torch.float32, device=dev)
@@ -216,10 +207,10 @@ def beam_search(lp: torch.Tensor, top_lp: torch.Tensor,
     if b == 0:
         return prefixes, plen, pb, pnb
     with torch.cuda.device(dev):
-        rc = lib.asr_beam_search(
+        rc = _build.library().asr_beam_search(
             lp.data_ptr(), top_lp.data_ptr(), top_ids.data_ptr(),
             lens.data_ptr(), prefixes.data_ptr(), plen.data_ptr(),
             pb.data_ptr(), pnb.data_ptr(), b, t, v, w, k, blank, lcap,
             _build.stream_ptr(dev))
-    _build.check("beam_search", rc)
+    _build.check("beam_search", rc, f"W {w}, K {k}, L {lcap}")
     return prefixes, plen, pb, pnb

@@ -58,18 +58,14 @@ def topk_last(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.dtype != torch.float32:
         raise ValueError(f"topk_last: x must be float32, got {x.dtype}")
     lead, v = x.shape[:-1], x.shape[-1]
-    lib = _build.library()
-    if v > lib.asr_topk_max_v() or k > lib.asr_topk_max_k():
-        raise ValueError(f"topk_last: the kernel takes V <= "
-                         f"{lib.asr_topk_max_v()} and k <= "
-                         f"{lib.asr_topk_max_k()}, got V={v}, k={k}")
     vals = torch.empty((*lead, k), dtype=torch.float32, device=dev)
     ids = torch.empty((*lead, k), dtype=torch.int32, device=dev)
     n = vals.numel() // k
     if n == 0:
         return vals, ids
     with torch.cuda.device(dev):
-        rc = lib.asr_topk_last(x.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-                               n, v, k, _build.stream_ptr(dev))
-    _build.check("topk_last", rc)
+        rc = _build.library().asr_topk_last(
+            x.data_ptr(), vals.data_ptr(), ids.data_ptr(), n, v, k,
+            _build.stream_ptr(dev))
+    _build.check("topk_last", rc, f"V {v}, k {k}")
     return vals, ids

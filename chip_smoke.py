@@ -101,9 +101,13 @@ LM_BATCH, LM_LEN = 64, 64                             # LmConfig.batch_size
 TRAIN_STEPS, WARMUP_STEPS = 10, 2
 LM_LR = 5e-4          # 10x LmConfig.lr: ten steps show the fit through dropout
 # Peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): memory, and
-# operations by type (f64 and f32 outside the tensor cores, bf16 on them).
+# the best rate for each type of operation (f64 on the tensor cores, f32
+# outside them, bf16 on them).
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"f64": 34e12, "f32": 67e12, "bf16": 989e12}
+PEAK_OPS_S = {"f64": 67e12, "f32": 67e12, "bf16": 989e12}
+# operations of one 512-point real FFT: the usual 5 N log2 N of a complex
+# FFT, halved for a real input
+RFFT_512_OPS = 5 * 512 * 9 // 2
 
 
 class PhaseError(RuntimeError):
@@ -197,14 +201,12 @@ def phase_device():
 def phase_kernels(results):
     import torch
     import torch.nn.functional as F
-    from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
-                                                         mel_filterbank,
+    from asr_dfcnn_transformer_torch.audio.fbank import (mel_filterbank,
                                                          samples_for_frames,
                                                          valid_frames)
     from asr_dfcnn_transformer_torch.kernels import (
         cmvn, cmvn_reference, log_mel, log_mel_reference, masked_attention,
         masked_attention_reference)
-    from asr_dfcnn_transformer_torch.kernels import fbank as kfbank
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
     empty = torch.from_numpy(np.flatnonzero(mel_filterbank().sum(0) == 0))
@@ -242,15 +244,18 @@ def phase_kernels(results):
             k_ms, p_ms = paired_ms(lambda: cmvn(feat, valid),
                                    lambda: cmvn_reference(feat, valid))
             results["cmvn"].update(ms=k_ms, plain_ms=p_ms)
-            # per frame: the 512-point DFT power as 400 x 257 cos and sin
-            # FMAs in f64, the 257 x 200 mel FMAs in f32; the bases are
-            # inputs too. No one PyTorch call computes either function.
+            # the function's work, not the kernel's direct DFT: per frame
+            # pre-emphasis and mask (3 x 400), a real FFT and the power
+            # (3 x 257) in f64; a multiply-add for each non-zero of the
+            # sparse mel bank and a log per filter in f32. Bytes: signal,
+            # lengths, mel bank and features. No one PyTorch call computes
+            # either function.
             frames = sig.shape[0] * out_frames
-            set_bound(results["log_mel"],
-                      nbytes(sig_d, lens_d, feat,
-                             *kfbank._bases(FbankConfig(), dev)),
-                      {"f64": frames * 400 * 257 * 4,
-                       "f32": frames * 257 * 200 * 2})
+            mel = torch.from_numpy(mel_filterbank()).float()
+            set_bound(results["log_mel"], nbytes(sig_d, lens_d, mel, feat),
+                      {"f64": frames * (3 * 400 + RFFT_512_OPS + 3 * 257),
+                       "f32": frames * (2 * int((mel != 0).sum())
+                                        + mel.shape[1])})
             set_bound(results["cmvn"], nbytes(feat, valid, norm),
                       {"f32": 6 * feat.numel()})
             results["log_mel"]["library_ms"] = None
@@ -565,14 +570,17 @@ def check_beam_kernels(results, rng):
     r.update(zip(("ms", "plain_ms"), paired_ms(
         lambda: beam_search(*args, **kw),
         lambda: beam_search_reference(*args, **kw), plain_iters=2)))
-    # what this run's data needs: per valid frame, W + 1 log-probs and the
-    # K top-k pairs read, ~9 f32 operations per candidate pair (hash
-    # compares, max, exp, sum, rank) over M = W (K + 1) candidates; the
-    # outputs written once
+    # what this run's data needs, per valid frame: W + 1 log-probs and the
+    # K top-k pairs read; over the M = W (K + 1) candidates, 7 f32
+    # operations per ordered pair (3 for the (h1, h2) equality, 1 for the
+    # first-occurrence test, 3 for the rank), 16 per candidate (the two
+    # hash updates, 4; its score, 2; the two readouts' add and log, 4; a
+    # logaddexp, 6); the outputs written once. Nominal: the frames are a
+    # chain of dependent steps, which no such count sees.
     frames = int(lens.clamp(max=t).sum())
     m = w * (w + 1)
     set_bound(r, frames * (w + 1 + 2 * w) * 4 + nbytes(lens, *got),
-              {"f32": frames * 9 * m * m})
+              {"f32": frames * (7 * m * m + 16 * m)})
     r["library_ms"] = None          # no PyTorch call does a beam search
     print(f"beam_search: a chain of up to {t} dependent frames "
           f"({frames} valid frames in all)")
