@@ -1,7 +1,12 @@
-"""Audio front end (log-filterbank + CMVN)."""
+"""Audio front end (log-filterbank + CMVN, low-frame-rate stacking)."""
 
 from asr_dfcnn_transformer_torch.audio.fbank import (  # noqa: F401
     FbankConfig,
     batched_fbank,
     num_frames,
+)
+from asr_dfcnn_transformer_torch.audio.lfr import (  # noqa: F401
+    batched_lfr,
+    build_lfr_features,
+    lfr_length,
 )

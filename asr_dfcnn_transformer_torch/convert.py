@@ -79,3 +79,12 @@ def lm_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``TransformerLM`` variables (params) -> the port's ``TransformerLM``
     state_dict (load with ``strict=True``)."""
     return flax_to_state_dict(variables)
+
+
+def e2e_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``SpeechTransformer`` variables (params + the pre-net's batch_stats)
+    -> the port's ``SpeechTransformer`` state_dict (load with
+    ``strict=True``)."""
+    if "batch_stats" not in variables:
+        raise ValueError("e2e variables need the pre-net's batch_stats")
+    return flax_to_state_dict(variables)

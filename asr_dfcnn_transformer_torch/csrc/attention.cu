@@ -52,34 +52,14 @@
 
 #include <math.h>
 
+#include "dtype.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kRowsPerBlock = 16;
 constexpr int kMaxSmem = 232448;  // 227 KB opt-in limit of sm_90
 constexpr float kBigNeg = -1e9f;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // K row stride in elements: Dh plus one 32-bit word of padding.
 template <typename T>

@@ -1,5 +1,9 @@
-"""AM -> LM pipeline and the micro-batching server."""
+"""AM -> LM pipeline, the micro-batching server, and e2e serving."""
 
+from asr_dfcnn_transformer_torch.infer.e2e_serving import (  # noqa: F401
+    E2EServing,
+    e2e_program,
+)
 from asr_dfcnn_transformer_torch.infer.pipeline import (  # noqa: F401
     Pipeline,
     infer_bucket_frames,

@@ -23,6 +23,10 @@ from asr_dfcnn_transformer_torch.kernels.ctc import (  # noqa: F401
     ctc_alpha,
     ctc_beta_xi,
 )
+from asr_dfcnn_transformer_torch.kernels.dual_attention import (  # noqa: F401
+    dual_axis_attention,
+    dual_axis_attention_reference,
+)
 from asr_dfcnn_transformer_torch.kernels.fbank import (  # noqa: F401
     cmvn,
     cmvn_reference,

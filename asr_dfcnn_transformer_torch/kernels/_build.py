@@ -47,6 +47,7 @@ _SIGNATURES = {
     "asr_masked_attention_bwd_smem": ((_I, _I, _I, _I), ctypes.c_longlong),
     "asr_masked_attention_bwd": ((_I, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _F, _I, _P), _I),
+    "asr_dual_attention": ((_I, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
     "asr_ctc_max_states": ((), _I),
     "asr_ctc_alpha": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "asr_ctc_beta_xi": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -55,6 +56,9 @@ _SIGNATURES = {
     "asr_beam_search": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P), _I),
 }
+
+#: the kernels' dtype_code argument
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = collections.Counter()
@@ -165,6 +169,14 @@ def check(name: str, rc: int, sizes: str = "") -> None:
         raise RuntimeError(f"{name} kernel launch failed{at}: CUDA error "
                            f"{rc} ({msg})")
     LAUNCHES[name] += 1
+
+
+def no_grad_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when an input of a kernel without a backward requires grad,
+    rather than return an output cut off from the graph."""
+    if any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name} has no backward: its inputs must not "
+                         "require grad")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

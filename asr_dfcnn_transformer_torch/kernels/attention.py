@@ -23,7 +23,6 @@ from asr_dfcnn_transformer_torch.kernels import _build
 
 BIG_NEG = -1e9
 MAX_SMEM = 232448          # bytes of shared memory a block may opt into
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _scale(dh: int) -> float:
@@ -109,7 +108,7 @@ def _forward(q, k, v, k_valid, causal, keep_mask, keep_prob):
         return out
     b, h, tq, dh = q.shape
     tk = k.shape[2]
-    code = _DTYPE_CODES[q.dtype]
+    code = _build.DTYPE_CODES[q.dtype]
     lib = _build.library()
     _check_smem("masked_attention", lib.asr_masked_attention_smem(code, tk, dh),
                 tq, tk, dh)
@@ -138,7 +137,7 @@ def _backward(q, k, v, k_valid, dout, causal, keep_mask, keep_prob):
         return dq, dk.zero_(), dv.zero_()
     b, h, tq, dh = q.shape
     tk = k.shape[2]
-    code = _DTYPE_CODES[q.dtype]
+    code = _build.DTYPE_CODES[q.dtype]
     lib = _build.library()
     _check_smem("masked_attention_bwd",
                 lib.asr_masked_attention_bwd_smem(code, tq, tk, dh),
@@ -196,7 +195,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, h, tk, dh) or v.shape != k.shape:
         raise ValueError(f"masked_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError("masked_attention: q, k, v must share a float32 or "
                          "bfloat16 dtype")

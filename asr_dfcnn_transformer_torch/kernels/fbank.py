@@ -25,12 +25,6 @@ from asr_dfcnn_transformer_torch.kernels import _build
 EPS = float(np.finfo(np.float64).eps)
 
 
-def _no_grad_inputs(name: str, *tensors: torch.Tensor) -> None:
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name} has no backward: its inputs must not "
-                         "require grad")
-
-
 def _check_geometry(cfg: FbankConfig) -> None:
     if (cfg.win_len, cfg.hop, cfg.nfft) != (400, 160, 512):
         raise ValueError("the fbank kernels are fixed to win 400 / hop 160 / "
@@ -82,7 +76,7 @@ def log_mel(signals: torch.Tensor, lengths: torch.Tensor, n_frames: int,
         raise ValueError("log_mel: lengths must be [B] int32")
     if n_frames < 1:
         raise ValueError(f"log_mel: n_frames must be >= 1, got {n_frames}")
-    _no_grad_inputs("log_mel", signals)
+    _build.no_grad_inputs("log_mel", signals)
     if signals.device.type == "cpu" and lengths.device.type == "cpu":
         return log_mel_reference(signals, lengths, n_frames, cfg)
     dev = _build.require_cuda("log_mel", signals, lengths)
@@ -131,7 +125,7 @@ def cmvn(feat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                          f"{tuple(feat.shape)} {feat.dtype}")
     if valid.shape != (feat.shape[0],) or valid.dtype != torch.int32:
         raise ValueError("cmvn: valid must be [B] int32")
-    _no_grad_inputs("cmvn", feat)
+    _build.no_grad_inputs("cmvn", feat)
     if feat.device.type == "cpu" and valid.device.type == "cpu":
         return cmvn_reference(feat, valid)
     dev = _build.require_cuda("cmvn", feat, valid)

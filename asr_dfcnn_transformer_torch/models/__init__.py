@@ -1,4 +1,4 @@
-"""Acoustic model and language model."""
+"""Acoustic model, language model and end-to-end speech Transformer."""
 
 from asr_dfcnn_transformer_torch.models.dfcnn import (  # noqa: F401
     SEDFCNN,
@@ -9,4 +9,12 @@ from asr_dfcnn_transformer_torch.models.dfcnn import (  # noqa: F401
 from asr_dfcnn_transformer_torch.models.transformer_lm import (  # noqa: F401
     TransformerLM,
     TransformerLMConfig,
+)
+from asr_dfcnn_transformer_torch.models.speech_transformer import (  # noqa: F401
+    SpeechTransformer,
+    SpeechTransformerConfig,
+    beam_decode,
+    beam_decode_cached,
+    greedy_decode,
+    greedy_decode_cached,
 )

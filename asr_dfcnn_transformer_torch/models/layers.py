@@ -26,6 +26,8 @@ from torch import nn
 
 from asr_dfcnn_transformer_torch.kernels.attention import (BIG_NEG,
                                                           masked_attention)
+from asr_dfcnn_transformer_torch.kernels.dual_attention import (
+    MAX_C, MAX_T, dual_axis_attention)
 
 BN_EPS = 1e-3      # every BatchNorm of the AM (layers.py ConvBnCell)
 BN_MOMENTUM = 0.99  # Flax BatchNorm's default (ra = m * ra + (1 - m) * stat)
@@ -261,13 +263,21 @@ def attention_mask(q_valid: torch.Tensor, k_valid: torch.Tensor,
 
 
 class MultiHeadAttention(nn.Module):
-    """Multi-head attention with residual + LayerNorm, full-sequence
-    forward (layers.py:264-358). ``parity``: ReLU'd, bias-free Q/K/V/out
-    projections. The attention core is ``kernels.masked_attention``
-    (the CUDA kernels on the card, their twins on the CPU); the head split
-    is head-major, ``[B, T, H, Dh]``. In training, ``dropout_rate`` drops
-    attention probabilities through a keep mask [B, H, Tq, Tk] that the
-    kernel applies (layers.py:321-330)."""
+    """Multi-head attention with residual + LayerNorm (layers.py:203-383).
+    ``parity``: ReLU'd, bias-free Q/K/V/out projections. The head split is
+    head-major, ``[B, T, H, Dh]``.
+
+    The full-sequence forward routes as the JAX module's
+    ``fused="pallas"`` does, without its TPU crossover: single-head,
+    unmasked, non-causal, square (Tq == Tk), dropout-free attention (the e2e
+    pre-net's rows) goes to ``kernels.dual_axis_attention`` (within its
+    T <= 160, C <= 128); everything else to ``kernels.masked_attention``.
+    Each is a CUDA kernel on the card and its twin on the CPU. In training,
+    ``dropout_rate`` drops attention probabilities through a keep mask
+    [B, H, Tq, Tk] that the masked kernel applies (layers.py:321-330).
+
+    ``project_q`` / ``project_kv`` / ``attend_step`` are the pieces of the
+    KV-cached decode, plain torch as in the JAX package."""
 
     def __init__(self, d_model: int, num_heads: int, *,
                  dropout_rate: float = 0.0, parity: bool = False,
@@ -279,6 +289,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.parity = parity
+        self.dtype = dtype
         kw = dict(bias=not parity, dtype=dtype, device=device,
                   generator=generator)
         self.q = Dense(d_model, d_model, **kw)
@@ -294,6 +305,17 @@ class MultiHeadAttention(nn.Module):
         b, t, _ = y.shape
         return y.view(b, t, self.num_heads, -1).transpose(1, 2).contiguous()
 
+    def project_q(self, x: torch.Tensor) -> torch.Tensor:
+        return self._act(self.q(x))
+
+    def project_kv(self, x: torch.Tensor):
+        """[B, T, D] -> (k, v), both [B, T, D] (before the head split)."""
+        return self._act(self.k(x)), self._act(self.v(x))
+
+    def _finish(self, out: torch.Tensor, queries: torch.Tensor
+                ) -> torch.Tensor:
+        return self.LayerNorm_0(self._act(self.out(out)) + queries)
+
     def forward(self, queries: torch.Tensor, keys: torch.Tensor,
                 values: Optional[torch.Tensor] = None, *,
                 k_valid: Optional[torch.Tensor] = None,
@@ -305,38 +327,77 @@ class MultiHeadAttention(nn.Module):
         if values is None:
             values = keys
         b, tq, _ = queries.shape
-        q = self._heads(self._act(self.q(queries)))
+        tk = keys.shape[1]
+        dropout_on = self.training and self.dropout_rate > 0.0
+        if (self.num_heads == 1 and k_valid is None and not causal
+                and tq == tk and not dropout_on
+                and tk <= MAX_T and self.d_model <= MAX_C):
+            out = dual_axis_attention(self.project_q(queries).contiguous(),
+                                      self._act(self.k(keys)).contiguous(),
+                                      self._act(self.v(values)).contiguous())
+            return self._finish(out, queries)
+        q = self._heads(self.project_q(queries))
         k = self._heads(self._act(self.k(keys)))
         v = self._heads(self._act(self.v(values)))
         drop, keep = None, 1.0
-        if self.training and self.dropout_rate > 0.0:
+        if dropout_on:
             keep = 1.0 - self.dropout_rate
-            drop = keep_mask((b, self.num_heads, tq, k.shape[2]), keep,
-                             q.device, generator)
+            drop = keep_mask((b, self.num_heads, tq, tk), keep, q.device,
+                             generator)
         out = masked_attention(q, k, v, k_valid, causal=causal,
                                keep_mask=drop, keep_prob=keep)
         out = out.transpose(1, 2).reshape(b, tq, self.d_model)
-        out = self._act(self.out(out)) + queries
-        return self.LayerNorm_0(out)
+        return self._finish(out, queries)
+
+    def attend_step(self, query_t: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, valid_len) -> torch.Tensor:
+        """One cached position (layers.py:360), as the JAX code computes
+        it: f32 scores DIVIDED by sqrt(Dh), keys at or past ``valid_len``
+        REPLACED by -1e9, f32 softmax, probabilities in the dtype before
+        P.V. query_t [B, 1, D]; k_cache / v_cache [B, Tmax, D] (projected);
+        valid_len an int or a [B] tensor. Returns [B, 1, D] (residual and
+        LayerNorm applied)."""
+        b = query_t.shape[0]
+        tk = k_cache.shape[1]
+        h, dh = self.num_heads, self.d_model // self.num_heads
+        q = self.project_q(query_t).view(b, 1, h, dh).transpose(1, 2)
+        k = k_cache.view(b, tk, h, dh).transpose(1, 2)
+        v = v_cache.view(b, tk, h, dh).transpose(1, 2)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scores = scores / math.sqrt(dh)
+        pos = torch.arange(tk, device=k_cache.device)
+        if isinstance(valid_len, torch.Tensor) and valid_len.dim() == 1:
+            key_ok = pos[None, :] < valid_len[:, None]
+        else:
+            key_ok = (pos < valid_len)[None, :]
+        scores = torch.where(key_ok[:, None, None, :], scores, BIG_NEG)
+        probs = torch.softmax(scores, dim=-1).to(self.dtype)
+        out = torch.matmul(probs.float(), v.float()).to(self.dtype)
+        out = out.transpose(1, 2).reshape(b, 1, self.d_model)
+        return self._finish(out, query_t)
 
 
 class FeedForward(nn.Module):
-    """relu(x W1 + b1) W2 + b2, residual, LayerNorm (layers.py:403; the
-    unfused path, parameters under Dense_0 / Dense_1). No dropout: the LM
-    builds its FFNs with the default rate 0."""
+    """relu(x W1 + b1) W2 + b2, dropout (training only), residual,
+    LayerNorm (layers.py:403; the unfused path, parameters under Dense_0 /
+    Dense_1). The LM builds its FFNs with the default rate 0, the e2e
+    model with its ``dropout_rate``."""
 
     def __init__(self, d_model: int, inner: Optional[int] = None, *,
-                 dtype: torch.dtype, device, generator: torch.Generator):
+                 dropout_rate: float = 0.0, dtype: torch.dtype, device,
+                 generator: torch.Generator):
         super().__init__()
         inner = inner or 4 * d_model
+        self.dropout = Dropout(dropout_rate)
         self.Dense_0 = Dense(d_model, inner, dtype=dtype, device=device,
                              generator=generator)
         self.Dense_1 = Dense(inner, d_model, dtype=dtype, device=device,
                              generator=generator)
         self.LayerNorm_0 = LayerNorm(d_model, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.Dense_1(F.relu(self.Dense_0(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.dropout(self.Dense_1(F.relu(self.Dense_0(x))), generator)
         return self.LayerNorm_0(y + x)
 
 

@@ -6,17 +6,20 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi), then a build of
-   every CUDA kernel of both paths from ``asr_dfcnn_transformer_torch/csrc``.
+   every CUDA kernel of the paths from ``asr_dfcnn_transformer_torch/csrc``.
 2. Kernels against their plain-PyTorch twins on the card, on seeded inputs
    at the main paths' shapes (``log_mel`` + ``cmvn``; ``masked_attention``
-   in f32 and bf16; ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129;
+   in f32 and bf16 at the LM's causal and the e2e's key-masked shapes;
+   ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129;
    the attention backward and the dropout forward at the LM's training
    shape; ``topk_last`` at [1600, 1536], k 8, and ``beam_search`` at
    [8, 200, 1536], W = K = 8, L 100, with batch-1, exhausted-candidate and
-   tie-heavy cases), each with its tolerance; then each kernel's time
-   beside its twin's (CUDA events after warm-up, in turns), its bound
-   computed from the inputs, and the time of the one PyTorch call that
-   computes the same function, where there is one.
+   tie-heavy cases; ``dual_axis_attention`` at the e2e pre-net's frequency
+   rows [1072, 80, 64] in bf16 and f32, its unmasked time rows [640, 134,
+   64] and a ragged [13, 7, 32]), each with its tolerance; then each
+   kernel's time beside its twin's (CUDA events after warm-up, in turns),
+   its bound computed from the inputs, and the time of the one PyTorch call
+   that computes the same function, where there is one.
 3. The served main path: full-width SE-DFCNN + 12-block Transformer LM in
    bf16 from a seeded ``torch.Generator``, behind the port's ``Pipeline``
    and ``BatchingServer`` (max_batch 8, buckets 400/800/1200/1600), answering
@@ -39,6 +42,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    before and read just after: every training kernel must have run.
 6. Card against CPU for one training step of each trainer, f32, small
    widths, dropout 0, the same weights: the gradients must agree.
+7. The e2e speech Transformer served: full width (80-bin fbank, LFR 4/3,
+   64-channel pre-net, 6 + 6 blocks of d 512, 8 heads, vocab 6347) in bf16
+   from a seeded ``torch.Generator``, behind ``E2EServing`` (buckets 128 /
+   512 / 1600, batch sizes 1 / 8), answering the same 16 tone utterances,
+   once with the greedy decode and once with beam K = 3 (lp_alpha 0.6,
+   max_len 64). The launch counters are reset just before and read just
+   after each: ``log_mel``, ``cmvn``, ``masked_attention`` and
+   ``dual_axis_attention`` must have run, the last twice per encode.
+8. Card against CPU for the e2e model: two utterances at bucket 512 in
+   f32, the same weights; the encoder memory must agree, and the greedy and
+   beam ids up to the first step at which the CPU's decision margin falls
+   below 1e-3, with the beam scores where the ids agree.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -88,6 +103,9 @@ KERNELS = {
                   "asr_dfcnn_transformer_tpu/ops/pallas/topk_kernel.py:66"),
     "beam_search": ("asr_dfcnn_transformer_torch/csrc/beam.cu",
                     "asr_dfcnn_transformer_tpu/ops/pallas/beam_kernel.py:543"),
+    "dual_axis_attention": (
+        "asr_dfcnn_transformer_torch/csrc/dual_attention.cu",
+        "asr_dfcnn_transformer_tpu/ops/pallas/attn_kernel.py:589"),
 }
 SERVED = {"greedy": ("log_mel", "cmvn", "masked_attention"),
           "beam": ("log_mel", "cmvn", "masked_attention", "topk_last",
@@ -100,6 +118,13 @@ AM_BATCH, AM_BUCKET, AM_LABELS = 16, 1600, (48, 64)   # AmConfig.batch_size
 LM_BATCH, LM_LEN = 64, 64                             # LmConfig.batch_size
 TRAIN_STEPS, WARMUP_STEPS = 10, 2
 LM_LR = 5e-4          # 10x LmConfig.lr: ten steps show the fit through dropout
+E2E_SERVED = ("log_mel", "cmvn", "masked_attention",
+              "dual_axis_attention")                  # launched by phase 7
+E2E_NFILT, E2E_LFR = 80, (4, 3)                       # E2EConfig
+E2E_BEAM, E2E_MAX_LEN = 3, 64                         # E2EConfig.beam_size
+E2E_CMP_BUCKET = 512
+E2E_MEMORY_ATOL = 2e-3
+MARGIN = 1e-3
 # Peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): memory, and
 # the best rate for each type of operation (f64 on the tensor cores, f32
 # outside them, bf16 on them).
@@ -262,8 +287,13 @@ def phase_kernels(results):
             results["cmvn"]["library_ms"] = None
 
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-    for shape in ((16, 8, 100, 100, 64), (2, 2, 7, 7, 32),
-                  (MAX_BATCH, 8, 100, 100, 64)):
+    # the LM's causal shapes, then the e2e's key-masked pre-net time rows
+    # (B 8 x F' 80 rows of T' 134) and encoder
+    for shape, causal in (((16, 8, 100, 100, 64), True),
+                          ((2, 2, 7, 7, 32), True),
+                          ((MAX_BATCH, 8, 100, 100, 64), True),
+                          ((MAX_BATCH * 80, 1, 134, 134, 64), False),
+                          ((MAX_BATCH, 8, 134, 134, 64), False)):
         b, h, tq, tk, dh = shape
         q, k, v = (torch.from_numpy(rng.standard_normal(
             (b, h, t, dh)).astype(np.float32)).to(dev) for t in (tq, tk, tk))
@@ -272,15 +302,17 @@ def phase_kernels(results):
         k_valid[0] = False                      # one fully invalid row
         for dtype in (torch.float32, torch.bfloat16):
             qd, kd, vd = (x.to(dtype) for x in (q, k, v))
-            got = masked_attention(qd, kd, vd, k_valid, causal=True)
-            want = masked_attention_reference(qd, kd, vd, k_valid, True)
+            got = masked_attention(qd, kd, vd, k_valid, causal=causal)
+            want = masked_attention_reference(qd, kd, vd, k_valid, causal)
             ok, err = close_enough(got, want, tol[dtype], tol[dtype])
             finite = bool(torch.isfinite(got.float()).all())
-            print(f"masked_attention {list(shape)} {dtype}: max abs err "
+            print(f"masked_attention {list(shape)} causal {causal} {dtype}: "
+                  f"max abs err "
                   f"{err:.3g} (tol {tol[dtype]}) finite {finite} "
                   f"{'ok' if ok else 'FAIL'}")
             require(ok and finite, "masked_attention disagrees with its twin")
-            if b == MAX_BATCH and dtype == torch.bfloat16:
+            if shape == (MAX_BATCH, 8, 100, 100, 64) \
+                    and dtype == torch.bfloat16:
                 r = results["masked_attention"]
                 r["max_abs_err"] = err
                 k_ms, p_ms = paired_ms(
@@ -300,6 +332,7 @@ def phase_kernels(results):
     check_ctc_kernels(results, rng)
     check_attention_training_kernels(results, rng)
     check_beam_kernels(results, rng)
+    check_dual_attention(results, rng)
     for name, r in results.items():
         lib = ("—" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -584,6 +617,57 @@ def check_beam_kernels(results, rng):
     r["library_ms"] = None          # no PyTorch call does a beam search
     print(f"beam_search: a chain of up to {t} dependent frames "
           f"({frames} valid frames in all)")
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at each |x| (8 significant bits;
+    the smallest subnormal's at 0)."""
+    import torch
+    _, e = torch.frexp(x.float())
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+    return torch.where(x == 0, 2.0 ** -133, ulp)
+
+
+def check_dual_attention(results, rng):
+    """``dual_axis_attention`` against its twin: f32 within 1e-5 on
+    unit-normal inputs; bf16 each output within one bf16 ulp of the twin's
+    (the count of elements that differ at all is printed)."""
+    import torch
+    import torch.nn.functional as F
+    from asr_dfcnn_transformer_torch.kernels import (
+        dual_axis_attention, dual_axis_attention_reference)
+    dev = torch.device(DEVICE)
+    freq_rows = (MAX_BATCH * 134, 80, 64)     # B 8 x T' 134 rows of F' 80
+    cases = ((freq_rows, torch.bfloat16), (freq_rows, torch.float32),
+             ((MAX_BATCH * 80, 134, 64), torch.bfloat16),
+             ((13, 7, 32), torch.bfloat16), ((13, 7, 32), torch.float32))
+    for shape, dtype in cases:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype) for _ in range(3))
+        got = dual_axis_attention(q, k, v)
+        want = dual_axis_attention_reference(q, k, v)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        n_diff = int((got != want).sum())
+        if dtype == torch.float32:
+            ok, tol = err <= 1e-5, "atol 1e-5"
+        else:
+            ok, tol = bool((diff <= bf16_ulp(want)).all()), "one bf16 ulp"
+        ok &= bool(torch.isfinite(got.float()).all())
+        print(f"dual_axis_attention {list(shape)} {dtype}: max abs err "
+              f"{err:.3g} ({tol}), {n_diff} of {got.numel()} elements "
+              f"differ {'ok' if ok else 'FAIL'}")
+        require(ok, "dual_axis_attention disagrees with its twin")
+        if shape == freq_rows and dtype == torch.bfloat16:
+            r = results["dual_axis_attention"]
+            r["max_abs_err"] = err
+            r.update(zip(("ms", "plain_ms"), paired_ms(
+                lambda: dual_axis_attention(q, k, v),
+                lambda: dual_axis_attention_reference(q, k, v))))
+            rows, t, c = shape
+            set_bound(r, nbytes(q, k, v, got), {"bf16": 4 * rows * t * t * c})
+            r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[:, None], k[:, None], v[:, None]))
 
 
 def build_models(dtype, device):
@@ -901,6 +985,133 @@ def phase_train_card_vs_cpu():
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def build_e2e(dtype, device):
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.models import (SpeechTransformer,
+                                                    SpeechTransformerConfig)
+    ev = vocab.e2e_language_vocab()
+    model = SpeechTransformer(
+        SpeechTransformerConfig(ev.size, dtype=dtype),
+        feature_dim=E2E_LFR[0] * E2E_NFILT, device=device,
+        generator=torch.Generator().manual_seed(SEED)).eval()
+    return model, ev
+
+
+def phase_e2e_served(results):
+    import torch
+    from asr_dfcnn_transformer_torch.infer import E2EServing
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    model, ev = build_e2e(torch.bfloat16, DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"e2e model: pre-net 64 ch + 2 dual blocks, 6 + 6 blocks d 512 "
+          f"x 8 heads, vocab {ev.size}, bf16, {n_params / 1e6:.1f} M params")
+    rng = np.random.default_rng(SEED + 5)
+    utts = [tone_utterance(rng, int(sec * SAMPLE_RATE))
+            for sec in SERVED_SECONDS]
+    lengths = np.array([len(u) for u in utts], np.int32)
+    signals = np.zeros((len(utts), int(lengths.max())), np.float32)
+    for i, u in enumerate(utts):
+        signals[i, :len(u)] = u
+    for decode in ("greedy", "beam"):
+        srv = E2EServing(model, ev, feature_dim=E2E_NFILT,
+                         lfr_m=E2E_LFR[0], lfr_n=E2E_LFR[1], decode=decode,
+                         beam_width=E2E_BEAM, max_len=E2E_MAX_LEN)
+        srv.recognize_batch(signals[:MAX_BATCH], lengths[:MAX_BATCH])
+        reset_launches()
+        t0 = time.perf_counter()
+        ids, lens = srv.recognize_batch(signals, lengths)
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        chunks = len(srv.chunk_ms)
+        require(ids.shape == (len(utts), E2E_MAX_LEN) and ids.dtype == np.int32
+                and lens.shape == (len(utts),), "e2e result shapes")
+        require(bool(((ids >= 0) & (ids < ev.size)).all())
+                and bool(((lens >= 0) & (lens <= E2E_MAX_LEN)).all()),
+                "e2e ids or lengths out of range")
+        text = "".join(ev.decode(ids[0][:int(lens[0])]))
+        print(f"e2e {decode}: served burst of {len(utts)} in {chunks} chunks: "
+              f"{len(utts) / wall:.2f} utt/s, chunk wall "
+              f"{', '.join(f'{t:.1f}' for t in srv.chunk_ms)} ms")
+        print(f"e2e {decode}: lengths {lens.tolist()}, first text "
+              f"{text[:8]!r}")
+        print(f"e2e {decode}: launch counts on the served path: {counts}")
+        for name in E2E_SERVED:
+            require(counts.get(name, 0) > 0,
+                    f"{name} was never launched (e2e {decode})")
+        dual = counts.get("dual_axis_attention", 0)
+        require(dual == 2 * chunks, f"dual_axis_attention launched {dual} "
+                f"times in {chunks} encodes, not twice each")
+        if decode == "greedy":
+            results["dual_axis_attention"]["launches"] = dual
+
+
+def phase_e2e_card_vs_cpu():
+    """The e2e program in f32 on both devices, each through its own front
+    end: the encoder memory within E2E_MEMORY_ATOL; greedy and beam ids up
+    to the first step at which the CPU's decision margin (top-2 logit gap;
+    for the beam, the gap between the K-th and (K+1)-th best candidate)
+    falls below MARGIN; beam scores within 1e-4 relative where the ids
+    agree."""
+    import torch
+    from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
+                                                         batched_fbank,
+                                                         samples_for_frames)
+    from asr_dfcnn_transformer_torch.audio.lfr import batched_lfr
+    from asr_dfcnn_transformer_torch.models import speech_transformer as st
+    cpu_model, _ = build_e2e(torch.float32, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(DEVICE).eval()
+    rng = np.random.default_rng(SEED + 6)
+    s = samples_for_frames(E2E_CMP_BUCKET)
+    sig = np.zeros((2, s), np.float32)
+    lens = np.array([s, 2 * s // 3], np.int32)
+    for i, n in enumerate(lens):
+        sig[i, :n] = tone_utterance(rng, n)
+
+    def run(model, dev, margins):
+        feats, valid = batched_fbank(
+            torch.from_numpy(sig).to(dev), torch.from_numpy(lens).to(dev),
+            cfg=FbankConfig(nfilt=E2E_NFILT), out_frames=E2E_CMP_BUCKET)
+        lfr, lfr_valid = batched_lfr(feats, valid, *E2E_LFR)
+        mem, mv = model.encode(lfr[..., None], lfr_valid)
+        greedy = st._greedy_cached(model, mem, mv, E2E_MAX_LEN,
+                                   margins["greedy"])
+        beam = st._beam_cached(model, mem, mv, E2E_BEAM, 0.6, E2E_MAX_LEN,
+                               margins["beam"])
+        return [x.cpu() for x in (mem, *greedy, *beam)]
+
+    margins = {"greedy": [], "beam": []}
+    with torch.inference_mode():
+        cpu = run(cpu_model, "cpu", margins)
+        gpu = run(gpu_model, DEVICE, {"greedy": None, "beam": None})
+    err = float((cpu[0] - gpu[0]).abs().max())
+    print(f"e2e card vs CPU, f32, bucket {E2E_CMP_BUCKET}: encoder memory "
+          f"{list(cpu[0].shape)} max abs diff {err:.3g} (atol "
+          f"{E2E_MEMORY_ATOL})")
+    require(err <= E2E_MEMORY_ATOL, "e2e encoder memory differs card vs CPU")
+    for name, (ids_c, len_c), (ids_g, len_g) in (
+            ("greedy", cpu[1:3], gpu[1:3]), ("beam", cpu[3:5], gpu[3:5])):
+        gaps = torch.stack(margins[name], dim=1)               # [B, L]
+        for b in range(ids_c.shape[0]):
+            low = torch.nonzero(gaps[b] < MARGIN)
+            upto = int(low[0]) if len(low) else E2E_MAX_LEN
+            same = torch.equal(ids_c[b, :upto], ids_g[b, :upto])
+            whole = upto == E2E_MAX_LEN
+            if whole:
+                same &= bool(len_c[b] == len_g[b])
+            line = (f"  {name} utt {b}: CPU margin >= {MARGIN} for "
+                    f"{upto} of {E2E_MAX_LEN} steps (least "
+                    f"{float(gaps[b].min()):.3g}), ids equal there: {same}, "
+                    f"lengths CPU {int(len_c[b])} card {int(len_g[b])}")
+            if name == "beam" and whole and same:
+                sc, sg = float(cpu[5][b]), float(gpu[5][b])
+                ok = abs(sc - sg) <= 1e-4 * abs(sc)
+                line += f", score {sc:.6f} vs {sg:.6f}"
+                require(ok, "e2e beam scores differ card vs CPU")
+            print(line)
+            require(same, f"e2e {name} ids differ card vs CPU")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -917,6 +1128,8 @@ def main() -> int:
     phase_card_vs_cpu()
     phase_training(results)
     phase_train_card_vs_cpu()
+    phase_e2e_served(results)
+    phase_e2e_card_vs_cpu()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -244,7 +244,8 @@ def test_package_never_imports_jax():
         "need = ['ops.ctc', 'ops.edit_distance', 'kernels.ctc',\n"
         "        'kernels.topk', 'kernels.beam', 'core.vocab',\n"
         "        'train.trainer', 'train.checkpoint', 'train.schedule',\n"
-        "        'data.batches']\n"
+        "        'data.batches', 'kernels.dual_attention', 'audio.lfr',\n"
+        "        'models.speech_transformer', 'infer.e2e_serving']\n"
         "missing = [n for n in need if p.__name__ + '.' + n"
         " not in sys.modules]\n"
         "assert not missing, missing\n"
