@@ -1,4 +1,5 @@
-"""Audio front end (log-filterbank + CMVN, low-frame-rate stacking)."""
+"""Audio front end (log-filterbank + CMVN, SpecAugment, low-frame-rate
+stacking)."""
 
 from asr_dfcnn_transformer_torch.audio.fbank import (  # noqa: F401
     FbankConfig,
@@ -9,4 +10,8 @@ from asr_dfcnn_transformer_torch.audio.lfr import (  # noqa: F401
     batched_lfr,
     build_lfr_features,
     lfr_length,
+)
+from asr_dfcnn_transformer_torch.audio.specaugment import (  # noqa: F401
+    SpecAugmentConfig,
+    spec_augment,
 )

@@ -24,7 +24,9 @@ from asr_dfcnn_transformer_torch.kernels.ctc import (  # noqa: F401
     ctc_beta_xi,
 )
 from asr_dfcnn_transformer_torch.kernels.dual_attention import (  # noqa: F401
+    DualAxisAttention,
     dual_axis_attention,
+    dual_axis_attention_bwd_reference,
     dual_axis_attention_reference,
 )
 from asr_dfcnn_transformer_torch.kernels.fbank import (  # noqa: F401

@@ -48,6 +48,9 @@ _SIGNATURES = {
     "asr_masked_attention_bwd": ((_I, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _F, _I, _P), _I),
     "asr_dual_attention": ((_I, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
+    "asr_dual_attention_bwd_smem": ((_I, _I, _I), ctypes.c_longlong),
+    "asr_dual_attention_bwd": ((_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _F, _P), _I),
     "asr_ctc_max_states": ((), _I),
     "asr_ctc_alpha": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "asr_ctc_beta_xi": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

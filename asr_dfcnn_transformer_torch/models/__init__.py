@@ -15,6 +15,7 @@ from asr_dfcnn_transformer_torch.models.speech_transformer import (  # noqa: F40
     SpeechTransformerConfig,
     beam_decode,
     beam_decode_cached,
+    e2e_loss,
     greedy_decode,
     greedy_decode_cached,
 )

@@ -27,7 +27,7 @@ from torch import nn
 from asr_dfcnn_transformer_torch.kernels.attention import (BIG_NEG,
                                                           masked_attention)
 from asr_dfcnn_transformer_torch.kernels.dual_attention import (
-    MAX_C, MAX_T, dual_axis_attention)
+    dual_axis_attention, supports as dual_supports)
 
 BN_EPS = 1e-3      # every BatchNorm of the AM (layers.py ConvBnCell)
 BN_MOMENTUM = 0.99  # Flax BatchNorm's default (ra = m * ra + (1 - m) * stat)
@@ -270,9 +270,12 @@ class MultiHeadAttention(nn.Module):
     The full-sequence forward routes as the JAX module's
     ``fused="pallas"`` does, without its TPU crossover: single-head,
     unmasked, non-causal, square (Tq == Tk), dropout-free attention (the e2e
-    pre-net's rows) goes to ``kernels.dual_axis_attention`` (within its
-    T <= 160, C <= 128); everything else to ``kernels.masked_attention``.
-    Each is a CUDA kernel on the card and its twin on the CPU. In training,
+    pre-net's rows, in serving and in training) goes to
+    ``kernels.dual_axis_attention`` (within its forward's T <= 160,
+    C <= 128 and, when a gradient is to flow, its backward's shared
+    memory); everything else to ``kernels.masked_attention``. Each is an
+    autograd Function over a CUDA kernel on the card and its twin on the
+    CPU. In training,
     ``dropout_rate`` drops attention probabilities through a keep mask
     [B, H, Tq, Tk] that the masked kernel applies (layers.py:321-330).
 
@@ -329,16 +332,17 @@ class MultiHeadAttention(nn.Module):
         b, tq, _ = queries.shape
         tk = keys.shape[1]
         dropout_on = self.training and self.dropout_rate > 0.0
+        q = self.project_q(queries)
+        k, v = self._act(self.k(keys)), self._act(self.v(values))
+        grad = torch.is_grad_enabled() and any(x.requires_grad
+                                               for x in (q, k, v))
         if (self.num_heads == 1 and k_valid is None and not causal
                 and tq == tk and not dropout_on
-                and tk <= MAX_T and self.d_model <= MAX_C):
-            out = dual_axis_attention(self.project_q(queries).contiguous(),
-                                      self._act(self.k(keys)).contiguous(),
-                                      self._act(self.v(values)).contiguous())
+                and dual_supports(tk, self.d_model, q.dtype, grad)):
+            out = dual_axis_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous())
             return self._finish(out, queries)
-        q = self._heads(self.project_q(queries))
-        k = self._heads(self._act(self.k(keys)))
-        v = self._heads(self._act(self.v(values)))
+        q, k, v = self._heads(q), self._heads(k), self._heads(v)
         drop, keep = None, 1.0
         if dropout_on:
             keep = 1.0 - self.dropout_rate

@@ -14,6 +14,10 @@
   all ``max_len`` steps as the JAX ``lax.scan`` does (no early exit, no
   per-step host sync), their full-recompute oracles, and exact sequential
   ``microbatch`` chunking.
+- **Training**: in training mode the pre-net's BatchNorms use and update
+  batch statistics, the seven dropout sites draw from the ``generator``
+  the forward is given, and ``e2e_loss`` is the label-smoothed CE over
+  targets != IGNORE_ID.
 
 Public layouts are the JAX package's: features [B, T, F, 1], ids int32.
 The convolutions run NCHW inside the pre-net with XLA's SAME padding made
@@ -42,7 +46,8 @@ from asr_dfcnn_transformer_torch.models.layers import (BatchNorm, Dense,
                                                        LearnedPositionEmbed,
                                                        MultiHeadAttention,
                                                        ScaledEmbed, _const,
-                                                       _param)
+                                                       _param,
+                                                       label_smoothing)
 
 NEG_INF = -1e30     # the beam's dead-candidate score (speech_transformer.py)
 TIME_REDUCTION = 4  # two stride-2 convolutions
@@ -249,37 +254,43 @@ class SpeechTransformer(nn.Module):
         return getattr(self, f"{name}_{i}")
 
     def forward(self, feats: torch.Tensor, feat_valid: torch.Tensor,
-                dec_inputs: torch.Tensor) -> torch.Tensor:
+                dec_inputs: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Teacher forcing: feats [B, T, F, 1] LFR features, feat_valid [B]
         valid rows, dec_inputs [B, L] ids ([SOS] + y) -> [B, L, vocab] f32
-        logits."""
-        memory, mem_valid = self.encode(feats, feat_valid)
-        return self.decode(memory, mem_valid, dec_inputs)
+        logits. In training mode ``generator`` draws every dropout mask
+        (None: torch's default generator)."""
+        memory, mem_valid = self.encode(feats, feat_valid, generator)
+        return self.decode(memory, mem_valid, dec_inputs,
+                           generator=generator)
 
-    def encode(self, feats: torch.Tensor, feat_valid: torch.Tensor):
+    def encode(self, feats: torch.Tensor, feat_valid: torch.Tensor,
+               generator: Optional[torch.Generator] = None):
         """-> (memory [B, T', d_model], mem_valid [B, T'] bool)."""
         x = self.prenet(feats,
                         feat_valid if self.config.prenet_masked else None)
-        return self.encode_blocks(x, feat_valid)
+        return self.encode_blocks(x, feat_valid, generator)
 
-    def encode_blocks(self, x: torch.Tensor, feat_valid: torch.Tensor):
+    def encode_blocks(self, x: torch.Tensor, feat_valid: torch.Tensor,
+                      generator: Optional[torch.Generator] = None):
         """The encoder after the pre-net: x [B, T', F', C] -> (memory,
         mem_valid). A memory row is valid below max(feat_valid // 4, 1)."""
         c = self.config
         b, t, f, ch = x.shape
         x = self.enc_ln(self.enc_proj(x.reshape(b, t, f * ch)))
-        x = self.enc_dropout(x + self.enc_pos(t))
+        x = self.enc_dropout(x + self.enc_pos(t), generator)
         mem_valid = _time_mask(t, torch.clamp_min(torch.div(
             feat_valid.to(x.device), TIME_REDUCTION, rounding_mode="floor"),
             1))
         for i in range(c.num_enc_blocks):
-            x = self._block("enc_attn", i)(x, x, k_valid=mem_valid)
-            x = self._block("enc_ffn", i)(x)
+            x = self._block("enc_attn", i)(x, x, k_valid=mem_valid,
+                                           generator=generator)
+            x = self._block("enc_ffn", i)(x, generator)
         return x, mem_valid
 
     def decode(self, memory: torch.Tensor, mem_valid: torch.Tensor,
-               dec_inputs: torch.Tensor, mask_pad: bool = True
-               ) -> torch.Tensor:
+               dec_inputs: torch.Tensor, mask_pad: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Full decoder over dec_inputs [B, L]. ``mask_pad`` (teacher
         forcing): PAD positions other than 0 are not attendable keys;
         False (autoregressive decoding): every position is, under the
@@ -287,7 +298,8 @@ class SpeechTransformer(nn.Module):
         c = self.config
         ids = dec_inputs.to(torch.int64)
         b, l = ids.shape
-        y = self.dec_dropout(self.dec_embed(ids) + self.dec_pos(l))
+        y = self.dec_dropout(self.dec_embed(ids) + self.dec_pos(l),
+                             generator)
         if mask_pad:
             dec_valid = (ids != constants.PAD) | (
                 torch.arange(l, device=ids.device)[None, :] == 0)
@@ -297,10 +309,12 @@ class SpeechTransformer(nn.Module):
         for i in range(c.num_dec_blocks):
             if not c.parity_decoder:
                 y = self._block("dec_self", i)(y, y, k_valid=dec_valid,
-                                               causal=True)
+                                               causal=True,
+                                               generator=generator)
             y = self._block("dec_cross", i)(y, memory, k_valid=mem_valid,
-                                            causal=c.parity_decoder)
-            y = self._block("dec_ffn", i)(y)
+                                            causal=c.parity_decoder,
+                                            generator=generator)
+            y = self._block("dec_ffn", i)(y, generator)
         return self.dec_output(y)
 
     def precompute_decode_state(self, memory: torch.Tensor):
@@ -339,6 +353,24 @@ class SpeechTransformer(nn.Module):
                                                         cross_v[i], cross_len)
             y = self._block("dec_ffn", i)(y)
         return self.dec_output(y)[:, 0], self_k, self_v
+
+
+def e2e_loss(logits: torch.Tensor, targets: torch.Tensor,
+             epsilon: float = 0.1):
+    """Label-smoothed CE over the positions whose target is not IGNORE_ID
+    (speech_transformer.py:389), and the accuracy over the same positions:
+    logits [B, L, V], targets [B, L] -> f32 scalars (loss, acc)."""
+    valid = (targets != constants.IGNORE_ID).float()
+    safe = torch.clamp_min(targets.long(), 0)
+    one_hot = F.one_hot(safe, logits.shape[-1]).float()
+    smoothed = label_smoothing(one_hot, epsilon)
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    xent = -torch.sum(smoothed * log_probs, dim=-1)
+    denom = torch.clamp_min(torch.sum(valid), 1.0)
+    loss = torch.sum(xent * valid) / denom
+    acc = torch.sum((torch.argmax(logits, dim=-1) == safe).float()
+                    * valid) / denom
+    return loss, acc
 
 
 # ---------------------------------------------------------------- decoding

@@ -27,7 +27,11 @@ beam decode at batch 8 and 32, each whole and in ``microbatch`` chunks.
 trainer (``AMTrainer`` at batch 16, bucket 1600; ``LMTrainer`` at 64 x 64,
 dropout 0.5), a few steps after warm-up under ``torch.profiler``: wall per
 step, device kernel time and the top kernels (tables to ``<out>.am`` and
-``<out>.lm``).
+``<out>.lm``). ``--train --model e2e`` profiles ``E2ETrainer`` at full
+width (batch 8 at bucket 1600, 48-token labels padded to 64, dropout 0.1,
+SpecAugment on): CUDA-event times of a step's stages (fbank, SpecAugment
++ LFR, pre-net, encoder, decoder, loss, backward, Adam), then a few traced
+steps (table to ``<out>.e2e``).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
                                                      batched_fbank,
                                                      samples_for_frames)
 from asr_dfcnn_transformer_torch.audio.lfr import batched_lfr
+from asr_dfcnn_transformer_torch.audio.specaugment import spec_augment
 from asr_dfcnn_transformer_torch.data import AMBatch, LMBatch
 from asr_dfcnn_transformer_torch.infer.e2e_serving import e2e_program
 from asr_dfcnn_transformer_torch.infer.pipeline import pipeline_program
@@ -55,12 +60,14 @@ from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
                                                 TransformerLM,
                                                 TransformerLMConfig,
                                                 beam_decode_cached,
+                                                e2e_loss,
                                                 frames_from_samples,
                                                 logit_lengths)
 from asr_dfcnn_transformer_torch.models import speech_transformer as st
 from asr_dfcnn_transformer_torch.ops import (ctc_beam_search_decode,
                                              ctc_greedy_decode)
-from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer
+from asr_dfcnn_transformer_torch.train import (AMTrainer, E2ETrainer,
+                                               LMTrainer)
 
 STAGES = ("fbank", "am", "decode", "lm")
 BATCH = 8
@@ -73,9 +80,11 @@ LM_MAX_LEN = 100
 PORT_KERNELS = ("log_mel_kernel", "cmvn_kernel", "masked_attention_kernel",
                 "masked_attention_bwd_kernel", "ctc_alpha_kernel",
                 "ctc_beta_xi_kernel", "topk_last_kernel",
-                "beam_search_kernel",
-                "dual_attention_kernel")   # the __global__ functions of csrc/
+                "beam_search_kernel", "dual_attention_kernel",
+                "dual_attention_bwd_kernel")  # csrc/'s __global__ functions
 E2E_STAGES = ("fbank+lfr", "prenet", "encoder", "decode")
+E2E_TRAIN_STAGES = ("fbank", "specaug+lfr", "prenet", "encoder", "decoder",
+                    "loss", "backward", "adam")
 E2E_BUCKETS = (128, 512, 1600)       # E2EServing's
 E2E_BEAM, E2E_LP_ALPHA, E2E_MAX_LEN = 3, 0.6, 64
 E2E_NFILT, LFR_M, LFR_N = 80, 4, 3
@@ -271,6 +280,75 @@ def profile_training(am, lm, av, lv, out: str, steps: int = 3) -> None:
             _write_table(events, f"{out}.{name}")
 
 
+def _e2e_train_stages(tr, sig, lens, dec_in, tgt, bucket, gen):
+    """One ``E2ETrainer.train_step``, stage by stage; returns the CUDA
+    events around the stages."""
+    model = tr.model.train()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+    ev[0].record()
+    feats, valid = batched_fbank(sig, lens, cfg=tr.fbank_cfg,
+                                 out_frames=bucket)
+    ev[1].record()
+    feats = spec_augment(feats, valid, tr.augment_spec, gen)
+    lfr, lfr_valid = batched_lfr(feats, valid, tr.lfr_m, tr.lfr_n)
+    ev[2].record()
+    x = model.prenet(lfr[..., None],
+                     lfr_valid if model.config.prenet_masked else None)
+    ev[3].record()
+    memory, mem_valid = model.encode_blocks(x, lfr_valid, gen)
+    ev[4].record()
+    logits = model.decode(memory, mem_valid, dec_in, generator=gen)
+    ev[5].record()
+    loss, _ = e2e_loss(logits, tgt)
+    ev[6].record()
+    tr.opt.zero_grad(set_to_none=True)
+    loss.backward()
+    ev[7].record()
+    tr.apply_gradients()
+    ev[8].record()
+    return ev, loss
+
+
+def profile_e2e_training(out: str, dev, steps: int = 3) -> None:
+    """The e2e training step's breakdown (``--train --model e2e``)."""
+    v = vocab.e2e_language_vocab()
+    model = SpeechTransformer(SpeechTransformerConfig(v.size),
+                              feature_dim=LFR_M * E2E_NFILT, device=dev,
+                              generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    bucket, batch = max(E2E_BUCKETS), BATCH
+    sig, lens = _signals(rng, batch, bucket, dev)
+    hanzi = np.zeros((batch, 64), np.int32)
+    hanzi[:, :48] = rng.integers(3, v.size, (batch, 48))
+    hz_len = np.full(batch, 48, np.int32)
+    am_batch = AMBatch(sig.cpu().numpy(), lens.cpu().numpy(),
+                       np.full(batch, bucket, np.int32), hanzi, hz_len, hanzi,
+                       hz_len, np.ones(batch, np.float32), bucket)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as workdir:
+        tr = E2ETrainer(model, workdir, feature_dim=E2E_NFILT, lfr_m=LFR_M,
+                        lfr_n=LFR_N, augment_spec=True)
+        dec_in, tgt = (torch.from_numpy(x).to(dev) for x in
+                       tr.make_decoder_io(hanzi, hz_len))
+        print(f"e2e training: batch {batch} at bucket {bucket}, labels 48 "
+              f"padded to 64, dropout {model.config.dropout_rate}, "
+              f"SpecAugment on, bf16; times in ms (CUDA events, mean of "
+              f"{ITERS} steps)")
+        per, wall = _timed_batches(
+            lambda: _e2e_train_stages(tr, sig, lens, dec_in, tgt, bucket,
+                                      gen), len(E2E_TRAIN_STAGES))
+        cells = ", ".join(f"{n} {t:.3f}" for n, t in zip(E2E_TRAIN_STAGES,
+                                                          per))
+        print(f"train e2e: {cells}; device sum {per.sum():.3f}, host wall "
+              f"{wall:.3f} per step")
+        wall, dev_ms, events = _trace(lambda: tr.train_step(am_batch, gen),
+                                      steps)
+    print(f"train e2e: {steps} steps traced, wall {wall:.3f} ms per step, "
+          f"device kernel time {dev_ms:.3f} ms per step (busy "
+          f"{100 * dev_ms / wall:.1f}%)")
+    _write_table(events, f"{out}.e2e")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="profile_stages.txt")
@@ -289,7 +367,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if args.model == "e2e":
         print(f"device {torch.cuda.get_device_name(0)}")
-        profile_e2e(args.decode, args.out, dev)
+        if args.train:
+            profile_e2e_training(args.out, dev)
+        else:
+            profile_e2e(args.decode, args.out, dev)
         return 0
     av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
     gen = torch.Generator().manual_seed(SEED)

@@ -1,4 +1,5 @@
-"""Trainers for the AM and the LM, with their schedule and checkpoints."""
+"""Trainers for the AM, the LM and the e2e speech Transformer, with their
+schedule and checkpoints."""
 
 from asr_dfcnn_transformer_torch.train.checkpoint import (  # noqa: F401
     CheckpointManager,
@@ -8,6 +9,7 @@ from asr_dfcnn_transformer_torch.train.schedule import (  # noqa: F401
 )
 from asr_dfcnn_transformer_torch.train.trainer import (  # noqa: F401
     AMTrainer,
+    E2ETrainer,
     LMTrainer,
     MetricWriter,
 )

@@ -1,18 +1,22 @@
-"""Train loops for the AM and the LM: the port of ``train/trainer.py``
-(``AMTrainer`` :236, ``LMTrainer`` :524).
+"""Train loops for the AM, the LM and the e2e speech Transformer: the port
+of ``train/trainer.py`` (``AMTrainer`` :236, ``LMTrainer`` :524,
+``E2ETrainer`` :753).
 
-One step: batch to the device, (AM) fbank through the ``log_mel`` /
-``cmvn`` kernels, the model's training forward, the loss (CTC through the
-``ctc_alpha`` / ``ctc_beta_xi`` kernels, or the label-smoothed LM cross
-entropy), ``backward`` (the LM's attention through the backward kernel),
-then Adam. As ``optax.adam(schedule)`` does, the learning rate of a step is
+One step: batch to the device, (AM, e2e) fbank through the ``log_mel`` /
+``cmvn`` kernels (e2e: then SpecAugment when asked for, and LFR), the
+model's training forward, the loss (CTC through the ``ctc_alpha`` /
+``ctc_beta_xi`` kernels, or a label-smoothed cross entropy), ``backward``
+(attention through the backward kernels), then Adam. As
+``optax.adam(schedule)`` does, the learning rate of a step is
 ``schedule(step)`` with the step count before the update, and the returned
 metrics carry that ``lr``.
 
 Around the steps: JSONL metrics, a non-finite-loss guard, per-epoch dev
 sweeps with a metric-gated best checkpoint, and resume from the latest
-checkpoint. Not ported yet: the device mesh, noise and SpecAugment
-augmentation, ``remat_stages``, TensorBoard, profiling and identity stamps.
+checkpoint (the e2e trainer: step-numbered checkpoints and an epoch
+marker). Not ported yet: the device mesh, noise augmentation, SpecAugment
+in the AM step, ``remat_stages``, TensorBoard (with the e2e attention
+images), profiling and identity stamps.
 """
 
 from __future__ import annotations
@@ -26,10 +30,14 @@ import numpy as np
 import torch
 
 from asr_dfcnn_transformer_torch.audio.fbank import FbankConfig, batched_fbank
+from asr_dfcnn_transformer_torch.audio.lfr import batched_lfr
+from asr_dfcnn_transformer_torch.audio.specaugment import (SpecAugmentConfig,
+                                                           spec_augment)
 from asr_dfcnn_transformer_torch.core import constants
 from asr_dfcnn_transformer_torch.data.batches import AMBatch, LMBatch
 from asr_dfcnn_transformer_torch.models.dfcnn import (frames_from_samples,
                                                       logit_lengths)
+from asr_dfcnn_transformer_torch.models.speech_transformer import e2e_loss
 from asr_dfcnn_transformer_torch.models.transformer_lm import lm_loss_and_acc
 from asr_dfcnn_transformer_torch.ops.ctc import ctc_loss
 from asr_dfcnn_transformer_torch.ops.ctc_decode import ctc_greedy_decode
@@ -288,4 +296,134 @@ class LMTrainer(_TrainerBase):
                 best_acc = acc
                 self.save_best(metric=acc)
             last = {"epoch": epoch, "dev_loss": loss, "dev_acc": acc}
+        return last
+
+
+class E2ETrainer(_TrainerBase):
+    """Speech-Transformer trainer: the LFR front end on the device, a
+    teacher-forced decoder with [SOS]+y inputs and y+[EOS] targets padded
+    with IGNORE_ID, ``e2e_loss``. ``augment_spec``: None (off), True (the
+    default ``SpecAugmentConfig``) or a config; it masks the fbank features
+    before LFR, in the train step only."""
+
+    def __init__(self, model, workdir: str, lr: float = 3e-4,
+                 decay_steps: int = 5000, min_lr: float = 1e-6,
+                 feature_dim: int = 80, lfr_m: int = 4, lfr_n: int = 3,
+                 augment_spec=None, max_to_keep: int = 5):
+        super().__init__(model, workdir, "e2e", lr, decay_steps, min_lr,
+                         max_to_keep)
+        self.fbank_cfg = FbankConfig(nfilt=feature_dim)
+        self.lfr_m, self.lfr_n = lfr_m, lfr_n
+        if augment_spec is True:
+            augment_spec = SpecAugmentConfig()
+        self.augment_spec = augment_spec or None
+
+    def features(self, signals: torch.Tensor, signal_lengths: torch.Tensor,
+                 bucket_frames: int, augment: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        """(LFR features [B, T', m*F, 1], valid LFR rows [B]) of a batch:
+        fbank through the ``log_mel`` / ``cmvn`` kernels, SpecAugment when
+        ``augment`` and the trainer has a policy, then LFR."""
+        feats, valid = batched_fbank(signals, signal_lengths,
+                                     cfg=self.fbank_cfg,
+                                     out_frames=bucket_frames)
+        if augment and self.augment_spec is not None:
+            feats = spec_augment(feats, valid, self.augment_spec, generator)
+        lfr, lfr_valid = batched_lfr(feats, valid, self.lfr_m, self.lfr_n)
+        return lfr[..., None], lfr_valid
+
+    @staticmethod
+    def make_decoder_io(hanzi: np.ndarray, hanzi_lengths: np.ndarray):
+        """[SOS]+y decoder inputs (PAD past each label) and y+[EOS] targets
+        (IGNORE_ID past it), both [B, L+1] int32."""
+        b, l = hanzi.shape
+        dec_in = np.full((b, l + 1), constants.PAD, np.int32)
+        dec_in[:, 0] = constants.SOS
+        dec_in[:, 1:] = hanzi
+        targets = np.full((b, l + 1), constants.IGNORE_ID, np.int32)
+        for i in range(b):
+            n = int(hanzi_lengths[i])
+            targets[i, :n] = hanzi[i, :n]
+            targets[i, n] = constants.EOS
+            dec_in[i, n + 1:] = constants.PAD
+        return dec_in, targets
+
+    def _forward(self, batch: AMBatch, dec_in: np.ndarray,
+                 targets: np.ndarray, augment=False, generator=None):
+        sig, sig_len, dec_in, tgt = self._to_device(
+            batch.signals, batch.signal_lengths, dec_in, targets)
+        feats, valid = self.features(sig, sig_len, batch.bucket_frames,
+                                     augment, generator)
+        logits = self.model(feats, valid, dec_in, generator=generator)
+        loss, acc = e2e_loss(logits, tgt)
+        return loss, acc, tgt
+
+    def train_step(self, batch: AMBatch,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, object]:
+        self.model.train()
+        dec_in, targets = self.make_decoder_io(batch.hanzi,
+                                               batch.hanzi_lengths)
+        loss, acc, _ = self._forward(batch, dec_in, targets, True, generator)
+        lr = self._backward_and_update(loss)
+        return {"loss": loss.detach(), "acc": acc.detach(), "lr": lr}
+
+    @torch.no_grad()
+    def eval_step(self, batch: AMBatch) -> Dict[str, torch.Tensor]:
+        """Teacher-forced dev metrics; the targets of weight-0 (back-filled)
+        rows become IGNORE_ID, so they drop out of the token-normalised
+        loss and accuracy. ``weight`` is the count of scored targets."""
+        self.model.eval()
+        dec_in, targets = self.make_decoder_io(batch.hanzi,
+                                               batch.hanzi_lengths)
+        targets[np.asarray(batch.weights) == 0] = constants.IGNORE_ID
+        loss, acc, tgt = self._forward(batch, dec_in, targets)
+        return {"loss": loss, "acc": acc,
+                "weight": torch.sum(tgt != constants.IGNORE_ID)}
+
+    def _epoch_marker_path(self) -> str:
+        return os.path.join(self.workdir, "e2e_epochs_completed.json")
+
+    def fit(self, train_batches: Callable[[], Iterator[AMBatch]],
+            epochs: int, generator: Optional[torch.Generator] = None,
+            log_every: int = 10, ckpt_every: int = 1000,
+            dev_batches: Optional[Callable[[], Iterator[AMBatch]]] = None
+            ) -> Dict[str, float]:
+        """Step loop with step-numbered checkpoints every ``ckpt_every``
+        steps and at each epoch's end; resume reads the epoch marker written
+        at each epoch's end, when a checkpoint exists. ``dev_batches`` adds
+        a per-epoch teacher-forced dev sweep with an acc-gated best save."""
+        last = {}
+        best_acc = self._best_gate("max")
+        start_epoch = 0
+        if self.ckpt.latest_step() is not None and \
+                os.path.exists(self._epoch_marker_path()):
+            with open(self._epoch_marker_path()) as f:
+                start_epoch = int(json.load(f)["epochs_completed"])
+        for epoch in range(start_epoch, epochs):
+            for i, batch in enumerate(train_batches()):
+                m = self.train_step(batch, generator)
+                if i % log_every == 0:
+                    self.nan_guard(float(m["loss"]))
+                    self.metrics.write(self.step, epoch=epoch, split="train",
+                                       **m)
+                if self.step % ckpt_every == 0:
+                    self.save(self.step)
+                last = {"epoch": epoch, "loss": float(m["loss"]),
+                        "acc": float(m["acc"])}
+            if dev_batches is not None:
+                evals = [self.eval_step(b) for b in dev_batches()]
+                acc = _dev_mean(evals, "acc")
+                loss = _dev_mean(evals, "loss")
+                self.metrics.write(self.step, epoch=epoch, split="dev",
+                                   loss=loss, acc=acc)
+                print(f"[e2e] epoch {epoch}: dev_loss {loss:.3f} "
+                      f"dev_acc {acc:.3f}", flush=True)
+                last.update(dev_loss=loss, dev_acc=acc)
+                if evals and acc > best_acc:
+                    best_acc = acc
+                    self.save_best(metric=acc)
+            self.save(self.step)
+            with open(self._epoch_marker_path(), "w") as f:
+                json.dump({"epochs_completed": epoch + 1}, f)
         return last

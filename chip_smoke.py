@@ -16,10 +16,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    [8, 200, 1536], W = K = 8, L 100, with batch-1, exhausted-candidate and
    tie-heavy cases; ``dual_axis_attention`` at the e2e pre-net's frequency
    rows [1072, 80, 64] in bf16 and f32, its unmasked time rows [640, 134,
-   64] and a ragged [13, 7, 32]), each with its tolerance; then each
-   kernel's time beside its twin's (CUDA events after warm-up, in turns),
-   its bound computed from the inputs, and the time of the one PyTorch call
-   that computes the same function, where there is one.
+   64] and a ragged [13, 7, 32], forward and backward, with the backward's
+   shared-memory layout held to the C query and its refusal of the f32
+   time rows; ``masked_attention`` at the teacher-forced decoder's
+   cross-attention shape, q [8, 8, 65, 64] against key-masked kv [8, 8,
+   134, 64], forward, dropout forward and backward in bf16 and f32), each
+   with its tolerance; then each kernel's time beside its twin's (CUDA
+   events after warm-up, in turns), its bound computed from the inputs, and
+   the time of the one PyTorch call that computes the same function, where
+   there is one.
 3. The served main path: full-width SE-DFCNN + 12-block Transformer LM in
    bf16 from a seeded ``torch.Generator``, behind the port's ``Pipeline``
    and ``BatchingServer`` (max_batch 8, buckets 400/800/1200/1600), answering
@@ -54,6 +59,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    f32, the same weights; the encoder memory must agree, and the greedy and
    beam ids up to the first step at which the CPU's decision margin falls
    below 1e-3, with the beam scores where the ids agree.
+9. The e2e model trained at full width, bf16 compute and f32 parameters:
+   10 ``E2ETrainer`` steps on one fixed batch (8 tone utterances at bucket
+   1600, hanzi labels of 24-48 tokens padded to 64, dropout 0.1,
+   SpecAugment on); every loss finite, the last below the first, every
+   parameter with a finite gradient after the first step; ms/step and peak
+   memory; one eval step and one ``fit`` epoch with a checkpoint and the
+   epoch marker. The launch counters are reset just before and read just
+   after the steps: every kernel of the path must have run, and
+   ``dual_axis_attention`` and its backward exactly twice a step.
+10. Card against CPU for one e2e training step: small widths, f32,
+    dropout 0, SpecAugment off, the same weights, bucket 512, the CPU's
+    features on both; the loss and every gradient must agree.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -106,6 +123,9 @@ KERNELS = {
     "dual_axis_attention": (
         "asr_dfcnn_transformer_torch/csrc/dual_attention.cu",
         "asr_dfcnn_transformer_tpu/ops/pallas/attn_kernel.py:589"),
+    "dual_axis_attention_bwd": (
+        "asr_dfcnn_transformer_torch/csrc/dual_attention.cu",
+        "asr_dfcnn_transformer_tpu/ops/pallas/attn_kernel.py:176"),
 }
 SERVED = {"greedy": ("log_mel", "cmvn", "masked_attention"),
           "beam": ("log_mel", "cmvn", "masked_attention", "topk_last",
@@ -124,6 +144,11 @@ E2E_NFILT, E2E_LFR = 80, (4, 3)                       # E2EConfig
 E2E_BEAM, E2E_MAX_LEN = 3, 64                         # E2EConfig.beam_size
 E2E_CMP_BUCKET = 512
 E2E_MEMORY_ATOL = 2e-3
+E2E_TRAINED = ("log_mel", "cmvn", "masked_attention", "masked_attention_drop",
+               "masked_attention_bwd", "dual_axis_attention",
+               "dual_axis_attention_bwd")             # launched by phase 9
+E2E_BATCH, E2E_BUCKET, E2E_LABELS = 8, 1600, (48, 64)  # E2EConfig.batch_size
+E2E_LR = 1e-3         # 3.3x E2EConfig.lr: ten steps show the fit, dropout on
 MARGIN = 1e-3
 # Peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): memory, and
 # the best rate for each type of operation (f64 on the tensor cores, f32
@@ -333,6 +358,7 @@ def phase_kernels(results):
     check_attention_training_kernels(results, rng)
     check_beam_kernels(results, rng)
     check_dual_attention(results, rng)
+    check_cross_attention(rng)
     for name, r in results.items():
         lib = ("—" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -668,6 +694,144 @@ def check_dual_attention(results, rng):
             set_bound(r, nbytes(q, k, v, got), {"bf16": 4 * rows * t * t * c})
             r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q[:, None], k[:, None], v[:, None]))
+    check_dual_attention_bwd(results, rng, cases)
+
+
+def check_dual_attention_bwd(results, rng, cases):
+    """The backward kernel against its twin at the forward's cases: dq, dk,
+    dv in f32 within rtol = atol = 1e-5; in bf16 within 2e-2 (dS and the
+    outputs are rounded to bf16, and a different f32 sum order may round
+    an element the other way), as the masked backward, and with at most
+    one element in 10^3 differing at all: a bf16 rounding moved to another
+    place (dsum over the rounded P, say) stays inside 2e-2 but changes a
+    fifth of the elements. The Python mirror
+    of the kernel's shared-memory layout must equal the C query, and the
+    launcher must refuse the f32 time rows, which need more than the card
+    has."""
+    import torch
+    import torch.nn.functional as F
+    from asr_dfcnn_transformer_torch.kernels import (
+        dual_axis_attention_bwd_reference, _build, dual_attention)
+    dev = torch.device(DEVICE)
+    lib = _build.library()
+    for t, c in ((80, 64), (134, 64), (7, 32), (160, 128), (1, 1), (33, 7)):
+        for dtype, code in _build.DTYPE_CODES.items():
+            mirror = dual_attention.bwd_smem_bytes(t, c, dtype)
+            native = lib.asr_dual_attention_bwd_smem(code, t, c)
+            require(mirror == native, f"dual_axis_attention_bwd shared memory "
+                    f"at T={t}, C={c}, {dtype}: Python {mirror}, C {native}")
+    x = torch.zeros((2, 134, 64), device=dev)
+    try:
+        dual_attention._backward(x, x, x, x)
+    except RuntimeError as e:
+        print(f"dual_axis_attention_bwd f32 [2, 134, 64] refused: {e}")
+    else:
+        raise PhaseError("the f32 [., 134, 64] backward was not refused")
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    for shape, dtype in cases:
+        q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype) for _ in range(4))
+        got = dual_attention._backward(q, k, v, g)
+        want = dual_axis_attention_bwd_reference(q, k, v, g)
+        errs, ok, err = [], True, 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            good, e = close_enough(a, b, tol[dtype], tol[dtype])
+            n_diff = int((a != b).sum())
+            ok &= good and bool(torch.isfinite(a.float()).all())
+            if dtype == torch.bfloat16:
+                ok &= n_diff <= a.numel() // 1000
+            err = max(err, e)
+            errs.append(f"{name} {e:.3g} ({n_diff} differ)")
+        few = "; at most 1 in 1000 differ" if dtype == torch.bfloat16 else ""
+        print(f"dual_axis_attention_bwd {list(shape)} {dtype}: max abs err "
+              f"{', '.join(errs)} of {got[0].numel()} each (tol "
+              f"{tol[dtype]}{few}) {'ok' if ok else 'FAIL'}")
+        require(ok, "dual_axis_attention_bwd disagrees with its twin")
+        if shape != cases[0][0] or dtype != torch.bfloat16:
+            continue
+        r = results["dual_axis_attention_bwd"]
+        r["max_abs_err"] = err
+        r.update(zip(("ms", "plain_ms"), paired_ms(
+            lambda: dual_attention._backward(q, k, v, g),
+            lambda: dual_axis_attention_bwd_reference(q, k, v, g))))
+        rows, t, c = shape
+        # S, dP, dQ, dK and dV: five [T, T, C] products of 2 operations
+        set_bound(r, nbytes(q, k, v, g, *got),
+                  {"bf16": 10 * rows * t * t * c})
+        # the library yardstick: the backward of scaled_dot_product_attention
+        # on the same rows, timed alone
+        q4, k4, v4 = (x[:, None].detach().requires_grad_(True)
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(q4, k4, v4)
+        g4 = g[:, None]
+        r["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out, (q4, k4, v4), g4, retain_graph=True))
+
+
+def check_cross_attention(rng):
+    """``masked_attention`` at the teacher-forced decoder's cross-attention
+    shape, q [8, 8, 65, 64] against key-masked k / v [8, 8, 134, 64]: the
+    forward, the dropout forward (keep 0.9) and the backward against their
+    twins in bf16 and f32 (the f32 backward fits shared memory at this
+    shape: ``asr_masked_attention_bwd_smem``), then the bf16 times."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import _build
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    dev = torch.device(DEVICE)
+    b, h, tq, tk, dh = E2E_BATCH, 8, E2E_LABELS[1] + 1, 134, 64
+    q, dout = (torch.from_numpy(rng.standard_normal((b, h, tq, dh)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, tk, dh)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    k_valid = torch.arange(tk, device=dev)[None, :] < torch.from_numpy(
+        rng.integers(tk // 3, tk + 1, size=b)).to(dev)[:, None]
+    keep = torch.from_numpy(rng.uniform(size=(b, h, tq, tk)) < 0.9).to(dev)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    lib = _build.library()
+    for dtype in (torch.bfloat16, torch.float32):
+        smem = lib.asr_masked_attention_bwd_smem(_build.DTYPE_CODES[dtype],
+                                                 tq, tk, dh)
+        qd, kd, vd, dd = (x.to(dtype) for x in (q, k, v, dout))
+        errs, ok = [], True
+        for name, got, want in (
+                ("out", attn._forward(qd, kd, vd, k_valid, False, None, 1.0),
+                 attn.masked_attention_reference(qd, kd, vd, k_valid)),
+                ("dropped out",
+                 attn._forward(qd, kd, vd, k_valid, False, keep, 0.9),
+                 attn.masked_attention_reference(qd, kd, vd, k_valid, False,
+                                                 keep, 0.9))):
+            good, err = close_enough(got, want, tol[dtype], tol[dtype])
+            ok &= good and bool(torch.isfinite(got.float()).all())
+            errs.append(f"{name} {err:.3g}")
+        grads = attn._backward(qd, kd, vd, k_valid, dd, False, keep, 0.9)
+        wants = attn.masked_attention_bwd_reference(qd, kd, vd, k_valid, dd,
+                                                    False, keep, 0.9)
+        for name, got, want in zip(("dq", "dk", "dv"), grads, wants):
+            good, err = close_enough(got, want, tol[dtype], tol[dtype])
+            ok &= good and bool(torch.isfinite(got.float()).all())
+            errs.append(f"{name} {err:.3g}")
+        print(f"masked_attention cross q [{b}, {h}, {tq}, {dh}] kv [{b}, {h}, "
+              f"{tk}, {dh}] {dtype} (backward {smem} bytes of shared "
+              f"memory): max abs err {', '.join(errs)} (tol {tol[dtype]}) "
+              f"{'ok' if ok else 'FAIL'}")
+        require(ok, "masked_attention disagrees with its twin at the "
+                "cross-attention shape")
+        if dtype != torch.bfloat16:
+            continue
+        times = [paired_ms(
+            lambda: attn._forward(qd, kd, vd, k_valid, False, None, 1.0),
+            lambda: attn.masked_attention_reference(qd, kd, vd, k_valid)),
+            paired_ms(
+            lambda: attn._forward(qd, kd, vd, k_valid, False, keep, 0.9),
+            lambda: attn.masked_attention_reference(qd, kd, vd, k_valid,
+                                                    False, keep, 0.9)),
+            paired_ms(
+            lambda: attn._backward(qd, kd, vd, k_valid, dd, False, keep, 0.9),
+            lambda: attn.masked_attention_bwd_reference(
+                qd, kd, vd, k_valid, dd, False, keep, 0.9))]
+        print("time masked_attention cross bf16: " + "; ".join(
+            f"{n} kernel {k:.4f} ms, plain {p:.4f} ms" for n, (k, p)
+            in zip(("forward", "dropout forward", "backward"), times)))
 
 
 def build_models(dtype, device):
@@ -851,11 +1015,13 @@ def lm_batch(rng, batch, length, in_vocab, out_vocab):
     return LMBatch(pinyin, hanzi, lens, weights)
 
 
-def train_steps(name, tr, batch):
-    """TRAIN_STEPS steps on one batch; the checks of phase 5; returns the
-    losses, ms/step over the steps after WARMUP_STEPS, and peak memory."""
+def train_steps(name, tr, batch, gen):
+    """TRAIN_STEPS steps on one batch, then one eval step; the checks of
+    phases 5 and 9; returns the losses, ms/step over the steps after
+    WARMUP_STEPS, peak memory, and the launch counts just after the
+    steps."""
     import torch
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = [tr.train_step(batch, gen)["loss"]]
@@ -878,6 +1044,7 @@ def train_steps(name, tr, batch):
         losses.append(tr.train_step(batch, gen)["loss"])
     end.record()
     torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
     ms = start.elapsed_time(end) / (TRAIN_STEPS - WARMUP_STEPS)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
@@ -890,6 +1057,13 @@ def train_steps(name, tr, batch):
     ev = {k: float(v) for k, v in tr.eval_step(batch).items()}
     print(f"{name}: eval step {ev}")
     require(all(np.isfinite(list(ev.values()))), f"{name}: eval not finite")
+    return {"losses": losses, "ms_per_step": ms, "peak_bytes": peak,
+            "launches": launches}
+
+
+def fit_epoch(name, tr, batch, gen):
+    """One epoch of an AM / LM trainer's ``fit``: a checkpoint for epoch 0
+    and a finite dev loss."""
     out = tr.fit(lambda: iter([batch]), lambda: iter([batch]), epochs=1,
                  generator=gen)
     saved = tr.ckpt.latest_step()
@@ -897,7 +1071,6 @@ def train_steps(name, tr, batch):
           f"{tr.ckpt.best_metric()}")
     require(saved == 0 and np.isfinite(out["dev_loss"]),
             f"{name}: fit saved no checkpoint")
-    return {"losses": losses, "ms_per_step": ms, "peak_bytes": peak}
 
 
 def phase_training(results):
@@ -915,9 +1088,13 @@ def phase_training(results):
     workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         reset_launches()
-        train_steps("am", AMTrainer(am, os.path.join(workdir, "am")), amb)
-        train_steps("lm", LMTrainer(lm, os.path.join(workdir, "lm"),
-                                    lr=LM_LR), lmb)
+        for name, tr, batch in (
+                ("am", AMTrainer(am, os.path.join(workdir, "am")), amb),
+                ("lm", LMTrainer(lm, os.path.join(workdir, "lm"), lr=LM_LR),
+                 lmb)):
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            train_steps(name, tr, batch, gen)
+            fit_epoch(name, tr, batch, gen)
         counts = dict(LAUNCHES)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -964,25 +1141,35 @@ def phase_train_card_vs_cpu():
                                                 batch.signal_lengths),
                                             batch.bucket_frames)
                     tr.features = lambda *a, _d=where: feats.to(_d)
-                loss = float(tr.train_step(batch)["loss"])
-                grads = {n: p.grad.cpu()
-                         for n, p in tr.model.named_parameters()}
-                out[where] = loss, grads
-            (lc, gc), (lg, gg) = out["cpu"], out[DEVICE]
-            worst, worst_name, ok = 0.0, "", abs(lg - lc) <= 1e-5 * abs(lc)
-            for n, want in gc.items():
-                atol = 1e-5 * max(1.0, float(want.abs().max()))
-                good, err = close_enough(gg[n], want, 1e-4, atol)
-                ok &= good
-                if err >= worst:
-                    worst, worst_name = err, n
-            print(f"train step card vs CPU, {name}: loss {lg:.6f} vs "
-                  f"{lc:.6f}; {len(gc)} gradients, max abs err {worst:.3g} "
-                  f"({worst_name}; rtol 1e-4, atol 1e-5 x max(1, |grad|max)) "
-                  f"{'ok' if ok else 'FAIL'}")
-            require(ok, f"{name}: card and CPU training steps disagree")
+                out[where] = step_and_grads(tr, batch)
+            compare_steps(name, out["cpu"], out[DEVICE])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def step_and_grads(tr, batch):
+    """One train step: (its loss, every parameter's gradient on the CPU)."""
+    loss = float(tr.train_step(batch)["loss"])
+    return loss, {n: p.grad.cpu() for n, p in tr.model.named_parameters()}
+
+
+def compare_steps(name, cpu, card):
+    """The loss within rtol 1e-5 and every gradient within rtol 1e-4, atol
+    1e-5 x max(1, its largest entry): sums in another order (cuDNN's
+    convolutions, cuBLAS, the kernels) on one side."""
+    (lc, gc), (lg, gg) = cpu, card
+    worst, worst_name, ok = 0.0, "", abs(lg - lc) <= 1e-5 * abs(lc)
+    for n, want in gc.items():
+        atol = 1e-5 * max(1.0, float(want.abs().max()))
+        good, err = close_enough(gg[n], want, 1e-4, atol)
+        ok &= good
+        if err >= worst:
+            worst, worst_name = err, n
+    print(f"train step card vs CPU, {name}: loss {lg:.6f} vs "
+          f"{lc:.6f}; {len(gc)} gradients, max abs err {worst:.3g} "
+          f"({worst_name}; rtol 1e-4, atol 1e-5 x max(1, |grad|max)) "
+          f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{name}: card and CPU training steps disagree")
 
 
 def build_e2e(dtype, device):
@@ -1112,6 +1299,106 @@ def phase_e2e_card_vs_cpu():
             require(same, f"e2e {name} ids differ card vs CPU")
 
 
+def e2e_batch(rng, batch, bucket, labels, vocab):
+    """A fixed synthetic e2e batch: ``am_batch``'s tone utterances with
+    ragged hanzi labels of up to ``labels[0]`` tokens (the first that
+    long) padded to ``labels[1]``, ids past the special tokens."""
+    from asr_dfcnn_transformer_torch.core import constants
+    b = am_batch(rng, batch, bucket, labels, vocab)
+    n_tok, width = labels
+    lens = rng.integers(n_tok // 2, n_tok + 1, size=batch).astype(np.int32)
+    lens[0] = n_tok
+    hanzi = np.zeros((batch, width), np.int32)
+    for i, m in enumerate(lens):
+        hanzi[i, :m] = rng.integers(constants.EOS + 1, vocab, size=m)
+    b.hanzi, b.hanzi_lengths = hanzi, lens
+    return b
+
+
+def phase_e2e_training(results):
+    """Phase 9: the full-width e2e model trained on the card."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import reset_launches
+    from asr_dfcnn_transformer_torch.train import E2ETrainer
+    model, ev = build_e2e(torch.bfloat16, DEVICE)
+    rng = np.random.default_rng(SEED + 7)
+    batch = e2e_batch(rng, E2E_BATCH, E2E_BUCKET, E2E_LABELS, ev.size)
+    print(f"e2e training: batch {E2E_BATCH} at bucket {E2E_BUCKET}, hanzi "
+          f"labels of {batch.hanzi_lengths.min()}-{E2E_LABELS[0]} tokens "
+          f"padded to {E2E_LABELS[1]}, dropout {model.config.dropout_rate}, "
+          f"SpecAugment on; bf16 compute, f32 parameters, Adam lr {E2E_LR}")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    try:
+        tr = E2ETrainer(model, workdir, lr=E2E_LR, feature_dim=E2E_NFILT,
+                        lfr_m=E2E_LFR[0], lfr_n=E2E_LFR[1],
+                        augment_spec=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        reset_launches()
+        counts = train_steps("e2e", tr, batch, gen)["launches"]
+        print(f"launch counts on the e2e training path ({TRAIN_STEPS} "
+              f"steps): {counts}")
+        for name in E2E_TRAINED:
+            require(counts.get(name, 0) > 0, f"{name} was never launched "
+                    "(e2e training)")
+        for name in ("dual_axis_attention", "dual_axis_attention_bwd"):
+            n = counts.get(name, 0)
+            require(n == 2 * TRAIN_STEPS, f"{name} launched {n} times in "
+                    f"{TRAIN_STEPS} steps, not twice each")
+        results["dual_axis_attention_bwd"]["launches"] = counts.get(
+            "dual_axis_attention_bwd", 0)
+        out = tr.fit(lambda: iter([batch]), epochs=1, generator=gen,
+                     dev_batches=lambda: iter([batch]))
+        saved = tr.ckpt.latest_step()
+        with open(os.path.join(workdir, "e2e_epochs_completed.json")) as f:
+            marker = json.load(f)
+        print(f"e2e: fit epoch {out}, checkpoint step {saved}, epoch marker "
+              f"{marker}, best metric {tr.ckpt.best_metric()}")
+        require(saved == tr.step and marker == {"epochs_completed": 1}
+                and np.isfinite(out["dev_loss"]),
+                "e2e: fit saved no checkpoint or no epoch marker")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_e2e_train_card_vs_cpu():
+    """Phase 10: one e2e training step at small widths, f32, dropout 0,
+    SpecAugment off, the same weights on the card (kernels) and the CPU
+    (twins). Both read the CPU's features (phase 2 holds the front-end
+    kernels to theirs). At bucket 512 the encoder's T' is 43, where the
+    f32 attention backward kernels fit shared memory."""
+    import torch
+    from asr_dfcnn_transformer_torch.models import (SpeechTransformer,
+                                                    SpeechTransformerConfig)
+    from asr_dfcnn_transformer_torch.train import E2ETrainer
+    rng = np.random.default_rng(SEED + 8)
+    vocab = 64
+    model = SpeechTransformer(
+        SpeechTransformerConfig(vocab, d_model=64, num_heads=4,
+                                num_enc_blocks=2, num_dec_blocks=2,
+                                prenet_channels=16, dropout_rate=0.0,
+                                dtype=torch.float32),
+        feature_dim=E2E_LFR[0] * E2E_NFILT, device="cpu",
+        generator=torch.Generator().manual_seed(SEED))
+    batch = e2e_batch(rng, 4, E2E_CMP_BUCKET, (12, 16), vocab)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_e2e_cmp_")
+    try:
+        out, feats = {}, None
+        for where in ("cpu", DEVICE):
+            tr = E2ETrainer(copy.deepcopy(model).to(where),
+                            os.path.join(workdir, where),
+                            feature_dim=E2E_NFILT, lfr_m=E2E_LFR[0],
+                            lfr_n=E2E_LFR[1])
+            if feats is None:
+                feats = tr.features(torch.from_numpy(batch.signals),
+                                    torch.from_numpy(batch.signal_lengths),
+                                    batch.bucket_frames)
+            tr.features = lambda *a, _d=where: tuple(x.to(_d) for x in feats)
+            out[where] = step_and_grads(tr, batch)
+        compare_steps("e2e", out["cpu"], out[DEVICE])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1130,6 +1417,8 @@ def main() -> int:
     phase_train_card_vs_cpu()
     phase_e2e_served(results)
     phase_e2e_card_vs_cpu()
+    phase_e2e_training(results)
+    phase_e2e_train_card_vs_cpu()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -1,9 +1,11 @@
-"""The port's ``dual_axis_attention`` twin against the JAX package's Pallas
-kernel (interpret mode on the CPU) and against the JAX einsum attention of
-``MultiHeadAttention``, with weights shared through convert.py; and the
-attention routing of the port's ``MultiHeadAttention``.
+"""The port's ``dual_axis_attention`` twins, forward and backward, against
+the JAX package's Pallas kernel and its custom VJP (interpret mode on the
+CPU) and against the JAX einsum attention of ``MultiHeadAttention``, with
+weights shared through convert.py; the ``DualAxisAttention`` Function's
+gradient, its backward limit; and the attention routing of the port's
+``MultiHeadAttention``.
 
-The CUDA kernel is held against the twin on the card by chip_smoke.py.
+The CUDA kernels are held against the twins on the card by chip_smoke.py.
 """
 
 import jax
@@ -19,8 +21,10 @@ from asr_dfcnn_transformer_tpu.ops.pallas.attn_kernel import (
     dual_axis_attention as jax_dual_axis_attention,
 )
 from asr_dfcnn_transformer_torch.convert import flax_to_state_dict
-from asr_dfcnn_transformer_torch.kernels import (dual_axis_attention,
-                                                 dual_axis_attention_reference)
+from asr_dfcnn_transformer_torch.kernels import (
+    dual_axis_attention, dual_axis_attention_bwd_reference,
+    dual_axis_attention_reference)
+from asr_dfcnn_transformer_torch.kernels import dual_attention
 from asr_dfcnn_transformer_torch.models import layers
 
 torch.set_num_threads(2)
@@ -35,13 +39,16 @@ def _qkv(seed, r, t, c):
                  for _ in range(3))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("r,t,c", [
+SHAPES = [
     (13, 134, 64),    # time rows at bucket 1600 (prenet_masked=False)
     (11, 80, 64),     # frequency rows (LFR 320 -> 80)
     (40, 20, 64),     # short rows: the TPU kernel packs 4 per slot
     (3, 7, 32),       # tiny everything
-])
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,t,c", SHAPES)
 def test_twin_matches_pallas_interpret(r, t, c, dtype):
     jdt, tdt, tol = _DTYPES[dtype]
     q, k, v = _qkv(0, r, t, c)
@@ -75,13 +82,77 @@ def test_single_head_mha_matches_jax(fused):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
-def test_wrapper_raises_on_requires_grad():
-    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 2, 5, 8))
-    with pytest.raises(ValueError, match="no backward"):
-        dual_axis_attention(q.clone().requires_grad_(True), k, v)
-    with pytest.raises(ValueError, match="no backward"):
-        dual_axis_attention(q, k, v.clone().requires_grad_(True))
-    assert dual_axis_attention(q, k, v).shape == (2, 5, 8)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,t,c", SHAPES)
+def test_bwd_twin_matches_pallas_vjp(r, t, c, dtype):
+    """The backward twin against ``jax.vjp`` of the interpreted kernel
+    (``_attn_packed_bwd`` / ``_bwd_kernel``, with its block-diagonal
+    packing of short rows), on an f32 cotangent that both round to the
+    dtype. Tolerance: f32 1e-5; bf16 one part in 50 (dS and the outputs
+    are rounded to bf16, 8 significant bits, and a different f32 sum order
+    may round an element the other way)."""
+    jdt, tdt, tol = _DTYPES[dtype]
+    q, k, v = _qkv(4, r, t, c)
+    g = np.random.default_rng(5).standard_normal((r, t, c)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda *a: jax_dual_axis_attention(*a, interpret=True),
+                     *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    want = vjp(jnp.asarray(g, jdt))
+    got = dual_axis_attention_bwd_reference(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+        torch.from_numpy(g))
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == (r, t, c) and x.dtype == tdt
+        np.testing.assert_allclose(x.float().numpy(),
+                                   np.asarray(y, np.float32), atol=tol,
+                                   rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_gradient_is_the_twins(dtype):
+    """On CPU tensors the Function's forward is the forward twin and its
+    backward the backward twin, exactly; in f32 both agree with autograd
+    through textbook attention."""
+    q, k, v = (torch.from_numpy(x).to(dtype).requires_grad_(True)
+               for x in _qkv(6, 5, 9, 16))
+    g = torch.randn(5, 9, 16, generator=torch.Generator().manual_seed(7))
+    out = dual_axis_attention(q, k, v)
+    assert out.requires_grad
+    assert torch.equal(out, dual_axis_attention_reference(q, k, v))
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = dual_axis_attention_bwd_reference(q, k, v, g)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    if dtype == torch.float32:
+        plain = torch.softmax(q @ k.transpose(-1, -2) / 4.0, -1) @ v
+        for x, y in zip(got, torch.autograd.grad(plain, (q, k, v), g)):
+            np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-5,
+                                       rtol=1e-5)
+
+
+@pytest.mark.parametrize("t,c,dtype,fits", [
+    (80, 64, torch.float32, True),      # frequency rows, f32
+    (134, 64, torch.bfloat16, True),    # time rows, bf16
+    (134, 64, torch.float32, False),    # time rows, f32: 294,624 bytes
+    (160, 128, torch.bfloat16, False),  # the forward's largest size
+])
+def test_backward_limit_refuses_at_forward_time(t, c, dtype, fits):
+    """A forward whose inputs require grad refuses a size whose backward
+    would not fit shared memory, naming it; without grad the same size
+    runs the forward."""
+    assert dual_attention.supports(t, c, dtype, grad=True) == fits
+    x = torch.zeros((1, t, c), dtype=dtype)
+    assert dual_axis_attention(x, x, x).shape == (1, t, c)
+    xg = x.clone().requires_grad_(True)
+    if fits:
+        dual_axis_attention(xg, x, x).float().sum().backward()
+        assert xg.grad.shape == (1, t, c)
+        return
+    need = dual_attention.bwd_smem_bytes(t, c, dtype)
+    with pytest.raises(ValueError, match=f"T={t}, C={c}.*{need} bytes"):
+        dual_axis_attention(x, x, xg)
+    with torch.no_grad():
+        assert dual_axis_attention(xg, x, x).shape == (1, t, c)
 
 
 @pytest.mark.parametrize("shape,match", [
@@ -115,13 +186,9 @@ def test_twin_is_plain_softmax_attention():
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("heads,masked,tk,route", [
-    (1, False, 12, "dual"),       # the pre-net's frequency rows
-    (1, True, 12, "masked"),      # its masked time rows
-    (2, False, 12, "masked"),     # multi-head
-    (1, False, 7, "masked"),      # cross-attention: Tq != Tk
-])
-def test_routing(monkeypatch, heads, masked, tk, route):
+@pytest.fixture
+def routes(monkeypatch):
+    """The attention kernels ``layers.MultiHeadAttention`` calls, in order."""
     calls = []
 
     def spy(name, fn):
@@ -134,6 +201,16 @@ def test_routing(monkeypatch, heads, masked, tk, route):
                         spy("dual", layers.dual_axis_attention))
     monkeypatch.setattr(layers, "masked_attention",
                         spy("masked", layers.masked_attention))
+    return calls
+
+
+@pytest.mark.parametrize("heads,masked,tk,route", [
+    (1, False, 12, "dual"),       # the pre-net's frequency rows
+    (1, True, 12, "masked"),      # its masked time rows
+    (2, False, 12, "masked"),     # multi-head
+    (1, False, 7, "masked"),      # cross-attention: Tq != Tk
+])
+def test_routing(routes, heads, masked, tk, route):
     mha = layers.MultiHeadAttention(8, heads, dtype=torch.float32,
                                     device="cpu",
                                     generator=torch.Generator().manual_seed(0))
@@ -142,4 +219,21 @@ def test_routing(monkeypatch, heads, masked, tk, route):
     k_valid = torch.ones((2, tk), dtype=torch.bool) if masked else None
     with torch.no_grad():
         mha(q, kv, k_valid=k_valid)
-    assert calls == [route]
+    assert routes == [route]
+
+
+@pytest.mark.parametrize("t,dtype,route", [
+    (12, torch.float32, "dual"),
+    (134, torch.bfloat16, "dual"),
+    (134, torch.float32, "masked"),   # the dual backward would not fit
+])
+def test_training_routing(routes, t, dtype, route):
+    """With a gradient to flow, the pre-net's rows take the dual kernel
+    within its backward's shared-memory limit and the masked kernel beyond
+    it; every parameter gets a gradient either way."""
+    mha = layers.MultiHeadAttention(64, 1, dtype=dtype, device="cpu",
+                                    generator=torch.Generator().manual_seed(0))
+    x = torch.randn(1, t, 64)
+    mha.train()(x, x).float().sum().backward()
+    assert routes == [route]
+    assert all(p.grad is not None for p in mha.parameters())
