@@ -35,6 +35,12 @@ from asr_dfcnn_transformer_torch.kernels.fbank import (  # noqa: F401
     log_mel,
     log_mel_reference,
 )
+from asr_dfcnn_transformer_torch.kernels.ffn import (  # noqa: F401
+    FusedFFN,
+    fused_ffn,
+    fused_ffn_bwd_reference,
+    fused_ffn_reference,
+)
 from asr_dfcnn_transformer_torch.kernels.topk import (  # noqa: F401
     topk_last,
     topk_last_reference,

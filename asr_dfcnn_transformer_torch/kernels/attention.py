@@ -11,6 +11,11 @@ else, so the CPU tests run the same Function the card runs.
 
 Dropout is a keep mask [B, H, Tq, Tk] drawn by the caller, as in the JAX
 package: the backward re-applies the same mask, so the VJP is exact.
+
+The forward stages one (b, h)'s K and V in shared memory, which bounds Tk
+(``asr_masked_attention_smem``). The backward walks keys and queries in
+chunks, so its shared memory depends on Dh alone (``bwd_smem_bytes``
+mirrors its layout) and it takes every shape the forward takes.
 """
 
 from __future__ import annotations
@@ -23,6 +28,11 @@ from asr_dfcnn_transformer_torch.kernels import _build
 
 BIG_NEG = -1e9
 MAX_SMEM = 232448          # bytes of shared memory a block may opt into
+MAX_DH = 128
+# csrc/attention.cu's backward tiling: warps a block; query rows a block and
+# keys a chunk in its first launch; key rows a block and queries a chunk in
+# its second
+_BWD_WARPS, _BWD_QROWS, _KEY_CHUNK, _BWD_KROWS, _QUERY_CHUNK = 8, 16, 64, 16, 32
 
 
 def _scale(dh: int) -> float:
@@ -87,14 +97,35 @@ def masked_attention_bwd_reference(q, k, v, k_valid, dout, causal=False,
     return tuple(x.to(q.dtype) for x in (dq, dk, dv))
 
 
+def _r16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def bwd_smem_bytes(dh: int, dtype: torch.dtype) -> int:
+    """Shared memory of the backward's larger launch at head width ``dh``,
+    as the kernel lays it out (``RowsLayout`` / ``KeysLayout``;
+    ``asr_masked_attention_bwd_smem`` gives the same): K and V chunks of 64
+    keys and Q and dO chunks of 32 queries, rows padded by a 32-bit word,
+    plus f32 rows, row statistics and per-warp columns. Independent of Tq
+    and Tk."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    ks = dh + 4 // size
+    rows = (2 * _r16(_KEY_CHUNK * ks * size) + _r16(_BWD_QROWS * 2 * dh * 4)
+            + _r16(_BWD_WARPS * _KEY_CHUNK * 4))
+    keys = (2 * _r16(_QUERY_CHUNK * ks * size) + _r16(3 * _QUERY_CHUNK * 4)
+            + _r16(_BWD_KROWS * 2 * dh * 4)
+            + _r16(_BWD_WARPS * 2 * _QUERY_CHUNK * 4))
+    return max(rows, keys)
+
+
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors if t is not None)
 
 
-def _check_smem(name: str, smem: int, tq: int, tk: int, dh: int) -> None:
+def _check_smem(name: str, smem: int, tk: int, dh: int) -> None:
     if smem > MAX_SMEM:
-        raise ValueError(f"{name}: Tq={tq}, Tk={tk}, Dh={dh} needs {smem} "
-                         f"bytes of shared memory, above {MAX_SMEM}")
+        raise ValueError(f"{name}: Tk={tk}, Dh={dh} needs {smem} bytes of "
+                         f"shared memory, above {MAX_SMEM}")
 
 
 def _forward(q, k, v, k_valid, causal, keep_mask, keep_prob):
@@ -111,7 +142,7 @@ def _forward(q, k, v, k_valid, causal, keep_mask, keep_prob):
     code = _build.DTYPE_CODES[q.dtype]
     lib = _build.library()
     _check_smem("masked_attention", lib.asr_masked_attention_smem(code, tk, dh),
-                tq, tk, dh)
+                tk, dh)
     name = "masked_attention" if keep_mask is None else "masked_attention_drop"
     with torch.cuda.device(dev):
         rc = lib.asr_masked_attention(
@@ -140,16 +171,17 @@ def _backward(q, k, v, k_valid, dout, causal, keep_mask, keep_prob):
     code = _build.DTYPE_CODES[q.dtype]
     lib = _build.library()
     _check_smem("masked_attention_bwd",
-                lib.asr_masked_attention_bwd_smem(code, tq, tk, dh),
-                tq, tk, dh)
+                lib.asr_masked_attention_bwd_smem(code, dh), tk, dh)
+    # each query row's max, sum and dsum, from the first launch to the second
+    stats = torch.empty((3, b, h, tq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.asr_masked_attention_bwd(
             code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_valid.data_ptr(),
             None if keep_mask is None else keep_mask.data_ptr(),
             keep_prob, dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, tq, tk, dh, _scale(dh), int(causal),
-            _build.stream_ptr(dev))
+            dv.data_ptr(), stats.data_ptr(), b, h, tq, tk, dh, _scale(dh),
+            int(causal), _build.stream_ptr(dev))
     _build.check("masked_attention_bwd", rc)
     return dq, dk, dv
 
@@ -186,7 +218,8 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masks keys with col > row (jnp.tril semantics, Tq != Tk too);
     ``keep_mask`` [B, H, Tq, Tk] bool (True = keep; None = no dropout) with
     ``keep_prob``. Returns [B, H, Tq, Dh] in q's dtype; differentiable in
-    q, k and v. Dh <= 128; Tk is bounded by shared memory.
+    q, k and v. Dh <= 128; Tk is bounded by the forward's shared memory
+    (the backward takes every shape the forward takes).
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("masked_attention: q, k, v must be [B, H, T, Dh]")
@@ -199,9 +232,9 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or v.dtype != q.dtype:
         raise ValueError("masked_attention: q, k, v must share a float32 or "
                          "bfloat16 dtype")
-    if not 1 <= dh <= 128 or tk < 1:
-        raise ValueError(f"masked_attention: need 1 <= Dh <= 128 and Tk >= 1, "
-                         f"got Dh={dh}, Tk={tk}")
+    if not 1 <= dh <= MAX_DH or tk < 1:
+        raise ValueError(f"masked_attention: need 1 <= Dh <= {MAX_DH} and "
+                         f"Tk >= 1, got Dh={dh}, Tk={tk}")
     if k_valid is None:
         k_valid = torch.ones((b, tk), dtype=torch.bool, device=q.device)
     if k_valid.shape != (b, tk) or k_valid.dtype != torch.bool:

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from asr_dfcnn_transformer_torch.kernels.attention import (BIG_NEG,
+from asr_dfcnn_transformer_torch.kernels import ffn as ffn_kernel
+from asr_dfcnn_transformer_torch.kernels.attention import (BIG_NEG, MAX_DH,
                                                           masked_attention)
 from asr_dfcnn_transformer_torch.kernels.dual_attention import (
     dual_axis_attention, supports as dual_supports)
@@ -32,6 +33,7 @@ from asr_dfcnn_transformer_torch.kernels.dual_attention import (
 BN_EPS = 1e-3      # every BatchNorm of the AM (layers.py ConvBnCell)
 BN_MOMENTUM = 0.99  # Flax BatchNorm's default (ra = m * ra + (1 - m) * stat)
 LN_EPS = 1e-6      # Flax LayerNorm's default, not torch's 1e-5
+BACKENDS = ("auto", "pallas", "einsum")  # the JAX modules' ``fused`` values
 
 
 def _param(shape, std: float, generator: torch.Generator,
@@ -267,31 +269,39 @@ class MultiHeadAttention(nn.Module):
     ``parity``: ReLU'd, bias-free Q/K/V/out projections. The head split is
     head-major, ``[B, T, H, Dh]``.
 
-    The full-sequence forward routes as the JAX module's
-    ``fused="pallas"`` does, without its TPU crossover: single-head,
-    unmasked, non-causal, square (Tq == Tk), dropout-free attention (the e2e
-    pre-net's rows, in serving and in training) goes to
-    ``kernels.dual_axis_attention`` (within its forward's T <= 160,
-    C <= 128 and, when a gradient is to flow, its backward's shared
-    memory); everything else to ``kernels.masked_attention``. Each is an
-    autograd Function over a CUDA kernel on the card and its twin on the
-    CPU. In training,
-    ``dropout_rate`` drops attention probabilities through a keep mask
-    [B, H, Tq, Tk] that the masked kernel applies (layers.py:321-330).
+    ``fused`` takes the JAX module's values ("auto", "pallas", "einsum";
+    anything else raises). With "auto" or "pallas" the full-sequence
+    forward routes as the JAX module's ``fused="pallas"`` does, without its
+    TPU crossover: single-head, unmasked, non-causal, square (Tq == Tk),
+    dropout-free attention (the e2e pre-net's rows, in serving and in
+    training) goes to ``kernels.dual_axis_attention`` (within its forward's
+    T <= 160, C <= 128 and, when a gradient is to flow, its backward's
+    shared memory); every other head of Dh <= 128 to
+    ``kernels.masked_attention``. Each is an autograd Function over a CUDA
+    kernel on the card and its twin on the CPU. Heads wider than 128, and
+    every head with "einsum", take the JAX module's einsum branch in plain
+    torch (layers.py:305-306, :333-358), on the CPU as on the card. In
+    training, ``dropout_rate`` drops attention probabilities: through a
+    keep mask [B, H, Tq, Tk] that the masked kernel applies
+    (layers.py:321-330), or in the plain branch as ``Dropout`` does.
 
     ``project_q`` / ``project_kv`` / ``attend_step`` are the pieces of the
     KV-cached decode, plain torch as in the JAX package."""
 
     def __init__(self, d_model: int, num_heads: int, *,
                  dropout_rate: float = 0.0, parity: bool = False,
-                 dtype: torch.dtype, device, generator: torch.Generator):
+                 fused: str = "auto", dtype: torch.dtype, device,
+                 generator: torch.Generator):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must divide into num_heads")
+        if fused not in BACKENDS:
+            raise ValueError(f"unknown attention backend {fused!r}")
         self.d_model = d_model
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.parity = parity
+        self.fused = fused
         self.dtype = dtype
         kw = dict(bias=not parity, dtype=dtype, device=device,
                   generator=generator)
@@ -300,6 +310,7 @@ class MultiHeadAttention(nn.Module):
         self.v = Dense(d_model, d_model, **kw)
         self.out = Dense(d_model, d_model, **kw)
         self.LayerNorm_0 = LayerNorm(d_model, dtype=dtype, device=device)
+        self.dropout = Dropout(dropout_rate)
 
     def _act(self, y: torch.Tensor) -> torch.Tensor:
         return F.relu(y) if self.parity else y
@@ -334,6 +345,9 @@ class MultiHeadAttention(nn.Module):
         dropout_on = self.training and self.dropout_rate > 0.0
         q = self.project_q(queries)
         k, v = self._act(self.k(keys)), self._act(self.v(values))
+        if self.fused == "einsum" or self.d_model // self.num_heads > MAX_DH:
+            out = self._plain(q, k, v, k_valid, causal, generator)
+            return self._finish(out, queries)
         grad = torch.is_grad_enabled() and any(x.requires_grad
                                                for x in (q, k, v))
         if (self.num_heads == 1 and k_valid is None and not causal
@@ -352,6 +366,27 @@ class MultiHeadAttention(nn.Module):
                                keep_mask=drop, keep_prob=keep)
         out = out.transpose(1, 2).reshape(b, tq, self.d_model)
         return self._finish(out, queries)
+
+    def _plain(self, q, k, v, k_valid, causal, generator):
+        """The JAX module's einsum branch on projected q [B, Tq, D], k / v
+        [B, Tk, D]: f32 scores divided by sqrt(Dh), the additive
+        ``attention_mask``, f32 softmax, probabilities in the dtype, then
+        dropped, then P.V -> [B, Tq, D]."""
+        b, tq, _ = q.shape
+        dh = self.d_model // self.num_heads
+        q, k, v = self._heads(q), self._heads(k), self._heads(v)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scores = scores / math.sqrt(dh)
+        if k_valid is not None or causal:
+            kv = k_valid if k_valid is not None else torch.ones(
+                (b, k.shape[2]), dtype=torch.bool, device=q.device)
+            scores = scores + attention_mask(
+                torch.ones((b, tq), dtype=torch.bool, device=q.device), kv,
+                causal)
+        probs = torch.softmax(scores, dim=-1).to(self.dtype)
+        probs = self.dropout(probs, generator)
+        out = torch.matmul(probs.float(), v.float()).to(self.dtype)
+        return out.transpose(1, 2).reshape(b, tq, self.d_model)
 
     def attend_step(self, query_t: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, valid_len) -> torch.Tensor:
@@ -383,15 +418,27 @@ class MultiHeadAttention(nn.Module):
 
 class FeedForward(nn.Module):
     """relu(x W1 + b1) W2 + b2, dropout (training only), residual,
-    LayerNorm (layers.py:403; the unfused path, parameters under Dense_0 /
-    Dense_1). The LM builds its FFNs with the default rate 0, the e2e
-    model with its ``dropout_rate``."""
+    LayerNorm (layers.py:403); parameters under Dense_0 / Dense_1 whatever
+    the backend, so checkpoints are shared. ``fused``: "pallas" runs the
+    ``kernels.fused_ffn`` kernel (its twin on the CPU), in training too, as
+    the JAX module's "pallas" does; "auto" and "einsum" run the two
+    ``Dense`` layers (no H100 crossover is measured, and the JAX "auto"
+    never picks the kernel either: ``ffn_wins``); anything else raises, and
+    so does a width the kernel cannot take with "pallas". The LM builds its
+    FFNs with the default rate 0, the e2e model with its
+    ``dropout_rate``."""
 
     def __init__(self, d_model: int, inner: Optional[int] = None, *,
-                 dropout_rate: float = 0.0, dtype: torch.dtype, device,
-                 generator: torch.Generator):
+                 dropout_rate: float = 0.0, fused: str = "auto",
+                 dtype: torch.dtype, device, generator: torch.Generator):
         super().__init__()
+        if fused not in BACKENDS:
+            raise ValueError(f"unknown ffn backend {fused!r}")
         inner = inner or 4 * d_model
+        if fused == "pallas":
+            ffn_kernel.check_supported(d_model, inner)
+        self.fused = fused
+        self.dtype = dtype
         self.dropout = Dropout(dropout_rate)
         self.Dense_0 = Dense(d_model, inner, dtype=dtype, device=device,
                              generator=generator)
@@ -401,7 +448,13 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = self.dropout(self.Dense_1(F.relu(self.Dense_0(x))), generator)
+        if self.fused == "pallas":
+            y = ffn_kernel.fused_ffn(x.to(self.dtype), self.Dense_0.weight,
+                                     self.Dense_0.bias, self.Dense_1.weight,
+                                     self.Dense_1.bias)
+        else:
+            y = self.Dense_1(F.relu(self.Dense_0(x)))
+        y = self.dropout(y, generator)
         return self.LayerNorm_0(y + x)
 
 

@@ -24,8 +24,11 @@ The convolutions run NCHW inside the pre-net with XLA's SAME padding made
 explicit; the dual blocks work channels-last, so their LayerNorm normalises
 over C. The pre-net's frequency rows (single-head, unmasked, square) run the
 ``dual_axis_attention`` kernel; its masked time rows and the encoder's and
-the full decoder's attention run ``masked_attention``; the cached decode
-step is plain torch, as the JAX package's einsums.
+the full decoder's attention run ``masked_attention`` (heads wider than 128,
+or ``fused_attention`` / ``prenet_fused`` "einsum": the plain branch of
+``MultiHeadAttention``); the cached decode step's attention is plain torch,
+as the JAX package's einsums. With ``fused_ffn="pallas"`` every FFN, the
+cached step's too, runs the ``fused_ffn`` kernel.
 """
 
 from __future__ import annotations
@@ -56,11 +59,14 @@ TIME_REDUCTION = 4  # two stride-2 convolutions
 @dataclasses.dataclass(frozen=True)
 class SpeechTransformerConfig:
     """The Flax ``SpeechTransformer``'s fields, name for name.
-    ``prenet_fused``, ``prenet_conv1_layout``, ``fused_attention`` and
-    ``fused_ffn`` choose among the JAX package's executions and are kept so
-    configs stay interchangeable: the port has one execution of each (the
-    attention kernels, the "plain" stride-2 conv, the unfused FFN).
-    ``dropout_rate`` acts in training only."""
+    ``dropout_rate`` acts in training only. The backend selectors take the
+    JAX values and raise on others when the model is built:
+    ``prenet_fused`` (the pre-net's dual-axis attention) and
+    ``fused_attention`` (the encoder's and decoder's) as
+    ``MultiHeadAttention.fused``; ``fused_ffn`` as ``FeedForward.fused``
+    ("pallas" runs the ``fused_ffn`` kernel); ``prenet_conv1_layout``
+    ("auto" | "plain" | "pack") as ``Stride2Conv.layout``: the port runs
+    the plain stride-2 convolution for all three."""
 
     vocab_size: int
     d_model: int = 512
@@ -112,10 +118,17 @@ class SameConv(nn.Module):
 
 class Stride2Conv(SameConv):
     """The pre-net's 3x3 stride-2 SAME convolution (speech_transformer.py
-    :111, its "plain" math; "pack" is the same math in a TPU layout)."""
+    :111). ``layout`` takes the JAX values "auto" | "plain" | "pack" and
+    raises on others; all three run the plain convolution here: "pack" is
+    an exact re-expression of the same convolution in a layout for the
+    TPU's matrix unit (space-to-depth, the same taps and parameters), and
+    the JAX "auto" resolves to "plain"."""
 
-    def __init__(self, in_ch: int, features: int, *, dtype: torch.dtype,
-                 device, generator: torch.Generator):
+    def __init__(self, in_ch: int, features: int, *, layout: str = "auto",
+                 dtype: torch.dtype, device, generator: torch.Generator):
+        if layout not in ("auto", "plain", "pack"):
+            raise ValueError(f"layout must be auto|plain|pack, got "
+                             f"{layout!r}")
         super().__init__(in_ch, features, 2, dtype=dtype, device=device,
                          generator=generator)
 
@@ -133,11 +146,14 @@ class DualAxisAttentionBlock(nn.Module):
     before the 3x3 conv and again in the output."""
 
     def __init__(self, channels: int, num_heads: int = 1, *,
-                 dtype: torch.dtype, device, generator: torch.Generator):
+                 fused: str = "auto", dtype: torch.dtype, device,
+                 generator: torch.Generator):
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
-        self.time_attn = MultiHeadAttention(channels, num_heads, **kw)
-        self.freq_attn = MultiHeadAttention(channels, num_heads, **kw)
+        self.time_attn = MultiHeadAttention(channels, num_heads, fused=fused,
+                                            **kw)
+        self.freq_attn = MultiHeadAttention(channels, num_heads, fused=fused,
+                                            **kw)
         self.Conv_0 = SameConv(2 * channels, channels, **kw)
         self.LayerNorm_0 = LayerNorm(channels, dtype=dtype, device=device)
 
@@ -166,21 +182,23 @@ class DualAxisAttentionBlock(nn.Module):
 class PreNet(nn.Module):
     """2x (stride-2 conv, tanh, BatchNorm) + dual-axis attention blocks
     (speech_transformer.py:175). [B, T, F, 1] -> [B, T/4, F/4, C]
-    (ceil at each halving)."""
+    (ceil at each halving). ``fused`` goes to the blocks' attention,
+    ``conv1_layout`` to the first convolution."""
 
     def __init__(self, channels: int = 64, num_attn_blocks: int = 2,
-                 num_heads: int = 1, *, dtype: torch.dtype, device,
+                 num_heads: int = 1, *, fused: str = "auto",
+                 conv1_layout: str = "auto", dtype: torch.dtype, device,
                  generator: torch.Generator):
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.num_attn_blocks = num_attn_blocks
-        self.Conv_0 = Stride2Conv(1, channels, **kw)
+        self.Conv_0 = Stride2Conv(1, channels, layout=conv1_layout, **kw)
         self.BatchNorm_0 = BatchNorm(channels, dtype=dtype, device=device)
         self.Conv_1 = Stride2Conv(channels, channels, **kw)
         self.BatchNorm_1 = BatchNorm(channels, dtype=dtype, device=device)
         for i in range(num_attn_blocks):
-            self.add_module(f"dual_{i}",
-                            DualAxisAttentionBlock(channels, num_heads, **kw))
+            self.add_module(f"dual_{i}", DualAxisAttentionBlock(
+                channels, num_heads, fused=fused, **kw))
 
     def forward(self, x: torch.Tensor,
                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -226,27 +244,30 @@ class SpeechTransformer(nn.Module):
         kw = dict(dtype=c.dtype, device=device, generator=gen)
         d = c.d_model
         self.prenet = PreNet(c.prenet_channels, num_heads=c.prenet_heads,
-                             **kw)
+                             fused=c.prenet_fused,
+                             conv1_layout=c.prenet_conv1_layout, **kw)
         self.enc_proj = Dense(_reduced(feature_dim) * c.prenet_channels, d,
                               **kw)
         self.enc_ln = LayerNorm(d, dtype=c.dtype, device=device)
         self.enc_pos = LearnedPositionEmbed(c.position_max_length, d, **kw)
         self.enc_dropout = Dropout(c.dropout_rate)
         blocks = dict(dropout_rate=c.dropout_rate, **kw)
+        attn = dict(fused=c.fused_attention, **blocks)
+        ffn = dict(fused=c.fused_ffn, **blocks)
         for i in range(c.num_enc_blocks):
             self.add_module(f"enc_attn_{i}",
-                            MultiHeadAttention(d, c.num_heads, **blocks))
-            self.add_module(f"enc_ffn_{i}", FeedForward(d, **blocks))
+                            MultiHeadAttention(d, c.num_heads, **attn))
+            self.add_module(f"enc_ffn_{i}", FeedForward(d, **ffn))
         self.dec_embed = ScaledEmbed(c.vocab_size, d, **kw)
         self.dec_pos = LearnedPositionEmbed(c.position_max_length, d, **kw)
         self.dec_dropout = Dropout(c.dropout_rate)
         for i in range(c.num_dec_blocks):
             if not c.parity_decoder:
                 self.add_module(f"dec_self_{i}",
-                                MultiHeadAttention(d, c.num_heads, **blocks))
+                                MultiHeadAttention(d, c.num_heads, **attn))
             self.add_module(f"dec_cross_{i}",
-                            MultiHeadAttention(d, c.num_heads, **blocks))
-            self.add_module(f"dec_ffn_{i}", FeedForward(d, **blocks))
+                            MultiHeadAttention(d, c.num_heads, **attn))
+            self.add_module(f"dec_ffn_{i}", FeedForward(d, **ffn))
         self.dec_output = Dense(d, c.vocab_size, dtype=torch.float32,
                                 device=device, generator=gen)
 

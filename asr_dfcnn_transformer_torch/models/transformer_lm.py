@@ -32,9 +32,12 @@ from asr_dfcnn_transformer_torch.models.layers import (Dense, Dropout,
 class TransformerLMConfig:
     """The Flax ``TransformerLM``'s fields, name for name.
     ``dropout_rate`` acts in training only; ``logits_matmul`` supports
-    "f32"; ``fused_attention`` / ``fused_ffn`` choose among the JAX
-    package's backends — the port always runs its attention kernel and
-    the unfused FFN."""
+    "f32". ``fused_attention`` ("auto" | "pallas" | "einsum") goes to every
+    block's ``MultiHeadAttention``: "auto" and "pallas" run the attention
+    kernels, "einsum" the plain-torch branch. ``fused_ffn`` goes to every
+    ``FeedForward``: "pallas" runs the ``fused_ffn`` kernel, "auto" and
+    "einsum" the two Dense layers. Other values raise when the model is
+    built."""
 
     input_vocab_size: int
     output_vocab_size: int
@@ -75,9 +78,10 @@ class TransformerLM(nn.Module):
             for i in range(c.num_blocks):
                 self.add_module(f"block{s}_{i}_attn", MultiHeadAttention(
                     c.d_model, c.num_heads, dropout_rate=c.dropout_rate,
-                    parity=c.parity_attention, **kw))
-                self.add_module(f"block{s}_{i}_ffn",
-                                FeedForward(c.d_model, **kw))
+                    parity=c.parity_attention, fused=c.fused_attention,
+                    **kw))
+                self.add_module(f"block{s}_{i}_ffn", FeedForward(
+                    c.d_model, fused=c.fused_ffn, **kw))
         self.output = Dense(c.d_model, c.output_vocab_size,
                             dtype=torch.float32, device=device,
                             generator=gen)

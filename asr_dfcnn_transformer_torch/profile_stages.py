@@ -2,6 +2,7 @@
 
     python -m asr_dfcnn_transformer_torch.profile_stages [--out PATH]
         [--model am_lm|e2e] [--decode greedy|beam] [--train]
+        [--fused-ffn auto|pallas|einsum]
 
 Builds the full-width bf16 SE-DFCNN + Transformer LM from a seeded
 ``torch.Generator`` and, for each of the server's buckets at its batch of
@@ -32,6 +33,11 @@ width (batch 8 at bucket 1600, 48-token labels padded to 64, dropout 0.1,
 SpecAugment on): CUDA-event times of a step's stages (fbank, SpecAugment
 + LFR, pre-net, encoder, decoder, loss, backward, Adam), then a few traced
 steps (table to ``<out>.e2e``).
+
+Every model comes from ``train/factory.py``'s builders over the default
+``Config``; ``--fused-ffn pallas`` builds the LM and the e2e model with
+that selector, so their FFNs run the ``fused_ffn`` kernel, whose launches
+and device time per launch the kernel lines then report beside the others.
 """
 
 from __future__ import annotations
@@ -54,20 +60,16 @@ from asr_dfcnn_transformer_torch.audio.specaugment import spec_augment
 from asr_dfcnn_transformer_torch.data import AMBatch, LMBatch
 from asr_dfcnn_transformer_torch.infer.e2e_serving import e2e_program
 from asr_dfcnn_transformer_torch.infer.pipeline import pipeline_program
-from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
-                                                SpeechTransformer,
-                                                SpeechTransformerConfig,
-                                                TransformerLM,
-                                                TransformerLMConfig,
-                                                beam_decode_cached,
-                                                e2e_loss,
+from asr_dfcnn_transformer_torch.core.config import (Config, E2EConfig,
+                                                     LmConfig)
+from asr_dfcnn_transformer_torch.models import (beam_decode_cached, e2e_loss,
                                                 frames_from_samples,
                                                 logit_lengths)
 from asr_dfcnn_transformer_torch.models import speech_transformer as st
 from asr_dfcnn_transformer_torch.ops import (ctc_beam_search_decode,
                                              ctc_greedy_decode)
 from asr_dfcnn_transformer_torch.train import (AMTrainer, E2ETrainer,
-                                               LMTrainer)
+                                               LMTrainer, factory)
 
 STAGES = ("fbank", "am", "decode", "lm")
 BATCH = 8
@@ -78,10 +80,12 @@ SEED = 0
 BEAM_WIDTH = 8
 LM_MAX_LEN = 100
 PORT_KERNELS = ("log_mel_kernel", "cmvn_kernel", "masked_attention_kernel",
-                "masked_attention_bwd_kernel", "ctc_alpha_kernel",
+                "masked_attention_bwd_rows_kernel",
+                "masked_attention_bwd_keys_kernel", "ctc_alpha_kernel",
                 "ctc_beta_xi_kernel", "topk_last_kernel",
                 "beam_search_kernel", "dual_attention_kernel",
-                "dual_attention_bwd_kernel")  # csrc/'s __global__ functions
+                "dual_attention_bwd_kernel", "ffn_bf16_kernel",
+                "ffn_f32_kernel")  # csrc/'s __global__ functions
 E2E_STAGES = ("fbank+lfr", "prenet", "encoder", "decode")
 E2E_TRAIN_STAGES = ("fbank", "specaug+lfr", "prenet", "encoder", "decoder",
                     "loss", "backward", "adam")
@@ -154,13 +158,16 @@ def _signals(rng, batch: int, bucket: int, dev):
     return sig, torch.full((batch,), s, dtype=torch.int32, device=dev)
 
 
-def profile_e2e(decode: str, out: str, dev) -> None:
+def _config(fused_ffn: str) -> Config:
+    return Config(lm=LmConfig(fused_ffn=fused_ffn),
+                  e2e=E2EConfig(fused_ffn=fused_ffn))
+
+
+def profile_e2e(decode: str, out: str, dev, config: Config) -> None:
     """The e2e serving program's breakdown (``--model e2e``)."""
     v = vocab.e2e_language_vocab()
-    gen = torch.Generator().manual_seed(SEED)
-    model = SpeechTransformer(SpeechTransformerConfig(v.size),
-                              feature_dim=LFR_M * E2E_NFILT, device=dev,
-                              generator=gen).eval()
+    model = factory.build_e2e_model(
+        config, dev, torch.Generator().manual_seed(SEED)).eval()
     cfg = FbankConfig(nfilt=E2E_NFILT)
     rng = np.random.default_rng(SEED)
     print(f"e2e: batch {BATCH}, bf16, vocab {v.size}, decode {decode}"
@@ -309,12 +316,12 @@ def _e2e_train_stages(tr, sig, lens, dec_in, tgt, bucket, gen):
     return ev, loss
 
 
-def profile_e2e_training(out: str, dev, steps: int = 3) -> None:
+def profile_e2e_training(out: str, dev, config: Config,
+                         steps: int = 3) -> None:
     """The e2e training step's breakdown (``--train --model e2e``)."""
     v = vocab.e2e_language_vocab()
-    model = SpeechTransformer(SpeechTransformerConfig(v.size),
-                              feature_dim=LFR_M * E2E_NFILT, device=dev,
-                              generator=torch.Generator().manual_seed(SEED))
+    model = factory.build_e2e_model(config, dev,
+                                    torch.Generator().manual_seed(SEED))
     rng = np.random.default_rng(SEED)
     bucket, batch = max(E2E_BUCKETS), BATCH
     sig, lens = _signals(rng, batch, bucket, dev)
@@ -358,6 +365,9 @@ def main(argv=None) -> int:
                     default="greedy", help="the serving path's decode")
     ap.add_argument("--train", action="store_true",
                     help="profile the training path instead")
+    ap.add_argument("--fused-ffn", choices=("auto", "pallas", "einsum"),
+                    default="auto",
+                    help="the LM's and the e2e model's FFN backend")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_stages: no CUDA device", file=sys.stderr)
@@ -365,19 +375,19 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    config = _config(args.fused_ffn)
+    print(f"device {torch.cuda.get_device_name(0)}, fused_ffn "
+          f"{args.fused_ffn}")
     if args.model == "e2e":
-        print(f"device {torch.cuda.get_device_name(0)}")
         if args.train:
-            profile_e2e_training(args.out, dev)
+            profile_e2e_training(args.out, dev, config)
         else:
-            profile_e2e(args.decode, args.out, dev)
+            profile_e2e(args.decode, args.out, dev, config)
         return 0
     av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
     gen = torch.Generator().manual_seed(SEED)
-    am = SEDFCNN(SEDFCNNConfig(av.size), device=dev, generator=gen).eval()
-    lm = TransformerLM(TransformerLMConfig(av.size, lv.size), device=dev,
-                       generator=gen).eval()
-    print(f"device {torch.cuda.get_device_name(0)}")
+    am = factory.build_am_model(config, dev, gen).eval()
+    lm = factory.build_lm_model(config, dev, gen).eval()
     if args.train:
         profile_training(am, lm, av, lv, args.out)
         return 0

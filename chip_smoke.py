@@ -20,7 +20,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    shared-memory layout held to the C query and its refusal of the f32
    time rows; ``masked_attention`` at the teacher-forced decoder's
    cross-attention shape, q [8, 8, 65, 64] against key-masked kv [8, 8,
-   134, 64], forward, dropout forward and backward in bf16 and f32), each
+   134, 64], forward, dropout forward and backward in bf16 and f32; the
+   masked attention backward in f32 at e2e training's T' 134, Dh 64, the
+   encoder's [8, 8, 134, 64] and the pre-net's time rows [640, 1, 134,
+   64], with its shared-memory layout held to the C query; ``fused_ffn``
+   at [4096, 512], [800, 512], [1072, 512] and [8, 512] in bf16 and
+   [800, 512] in f32, inner 2048), each
    with its tolerance; then each kernel's time beside its twin's (CUDA
    events after warm-up, in turns), its bound computed from the inputs, and
    the time of the one PyTorch call that computes the same function, where
@@ -69,8 +74,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    after the steps: every kernel of the path must have run, and
    ``dual_axis_attention`` and its backward exactly twice a step.
 10. Card against CPU for one e2e training step: small widths, f32,
-    dropout 0, SpecAugment off, the same weights, bucket 512, the CPU's
-    features on both; the loss and every gradient must agree.
+    dropout 0, SpecAugment off, the same weights, the CPU's features on
+    both, at bucket 512 and at bucket 1600 with Dh 64 (d_model 128 in 2
+    heads, 64 pre-net channels: the f32 attention backward at T' 134); the
+    loss and every gradient must agree.
+11. ``fused_ffn="pallas"``: the LM and the e2e model built through
+    ``train/factory.py`` from the default ``Config`` with that selector,
+    full width, bf16: one AM -> LM served batch, one e2e greedy batch at
+    bucket 1600, one ``LMTrainer`` step and one ``E2ETrainer`` step, with
+    the launch counters reset before and read after each: ``fused_ffn``
+    exactly 12 times a batch or step, 6 + 6 per cached step for the e2e
+    decode; finite losses and gradients. Then the same seeded models in f32
+    with "pallas" and "einsum": the LM's hanzi and the e2e greedy ids must
+    agree wherever the einsum model's margin >= 1e-3.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -126,6 +142,8 @@ KERNELS = {
     "dual_axis_attention_bwd": (
         "asr_dfcnn_transformer_torch/csrc/dual_attention.cu",
         "asr_dfcnn_transformer_tpu/ops/pallas/attn_kernel.py:176"),
+    "fused_ffn": ("asr_dfcnn_transformer_torch/csrc/ffn.cu",
+                  "asr_dfcnn_transformer_tpu/ops/pallas/ffn_kernel.py:146"),
 }
 SERVED = {"greedy": ("log_mel", "cmvn", "masked_attention"),
           "beam": ("log_mel", "cmvn", "masked_attention", "topk_last",
@@ -359,6 +377,8 @@ def phase_kernels(results):
     check_beam_kernels(results, rng)
     check_dual_attention(results, rng)
     check_cross_attention(rng)
+    check_attention_bwd_f32(rng)
+    check_fused_ffn(results, rng)
     for name, r in results.items():
         lib = ("—" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -772,8 +792,7 @@ def check_cross_attention(rng):
     """``masked_attention`` at the teacher-forced decoder's cross-attention
     shape, q [8, 8, 65, 64] against key-masked k / v [8, 8, 134, 64]: the
     forward, the dropout forward (keep 0.9) and the backward against their
-    twins in bf16 and f32 (the f32 backward fits shared memory at this
-    shape: ``asr_masked_attention_bwd_smem``), then the bf16 times."""
+    twins in bf16 and f32, then the bf16 times."""
     import torch
     from asr_dfcnn_transformer_torch.kernels import _build
     from asr_dfcnn_transformer_torch.kernels import attention as attn
@@ -790,7 +809,7 @@ def check_cross_attention(rng):
     lib = _build.library()
     for dtype in (torch.bfloat16, torch.float32):
         smem = lib.asr_masked_attention_bwd_smem(_build.DTYPE_CODES[dtype],
-                                                 tq, tk, dh)
+                                                 dh)
         qd, kd, vd, dd = (x.to(dtype) for x in (q, k, v, dout))
         errs, ok = [], True
         for name, got, want in (
@@ -832,6 +851,136 @@ def check_cross_attention(rng):
         print("time masked_attention cross bf16: " + "; ".join(
             f"{n} kernel {k:.4f} ms, plain {p:.4f} ms" for n, (k, p)
             in zip(("forward", "dropout forward", "backward"), times)))
+
+
+def check_attention_bwd_f32(rng):
+    """The masked attention backward in f32 at the shapes of e2e training
+    at bucket 1600 (T' 134, Dh 64), which the earlier one-block-per-(b, h)
+    kernel refused for shared memory: the encoder's [8, 8, 134, 64] with
+    ragged keys and the pre-net's time rows [640, 1, 134, 64] (batch 8 x F'
+    80), each against its twin within 1e-6; then the Python mirror of the
+    backward's shared memory against the C query, and the f32 encoder
+    shape's time beside its twin's."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import _build
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    dev = torch.device(DEVICE)
+    lib = _build.library()
+    for dh in (1, 7, 16, 32, 63, 64, 100, 128):
+        for dtype, code in _build.DTYPE_CODES.items():
+            mirror = attn.bwd_smem_bytes(dh, dtype)
+            native = lib.asr_masked_attention_bwd_smem(code, dh)
+            require(mirror == native and native <= attn.MAX_SMEM,
+                    f"masked_attention_bwd shared memory at Dh={dh}, {dtype}: "
+                    f"Python {mirror}, C {native}")
+    print("masked_attention_bwd shared memory: mirror equals the C query at "
+          f"8 widths; {attn.bwd_smem_bytes(64, torch.float32)} bytes at f32 "
+          "Dh 64 (independent of Tq, Tk)")
+    for b, h in ((E2E_BATCH, 8), (E2E_BATCH * 80, 1)):
+        t, dh = 134, 64
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+            (b, h, t, dh)).astype(np.float32)).to(dev) for _ in range(4))
+        k_valid = torch.arange(t, device=dev)[None, :] < torch.from_numpy(
+            rng.integers(t // 3, t + 1, size=b)).to(dev)[:, None]
+        got = attn._backward(q, k, v, k_valid, dout, False, None, 1.0)
+        want = attn.masked_attention_bwd_reference(q, k, v, k_valid, dout)
+        errs, ok = [], True
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            good, err = close_enough(x, y, 0.0, 1e-6)
+            ok &= good and bool(torch.isfinite(x).all())
+            errs.append(f"{name} {err:.3g}")
+        print(f"masked_attention_bwd f32 [{b}, {h}, {t}, {dh}]: max abs err "
+              f"{', '.join(errs)} (atol 1e-6) {'ok' if ok else 'FAIL'}")
+        require(ok, "masked_attention_bwd disagrees with its twin in f32 at "
+                "T 134")
+        if h == 8:
+            k_ms, p_ms = paired_ms(
+                lambda: attn._backward(q, k, v, k_valid, dout, False, None,
+                                       1.0),
+                lambda: attn.masked_attention_bwd_reference(q, k, v, k_valid,
+                                                            dout))
+            print(f"time masked_attention_bwd f32 [{b}, {h}, {t}, {dh}]: "
+                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+
+
+def ffn_problem(rng, n, dtype, d=512, f=2048):
+    """x [n, d] and Dense-initialised W1 [f, d], W2 [d, f] with non-zero
+    biases, on the card in ``dtype``."""
+    import torch
+    arrays = (rng.standard_normal((n, d)),
+              rng.standard_normal((f, d)) / np.sqrt(d),
+              0.1 * rng.standard_normal(f),
+              rng.standard_normal((d, f)) / np.sqrt(f),
+              0.1 * rng.standard_normal(d))
+    return [torch.from_numpy(a.astype(np.float32)).to(DEVICE, dtype)
+            for a in arrays]
+
+
+def check_fused_ffn(results, rng):
+    """``fused_ffn`` against its twin at the paths' shapes: [4096, 512] (LM
+    training, 64 x 64), [800, 512] (LM serving, 8 x 100), [1072, 512] (the
+    e2e encoder, 8 x 134), [8, 512] (a cached decoder step) in bf16 and
+    [800, 512] in f32, inner width 2048; then a ragged [37, 48] with inner
+    208 in both types (a part-filled row tile, fewer output tiles than
+    warps, a last inner chunk of 16). bf16: within 2e-2 and at most 1 in
+    100 elements differing at all (the kernel's f32 sums run in another
+    order than cuBLAS's, so an element may round the other way, and an
+    inner element that does moves the output by a fraction of an ulp); f32
+    within 1e-5. The path's shapes are timed beside the twin and the
+    library yardstick, ``F.linear`` -> relu -> ``F.linear`` on cuBLAS with
+    the same roundings (the twin's own ops, called directly), with their
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from asr_dfcnn_transformer_torch.kernels import (fused_ffn,
+                                                     fused_ffn_reference)
+    r = results["fused_ffn"]
+    for n, dtype, d, f in ((4096, torch.bfloat16, 512, 2048),
+                           (800, torch.bfloat16, 512, 2048),
+                           (1072, torch.bfloat16, 512, 2048),
+                           (8, torch.bfloat16, 512, 2048),
+                           (800, torch.float32, 512, 2048),
+                           (37, torch.bfloat16, 48, 208),
+                           (37, torch.float32, 48, 208)):
+        x, w1, b1, w2, b2 = ffn_problem(rng, n, dtype, d, f)
+        got = fused_ffn(x, w1, b1, w2, b2)
+        want = fused_ffn_reference(x, w1, b1, w2, b2)
+        n_diff = int((got != want).sum())
+        if dtype == torch.float32:
+            ok, err = close_enough(got, want, 1e-5, 1e-5)
+            tol = "rtol = atol = 1e-5"
+        else:
+            ok, err = close_enough(got, want, 2e-2, 2e-2)
+            ok &= n_diff <= got.numel() // 100
+            tol = "2e-2; at most 1 in 100 differ"
+        ok &= bool(torch.isfinite(got.float()).all())
+        line = (f"fused_ffn [{n}, {d}] F {f} {dtype}: max abs err {err:.3g}, "
+                f"{n_diff} of {got.numel()} elements differ ({tol}) "
+                f"{'ok' if ok else 'FAIL'}")
+        if f != 2048:
+            print(line)
+            require(ok, f"fused_ffn disagrees with its twin at [{n}, {d}] "
+                    f"F {f} {dtype}")
+            continue
+        k_ms, p_ms = paired_ms(lambda: fused_ffn(x, w1, b1, w2, b2),
+                               lambda: fused_ffn_reference(x, w1, b1, w2, b2))
+
+        def library():
+            inner = torch.relu(F.linear(x, w1) + b1)
+            return F.linear(inner, w2) + b2
+        lib_ms = cuda_ms(library)
+        bound = {}
+        set_bound(bound, nbytes(x, w1, b1, w2, b2, got),
+                  {"bf16" if dtype == torch.bfloat16 else "f32":
+                   4 * n * d * f})
+        print(f"{line}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {bound['bound_ms']:.5f} ms "
+              f"({bound['bound_by']})")
+        require(ok, f"fused_ffn disagrees with its twin at [{n}, {d}] "
+                f"{dtype}")
+        if n == LM_BATCH * LM_LEN:
+            r.update(bound, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                     library_ms=lib_ms)
 
 
 def build_models(dtype, device):
@@ -1025,16 +1174,7 @@ def train_steps(name, tr, batch, gen):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = [tr.train_step(batch, gen)["loss"]]
-    params = dict(tr.model.named_parameters())
-    no_grad = [n for n, p in params.items() if p.grad is None]
-    not_finite = [n for n, p in params.items() if p.grad is not None
-                  and not bool(torch.isfinite(p.grad).all())]
-    print(f"{name}: after step 1, {len(params) - len(no_grad)} of "
-          f"{len(params)} parameters have a gradient, {len(not_finite)} "
-          f"non-finite")
-    require(not no_grad, f"{name}: no gradient for {no_grad[:5]}")
-    require(not not_finite, f"{name}: non-finite gradient in "
-            f"{not_finite[:5]}")
+    require_finite_grads(f"{name} after step 1", tr.model)
     for _ in range(WARMUP_STEPS - 1):
         losses.append(tr.train_step(batch, gen)["loss"])
     start = torch.cuda.Event(enable_timing=True)
@@ -1364,39 +1504,223 @@ def phase_e2e_train_card_vs_cpu():
     """Phase 10: one e2e training step at small widths, f32, dropout 0,
     SpecAugment off, the same weights on the card (kernels) and the CPU
     (twins). Both read the CPU's features (phase 2 holds the front-end
-    kernels to theirs). At bucket 512 the encoder's T' is 43, where the
-    f32 attention backward kernels fit shared memory."""
+    kernels to theirs). At bucket 512 (T' 43, Dh 16); then at bucket 1600
+    with Dh 64 (d_model 128 in 2 heads, 64 pre-net channels), where the
+    pre-net's time rows [B x 80, 1, 134, 64] and the encoder's [B, 2, 134,
+    64] take the masked attention backward in f32."""
     import torch
     from asr_dfcnn_transformer_torch.models import (SpeechTransformer,
                                                     SpeechTransformerConfig)
     from asr_dfcnn_transformer_torch.train import E2ETrainer
     rng = np.random.default_rng(SEED + 8)
     vocab = 64
-    model = SpeechTransformer(
-        SpeechTransformerConfig(vocab, d_model=64, num_heads=4,
-                                num_enc_blocks=2, num_dec_blocks=2,
-                                prenet_channels=16, dropout_rate=0.0,
-                                dtype=torch.float32),
-        feature_dim=E2E_LFR[0] * E2E_NFILT, device="cpu",
-        generator=torch.Generator().manual_seed(SEED))
-    batch = e2e_batch(rng, 4, E2E_CMP_BUCKET, (12, 16), vocab)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_e2e_cmp_")
+    for bucket, widths in (
+            (E2E_CMP_BUCKET, dict(d_model=64, num_heads=4, num_enc_blocks=2,
+                                  num_dec_blocks=2, prenet_channels=16)),
+            (E2E_BUCKET, dict(d_model=128, num_heads=2, num_enc_blocks=1,
+                              num_dec_blocks=1, prenet_channels=64))):
+        model = SpeechTransformer(
+            SpeechTransformerConfig(vocab, dropout_rate=0.0,
+                                    dtype=torch.float32, **widths),
+            feature_dim=E2E_LFR[0] * E2E_NFILT, device="cpu",
+            generator=torch.Generator().manual_seed(SEED))
+        batch = e2e_batch(rng, 4, bucket, (12, 16), vocab)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_e2e_cmp_")
+        try:
+            out, feats = {}, None
+            for where in ("cpu", DEVICE):
+                tr = E2ETrainer(copy.deepcopy(model).to(where),
+                                os.path.join(workdir, where),
+                                feature_dim=E2E_NFILT, lfr_m=E2E_LFR[0],
+                                lfr_n=E2E_LFR[1])
+                if feats is None:
+                    feats = tr.features(torch.from_numpy(batch.signals),
+                                        torch.from_numpy(batch.signal_lengths),
+                                        batch.bucket_frames)
+                tr.features = lambda *a, _d=where: tuple(x.to(_d)
+                                                         for x in feats)
+                out[where] = step_and_grads(tr, batch)
+            compare_steps(f"e2e at bucket {bucket}, Dh "
+                          f"{widths['d_model'] // widths['num_heads']}",
+                          out["cpu"], out[DEVICE])
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+
+
+def ffn_config(dtype, ffn: str):
+    """The default ``Config`` in ``dtype`` with ``fused_ffn=ffn`` for the
+    LM and the e2e model."""
+    import torch
+    from asr_dfcnn_transformer_torch.core.config import (AmConfig, Config,
+                                                         E2EConfig, LmConfig)
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    return Config(am=AmConfig(dtype=name),
+                  lm=LmConfig(fused_ffn=ffn, dtype=name),
+                  e2e=E2EConfig(fused_ffn=ffn, dtype=name))
+
+
+def require_finite_grads(name, model):
+    """Every parameter has a gradient, and every gradient is finite."""
+    import torch
+    params = dict(model.named_parameters())
+    no_grad = [n for n, p in params.items() if p.grad is None]
+    not_finite = [n for n, p in params.items() if p.grad is not None
+                  and not bool(torch.isfinite(p.grad).all())]
+    print(f"{name}: {len(params) - len(no_grad)} of {len(params)} "
+          f"parameters have a gradient, {len(not_finite)} non-finite")
+    require(not no_grad, f"{name}: no gradient for {no_grad[:5]}")
+    require(not not_finite, f"{name}: non-finite gradient in "
+            f"{not_finite[:5]}")
+
+
+def phase_fused_ffn(results):
+    """Phase 11: the paths that select ``fused_ffn="pallas"``, built
+    through ``train/factory.py`` from the default ``Config`` at full width
+    in bf16: one AM -> LM served batch (greedy), one e2e greedy batch at
+    bucket 1600 through ``E2EServing``, one ``LMTrainer`` step (64 x 64,
+    dropout 0.5) and one ``E2ETrainer`` step (batch 8 at bucket 1600,
+    dropout 0.1, SpecAugment). The launch counters are reset before and
+    read after each: the kernel must run once per FeedForward block, 12
+    times a served LM batch and a training step, 6 + 6 per cached step
+    for the e2e decode. Then the same models in f32 with "pallas" and with
+    "einsum" (the same seeded weights) on the served utterances: the LM's
+    hanzi ids agree wherever the einsum model's top-2 logit margin >= 1e-3,
+    the e2e encoder memory within E2E_MEMORY_ATOL and its greedy ids up to
+    the first step whose margin falls below 1e-3 (phases 4 and 8's rule;
+    f32, where the kernel's sums and cuBLAS's differ by ~1e-6, not bf16's
+    ulps)."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.audio.fbank import samples_for_frames
+    from asr_dfcnn_transformer_torch.infer import E2EServing, Pipeline
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    from asr_dfcnn_transformer_torch.train import factory
+    av, lv, ev = (vocab.acoustic_vocab(), vocab.language_vocab(),
+                  vocab.e2e_language_vocab())
+    rng = np.random.default_rng(SEED + 9)
+    utts = [tone_utterance(rng, int(sec * SAMPLE_RATE))
+            for sec in SERVED_SECONDS[-MAX_BATCH:]]
+    lengths = np.array([len(u) for u in utts], np.int32)
+    signals = np.zeros((len(utts), samples_for_frames(BUCKETS[-1])),
+                       np.float32)
+    for i, u in enumerate(utts):
+        signals[i, :len(u)] = u
+    counts = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = LAUNCHES.get("fused_ffn", 0)
+        return out
+
+    def gen():
+        return torch.Generator().manual_seed(SEED)
+
+    cfg = ffn_config(torch.bfloat16, "pallas")
+    am = factory.build_am_model(cfg, DEVICE, gen())
+    lm = factory.build_lm_model(cfg, DEVICE, gen())
+    pipe = Pipeline(am, lm, acoustic_vocab=av, language_vocab=lv)
+    pny, pny_len, han = counted("AM -> LM batch", lambda: pipe.recognize_batch(
+        signals, lengths, BUCKETS[-1]))
+    require(han.shape == (MAX_BATCH, LM_MAX_LEN) and int(pny_len.min()) > 0
+            and bool(((han >= 0) & (han < lv.size)).all()),
+            "fused_ffn: AM -> LM results out of range")
+    e2e = factory.build_e2e_model(cfg, DEVICE, gen())
+    srv = E2EServing(e2e, ev, feature_dim=E2E_NFILT, lfr_m=E2E_LFR[0],
+                     lfr_n=E2E_LFR[1], decode="greedy", max_len=E2E_MAX_LEN)
+    ids, lens = counted("e2e greedy batch", lambda: srv.recognize_batch(
+        signals, lengths))
+    require(ids.shape == (MAX_BATCH, E2E_MAX_LEN)
+            and bool(((ids >= 0) & (ids < ev.size)).all()),
+            "fused_ffn: e2e ids out of range")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ffn_")
     try:
-        out, feats = {}, None
-        for where in ("cpu", DEVICE):
-            tr = E2ETrainer(copy.deepcopy(model).to(where),
-                            os.path.join(workdir, where),
-                            feature_dim=E2E_NFILT, lfr_m=E2E_LFR[0],
-                            lfr_n=E2E_LFR[1])
-            if feats is None:
-                feats = tr.features(torch.from_numpy(batch.signals),
-                                    torch.from_numpy(batch.signal_lengths),
-                                    batch.bucket_frames)
-            tr.features = lambda *a, _d=where: tuple(x.to(_d) for x in feats)
-            out[where] = step_and_grads(tr, batch)
-        compare_steps("e2e", out["cpu"], out[DEVICE])
+        tgen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        for name, tr, batch in (
+                ("LM step", factory.build_lm_trainer(
+                    cfg, os.path.join(workdir, "lm"), DEVICE, gen()),
+                 lm_batch(rng, LM_BATCH, LM_LEN, av.size, lv.size)),
+                ("e2e step", factory.build_e2e_trainer(
+                    cfg, os.path.join(workdir, "e2e"), augment_spec=True,
+                    device=DEVICE, generator=gen()),
+                 e2e_batch(rng, E2E_BATCH, E2E_BUCKET, E2E_LABELS, ev.size))):
+            loss = float(counted(name, lambda: tr.train_step(batch, tgen))[
+                "loss"])
+            print(f"fused_ffn {name}: loss {loss:.4f}")
+            require(np.isfinite(loss), f"fused_ffn {name}: loss not finite")
+            require_finite_grads(f"fused_ffn {name}", tr.model)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    want = {"AM -> LM batch": 12, "LM step": 12, "e2e step": 12,
+            "e2e greedy batch": len(srv.chunk_ms) * 6 * (1 + E2E_MAX_LEN)}
+    print(f"fused_ffn launches: {counts} (required {want})")
+    require(counts == want, "fused_ffn: launch counts differ")
+    results["fused_ffn"]["launches"] = sum(counts.values())
+    compare_ffn_backends(signals, lengths)
+
+
+def compare_ffn_backends(signals, lengths):
+    """Phase 11's f32 comparison of ``fused_ffn="pallas"`` with "einsum"
+    (see ``phase_fused_ffn``)."""
+    import torch
+    from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
+                                                         batched_fbank)
+    from asr_dfcnn_transformer_torch.audio.lfr import batched_lfr
+    from asr_dfcnn_transformer_torch.models import speech_transformer as st
+    from asr_dfcnn_transformer_torch.infer.pipeline import pipeline_program
+    from asr_dfcnn_transformer_torch.train import factory
+    sig = torch.from_numpy(signals).to(DEVICE)
+    lens = torch.from_numpy(lengths).to(DEVICE)
+    out = {}
+    for ffn in ("pallas", "einsum"):
+        cfg = ffn_config(torch.float32, ffn)
+        models = [build(cfg, DEVICE, torch.Generator().manual_seed(SEED))
+                  .eval() for build in (factory.build_am_model,
+                                        factory.build_lm_model,
+                                        factory.build_e2e_model)]
+        am, lm, e2e = models
+        margins = []
+        with torch.inference_mode():
+            pny, pny_len, _ = pipeline_program(
+                am, None, sig, lens, BUCKETS[-1], fbank_cfg=FbankConfig(),
+                decode="greedy", beam_width=BEAM_WIDTH,
+                lm_max_len=LM_MAX_LEN)
+            lm_logits = lm(pny.long())
+            feats, valid = batched_fbank(sig, lens,
+                                         cfg=FbankConfig(nfilt=E2E_NFILT),
+                                         out_frames=BUCKETS[-1])
+            lfr, lfr_valid = batched_lfr(feats, valid, *E2E_LFR)
+            mem, mv = e2e.encode(lfr[..., None], lfr_valid)
+            greedy = st._greedy_cached(e2e, mem, mv, E2E_MAX_LEN, margins)
+        out[ffn] = (pny.cpu(), pny_len.cpu(), lm_logits.cpu(), mem.cpu(),
+                    greedy[0].cpu(), torch.stack(margins, 1).cpu())
+    (pny_p, _, lm_p, mem_p, ids_p, _) = out["pallas"]
+    (pny_e, len_e, lm_e, mem_e, ids_e, gaps) = out["einsum"]
+    require(torch.equal(pny_p, pny_e), "fused_ffn: the AM's pinyin differ")
+    top2 = torch.topk(lm_e, 2, dim=-1).values
+    pos = torch.arange(lm_e.shape[1])[None, :] < len_e[:, None]
+    sure = pos & (top2[..., 0] - top2[..., 1] >= MARGIN)
+    bad = int((sure & (lm_p.argmax(-1) != lm_e.argmax(-1))).sum())
+    err_lm = float((lm_p - lm_e).abs().max())
+    print(f"fused_ffn f32 pallas vs einsum, AM -> LM: LM logits max abs diff "
+          f"{err_lm:.3g}; hanzi mismatches {bad} of {int(sure.sum())} "
+          f"positions with margin >= {MARGIN} ({int(pos.sum())} valid)")
+    require(bad == 0, "fused_ffn: hanzi ids differ from the einsum model's")
+    err_mem = float((mem_p - mem_e).abs().max())
+    agree = []
+    for b in range(ids_e.shape[0]):
+        low = torch.nonzero(gaps[b] < MARGIN)
+        upto = int(low[0]) if len(low) else E2E_MAX_LEN
+        require(torch.equal(ids_p[b, :upto], ids_e[b, :upto]),
+                f"fused_ffn: e2e greedy ids of utterance {b} differ from the "
+                "einsum model's")
+        agree.append(upto)
+    print(f"fused_ffn f32 pallas vs einsum, e2e: encoder memory max abs diff "
+          f"{err_mem:.3g} (atol {E2E_MEMORY_ATOL}); greedy ids equal over "
+          f"the first {agree} steps (margin >= {MARGIN})")
+    require(err_mem <= E2E_MEMORY_ATOL, "fused_ffn: e2e memory differs")
 
 
 def main() -> int:
@@ -1406,6 +1730,9 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products sum wholly in f32 on cuBLAS, as in the kernels and the
+    # JAX package (the fused_ffn twin is held to the kernel bit for bit)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     results = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep}
                for name, (src, rep) in KERNELS.items()}
@@ -1419,6 +1746,7 @@ def main() -> int:
     phase_e2e_card_vs_cpu()
     phase_e2e_training(results)
     phase_e2e_train_card_vs_cpu()
+    phase_fused_ffn(results)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

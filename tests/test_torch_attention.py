@@ -6,6 +6,8 @@ the forward with and without dropout, and the VJP through the port's
 The CUDA kernels are held against these twins on the card by chip_smoke.py.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,3 +208,30 @@ def test_keep_mask_is_checked():
         masked_attention(q, q, q,
                          keep_mask=torch.ones((1, 2, 4, 4), dtype=torch.bool),
                          keep_prob=0.0)
+
+
+def test_backward_shared_memory_fits_every_forward_shape():
+    """The backward kernel walks keys and queries in chunks, so its shared
+    memory (``bwd_smem_bytes``, the mirror of csrc/attention.cu's layout)
+    depends on Dh alone and fits the card's 232,448 bytes at every
+    (Tq, Tk, Dh <= 128) the forward admits: here every Dh in both types and
+    the f32 shapes of e2e training at bucket 1600 whose earlier
+    one-block-per-(b, h) layout needed 294,624 bytes."""
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    for dtype in (torch.float32, torch.bfloat16):
+        need = [attn.bwd_smem_bytes(dh, dtype)
+                for dh in range(1, attn.MAX_DH + 1)]
+        assert max(need) <= attn.MAX_SMEM, (dtype, max(need))
+        assert need == sorted(need)        # grows with Dh only
+    assert attn.bwd_smem_bytes(64, torch.float32) < 100_000
+    # the mirror's tiling is the kernel's (chip_smoke.py holds the mirror
+    # to the C query on the card)
+    src = (attn._build.CSRC / "attention.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["kKeyChunk"]) == attn._KEY_CHUNK
+    assert int(consts["kQueryChunk"]) == attn._QUERY_CHUNK
+    assert int(consts["kBwdWarps"]) == attn._BWD_WARPS
+    assert int(consts["kBwdWarps"]) * int(consts["kRowsPerWarp"]) \
+        == attn._BWD_QROWS
+    assert int(consts["kBwdWarps"]) * int(consts["kKeysPerWarp"]) \
+        == attn._BWD_KROWS
