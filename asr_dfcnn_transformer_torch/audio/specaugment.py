@@ -8,17 +8,17 @@ cap (``max_time_frac`` of the valid length, adaptive) and the start are
 drawn from its own frame count. ``mask_value`` 0.0 is each bin's mean
 after the per-utterance CMVN.
 
-``spec_augment`` draws four [B, M] uniform arrays from a
-``torch.Generator`` (frequency widths and starts, then time widths and
-starts) and hands them to ``mask_features``, which applies
-``_rand_bands``'s arithmetic to them exactly, so the tests can feed it the
-JAX package's own draws.
+``spec_draws`` draws four [B, M] uniform arrays from a ``torch.Generator``
+(frequency widths and starts, then time widths and starts) and
+``mask_features`` applies ``_rand_bands``'s arithmetic to them exactly, so
+the tests can feed it the JAX package's own draws; ``spec_augment`` does
+both.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,7 +71,7 @@ def mask_features(feats: torch.Tensor, valid_frames: Optional[torch.Tensor],
         valid = torch.clamp(valid_frames.to(x.device, torch.int32).reshape(
             b, 1), 0, t)
     fill = torch.tensor(cfg.mask_value, dtype=x.dtype, device=x.device)
-    fuw, fus, tuw, tus = draws
+    fuw, fus, tuw, tus = (u.to(x.device) for u in draws)
     if cfg.num_freq_masks > 0:
         full = torch.full((b, 1), f, dtype=torch.int32, device=x.device)
         fs, fw = rand_bands(fuw, fus, torch.full_like(full,
@@ -87,15 +87,23 @@ def mask_features(feats: torch.Tensor, valid_frames: Optional[torch.Tensor],
     return x[..., None] if squeeze else x
 
 
+def spec_draws(b: int, cfg: SpecAugmentConfig,
+               generator: Optional[torch.Generator] = None,
+               device=None) -> List[torch.Tensor]:
+    """The four uniform [B, M] arrays of ``mask_features``, drawn on the
+    generator's device (``device`` without one)."""
+    dev = generator.device if generator is not None else device
+    return [torch.rand((b, m), generator=generator, device=dev)
+            for m in (cfg.num_freq_masks, cfg.num_freq_masks,
+                      cfg.num_time_masks, cfg.num_time_masks)]
+
+
 def spec_augment(feats: torch.Tensor, valid_frames: Optional[torch.Tensor],
                  cfg: SpecAugmentConfig = SpecAugmentConfig(),
                  generator: Optional[torch.Generator] = None
                  ) -> torch.Tensor:
     """SpecAugment masks on feats [B, T, F] (or [B, T, F, 1]) with
     ``valid_frames`` [B] (None: all T valid); the uniforms come from
-    ``generator`` (on the features' device; None: torch's default)."""
-    b = feats.shape[0]
-    draws = [torch.rand((b, m), generator=generator, device=feats.device)
-             for m in (cfg.num_freq_masks, cfg.num_freq_masks,
-                       cfg.num_time_masks, cfg.num_time_masks)]
+    ``generator`` (None: torch's default)."""
+    draws = spec_draws(feats.shape[0], cfg, generator, feats.device)
     return mask_features(feats, valid_frames, cfg, draws)

@@ -33,8 +33,17 @@
 // larger row tiles, wgmma and TMA are later work. The f32 kernel stages
 // synchronously.
 //
-// Limits (kernels/ffn.py `supports`): 16 <= D <= 512 with D % 16 == 0,
-// F % 16 == 0, F >= 16, any N >= 1.
+// Widths above kMaxD (512) take the wide kernels: a second grid dimension
+// splits the output columns into groups of 512, each block keeping its
+// group's [32, 512] f32 accumulator in registers, and the first product
+// walks D in slices of 512 staged in turn (x and W1 read again from L2 for
+// each inner chunk and column group, and each block recomputes its inner
+// chunks, which is exact). The slices and chunks run in the same order as
+// the narrow kernels' loops, so the arithmetic is theirs. The wide kernels
+// stage synchronously.
+//
+// Limits (kernels/ffn.py pads D and F to multiples of 16 with zeros, which
+// is exact): D and F multiples of 16, D >= 16, F >= 16, any N >= 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,7 +55,7 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 32;      // rows of x a block
-constexpr int kMaxD = 512;
+constexpr int kMaxD = 512;     // narrow kernels' widest D; wide: slice, group
 constexpr int kChunkBf16 = 64;  // inner columns a chunk, bf16
 constexpr int kChunkF32 = 32;   // inner columns a chunk, f32 (one a lane)
 constexpr int kPadBf16 = 8;     // 16 bytes of row padding
@@ -132,6 +141,10 @@ __device__ __forceinline__ void commit() {
 // flight.
 __device__ __forceinline__ void wait_all_but_newest() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Starts copying `rows` rows of `cols` bf16 (cols % 8 == 0) from global rows
@@ -273,6 +286,128 @@ ffn_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// D > kMaxD: block (i, j) takes rows 32i.. and output columns 512j.. . The
+// shared layout is the narrow kernel's at D = 512: an x slice [32][512 + 8],
+// a W1 chunk slice [64][512 + 8], the W2 chunk of the group's rows
+// [512][64 + 8] and the inner chunk [32][64 + 8].
+__global__ void __launch_bounds__(kThreads)
+ffn_bf16_wide_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w1,
+                     const __nv_bfloat16* __restrict__ b1,
+                     const __nv_bfloat16* __restrict__ w2,
+                     const __nv_bfloat16* __restrict__ b2,
+                     __nv_bfloat16* __restrict__ y, int N, int D, int F) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Bf16Layout lay(kMaxD);
+  const int ld = kMaxD + kPadBf16;
+  const int cld = kChunkBf16 + kPadBf16;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + lay.x);
+  __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(smem + lay.w1);
+  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem + lay.w2);
+  __nv_bfloat16* ins = reinterpret_cast<__nv_bfloat16*>(smem + lay.inner);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int row0 = blockIdx.x * kRows;
+  const int valid = min(kRows, N - row0);
+  const int c0 = blockIdx.y * kMaxD;      // the group's first output column
+  const int n_tiles = min(kMaxD, D - c0) / 8;
+
+  constexpr int kTiles = kMaxD / 8 / kWarps;
+  float acc[2][kTiles][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][j][e] = 0.f;
+
+  for (int f0 = 0; f0 < F; f0 += kChunkBf16) {
+    const int fc = min(kChunkBf16, F - f0);  // a multiple of 16
+    // inner chunk [32][fc] over D in slices of 512
+    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int k0 = 0; k0 < D; k0 += kMaxD) {
+      const int kc = min(kMaxD, D - k0);
+      __syncthreads();  // the previous slice is read by every warp
+      stage(xs, ld, x + static_cast<size_t>(row0) * D + k0, D, kRows, valid,
+            kc);
+      stage(w1s, ld, w1 + static_cast<size_t>(f0) * D + k0, D, fc, fc, kc);
+      commit();
+      wait_all();
+      __syncthreads();
+      if (warp * 8 < fc) {
+        const __nv_bfloat16* wrow = w1s + warp * 8 * ld;
+        for (int kk = 0; kk < kc; kk += 16) {
+          uint32_t b[2], a[4];
+          load_b(b, wrow + kk, ld, g, t);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            load_a(a, xs + h * 16 * ld + kk, ld, g, t);
+            mma_bf16(c[h], a, b);
+          }
+        }
+      }
+    }
+    if (warp * 8 < fc) {
+      const int col = warp * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = h * 16 + g + (e >= 2 ? 8 : 0);
+          const int cc = col + (e & 1);
+          const float v = bf16_add(c[h][e], b1[f0 + cc]);
+          ins[r * cld + cc] = __float2bfloat16_rn(relu(v));
+        }
+    }
+    // the group's W2 rows, columns f0..f0 + fc (the previous chunk's
+    // product finished before the slice loop's barrier)
+    stage(w2s, cld, w2 + static_cast<size_t>(c0) * F + f0, F, n_tiles * 8,
+          n_tiles * 8, fc);
+    commit();
+    wait_all();
+    __syncthreads();  // the inner chunk and the W2 chunk are in place
+
+    for (int k0 = 0; k0 < fc; k0 += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) load_a(a[h], ins + h * 16 * cld + k0, cld,
+                                         g, t);
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j) {
+        const int tile = warp + j * kWarps;
+        if (tile < n_tiles) {
+          uint32_t b[2];
+          load_b(b, w2s + tile * 8 * cld + k0, cld, g, t);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) mma_bf16(acc[h][j], a[h], b);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    const int tile = warp + j * kWarps;
+    if (tile >= n_tiles) continue;
+    const int col = c0 + tile * 8 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = h * 16 + g + 8 * half;
+        if (r >= valid) continue;
+        __nv_bfloat162 out;
+        out.x = __float2bfloat16_rn(bf16_add(acc[h][j][2 * half], b2[col]));
+        out.y = __float2bfloat16_rn(
+            bf16_add(acc[h][j][2 * half + 1], b2[col + 1]));
+        *reinterpret_cast<__nv_bfloat162*>(
+            y + static_cast<size_t>(row0 + r) * D + col) = out;
+      }
+  }
+}
+
 // ------------------------------------------------------------------- f32
 
 // Shared layout, in this order: x [32][D], a W1 chunk [32][D + 1], the
@@ -379,6 +514,107 @@ ffn_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
+// D > kMaxD: block (i, j) takes rows 32i.. and output columns 512j.. . The
+// shared layout is the narrow kernel's at D = 512: an x slice [32][512], a
+// W1 chunk slice [32][512 + 1], the group's W2 chunk transposed
+// [32][512 + 1] and the inner chunk [32][32].
+__global__ void __launch_bounds__(kThreads)
+ffn_f32_wide_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                    const float* __restrict__ b1, const float* __restrict__ w2,
+                    const float* __restrict__ b2, float* __restrict__ y,
+                    int N, int D, int F) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const F32Layout lay(kMaxD);
+  constexpr int ld = kMaxD + 1;
+  float* xs = reinterpret_cast<float*>(smem + lay.x);
+  float* w1s = reinterpret_cast<float*>(smem + lay.w1);
+  float* w2t = reinterpret_cast<float*>(smem + lay.w2);
+  float* ins = reinterpret_cast<float*>(smem + lay.inner);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = blockIdx.x * kRows;
+  const int valid = min(kRows, N - row0);
+  const int c0 = blockIdx.y * kMaxD;
+  const int dc = min(kMaxD, D - c0);
+
+  constexpr int kR = kRows / kWarps;
+  constexpr int kCols = kMaxD / 32;
+  float acc[kR][kCols];
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
+
+  for (int f0 = 0; f0 < F; f0 += kChunkF32) {
+    const int fc = min(kChunkF32, F - f0);
+    float c[kR] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < D; k0 += kMaxD) {
+      const int kc = min(kMaxD, D - k0);
+      __syncthreads();  // the previous slice and chunk are read by every warp
+      for (int i = threadIdx.x; i < kRows * kc; i += kThreads) {
+        const int r = i / kc;
+        const int d = i - r * kc;
+        xs[r * kMaxD + d] =
+            r < valid ? x[static_cast<size_t>(row0 + r) * D + k0 + d] : 0.f;
+      }
+      for (int i = threadIdx.x; i < fc * kc; i += kThreads) {
+        const int f = i / kc;
+        const int d = i - f * kc;
+        w1s[f * ld + d] = w1[static_cast<size_t>(f0 + f) * D + k0 + d];
+      }
+      __syncthreads();
+      if (lane < fc) {
+        const float* wr = w1s + lane * ld;
+        for (int d = 0; d < kc; ++d) {
+          const float w = wr[d];
+#pragma unroll
+          for (int r = 0; r < kR; ++r)
+            c[r] = fmaf(xs[(warp * kR + r) * kMaxD + d], w, c[r]);
+        }
+      }
+    }
+    if (lane < fc) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        ins[(warp * kR + r) * kChunkF32 + lane] = relu(c[r] + b1[f0 + lane]);
+    }
+    for (int i = threadIdx.x; i < dc * fc; i += kThreads) {
+      const int n = i / fc;
+      const int f = i - n * fc;
+      w2t[f * ld + n] = w2[static_cast<size_t>(c0 + n) * F + f0 + f];
+    }
+    __syncthreads();  // the W2 chunk is staged by every warp
+
+    for (int f = 0; f < fc; ++f) {
+      const float* wc = w2t + f * ld;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = lane + 32 * j;
+        if (col < dc) {
+          const float w = wc[col];
+#pragma unroll
+          for (int r = 0; r < kR; ++r)
+            acc[r][j] = fmaf(ins[(warp * kR + r) * kChunkF32 + f], w,
+                             acc[r][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int row = warp * kR + r;
+    if (row >= valid) continue;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = lane + 32 * j;
+      if (col < dc)
+        y[static_cast<size_t>(row0 + row) * D + c0 + col] =
+            acc[r][j] + b2[c0 + col];
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
@@ -395,20 +631,23 @@ extern "C" {
 // dtype_code 0: float32, 1: bfloat16. x [N, D], w1 [F, D], b1 [F], w2 [D, F],
 // b2 [D] -> y [N, D], all of that type and contiguous, bf16 pointers
 // 16-byte aligned. Sizes outside the limits above are refused with
-// cudaErrorInvalidValue before anything is launched.
+// cudaErrorInvalidValue before anything is launched. D <= 512 takes the
+// narrow kernels, wider D the wide ones.
 int asr_fused_ffn(int dtype_code, const void* x, const void* w1,
                   const void* b1, const void* w2, const void* b2, void* y,
                   int N, int D, int F, void* stream) {
-  if (D < 16 || D > kMaxD || D % 16 != 0 || F < 16 || F % 16 != 0)
+  if (D < 16 || D % 16 != 0 || F < 16 || F % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kRows - 1) / kRows);
+  const bool wide = D > kMaxD;
+  const dim3 grid((N + kRows - 1) / kRows, wide ? (D + kMaxD - 1) / kMaxD : 1);
   if (dtype_code == 1) {
-    const size_t smem = Bf16Layout(D).total;
-    const cudaError_t err = allow_smem(ffn_bf16_kernel, smem);
+    const size_t smem = Bf16Layout(wide ? kMaxD : D).total;
+    auto kernel = wide ? ffn_bf16_wide_kernel : ffn_bf16_kernel;
+    const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ffn_bf16_kernel<<<grid, kThreads, smem, s>>>(
+    kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w1),
         static_cast<const __nv_bfloat16*>(b1),
@@ -418,10 +657,11 @@ int asr_fused_ffn(int dtype_code, const void* x, const void* w1,
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype_code == 0) {
-    const size_t smem = F32Layout(D).total;
-    const cudaError_t err = allow_smem(ffn_f32_kernel, smem);
+    const size_t smem = F32Layout(wide ? kMaxD : D).total;
+    auto kernel = wide ? ffn_f32_wide_kernel : ffn_f32_kernel;
+    const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ffn_f32_kernel<<<grid, kThreads, smem, s>>>(
+    kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w1),
         static_cast<const float*>(b1), static_cast<const float*>(w2),
         static_cast<const float*>(b2), static_cast<float*>(y), N, D, F);

@@ -1,7 +1,7 @@
 """``AMBatch`` and ``LMBatch``: the JAX package's batch types
 (``data/loader.py:47-64``), field for field. Arrays are numpy on the host;
-the trainers move them to their device. The dataset loader is not ported
-yet.
+the trainers move them to their device; ``data/loader.py`` makes them
+from a corpus.
 """
 
 from __future__ import annotations

@@ -35,6 +35,10 @@ from asr_dfcnn_transformer_torch.kernels.fbank import (  # noqa: F401
     log_mel,
     log_mel_reference,
 )
+from asr_dfcnn_transformer_torch.kernels.fft_epilogue import (  # noqa: F401
+    interleave_epilogue,
+    interleave_epilogue_reference,
+)
 from asr_dfcnn_transformer_torch.kernels.ffn import (  # noqa: F401
     FusedFFN,
     fused_ffn,

@@ -57,6 +57,7 @@ _SIGNATURES = {
                         _I),
     "asr_topk_last": ((_P, _P, _P, _I, _I, _I, _P), _I),
     "asr_fused_ffn": ((_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "asr_interleave_epilogue": ((_I, _P, _P, _P, _I, _I, _I, _F, _P), _I),
     "asr_beam_search": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P), _I),
 }

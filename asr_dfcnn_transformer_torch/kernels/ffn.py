@@ -9,7 +9,11 @@ tensors and raises for anything else; its backward is
 ``fused_ffn_bwd_reference``, plain PyTorch on both devices, as the JAX VJP
 (``_fused_ffn_bwd``) is plain XLA.
 
-Weights are in the port's Linear layout: W1 [F, D], W2 [D, F].
+Weights are in the port's Linear layout: W1 [F, D], W2 [D, F]. The kernel
+takes D and F in multiples of 16; ``_padded`` zero-pads other widths up to
+them, which is exact (zero columns of x and W1 add exact zeros to each sum,
+a zero inner column is relu(0 + 0) = 0 and adds nothing, and the zero output
+columns are sliced off), as the JAX wrapper pads N.
 """
 
 from __future__ import annotations
@@ -21,21 +25,36 @@ import torch.nn.functional as F
 
 from asr_dfcnn_transformer_torch.kernels import _build
 
-MAX_D = 512      # csrc/ffn.cu kMaxD: the [32, D] f32 accumulator
-MULTIPLE = 16    # D and F in whole mma tiles
+MULTIPLE = 16    # D and F in whole mma tiles (padded up to it)
+MAX_WIDTH = 2**31 - MULTIPLE   # csrc/ffn.cu takes D and F as C ints
 
 
 def supports(d: int, f: int) -> bool:
-    """Whether the kernel takes model width ``d`` and inner width ``f``."""
-    return (MULTIPLE <= d <= MAX_D and d % MULTIPLE == 0
-            and f >= MULTIPLE and f % MULTIPLE == 0)
+    """Whether the kernel takes model width ``d`` and inner width ``f``:
+    any positive widths whose padded sizes fit the launcher's ints."""
+    return 1 <= d <= MAX_WIDTH and 1 <= f <= MAX_WIDTH
 
 
 def check_supported(d: int, f: int) -> None:
     if not supports(d, f):
         raise ValueError(
-            f"fused_ffn: the kernel takes {MULTIPLE} <= D <= {MAX_D} and "
-            f"F >= {MULTIPLE}, both multiples of {MULTIPLE}; got D={d}, F={f}")
+            f"fused_ffn: the kernel takes 1 <= D, F <= {MAX_WIDTH}; got "
+            f"D={d}, F={f}")
+
+
+def _round_up(n: int) -> int:
+    return -(-n // MULTIPLE) * MULTIPLE
+
+
+def _padded(x, w1, b1, w2, b2):
+    """The operands zero-padded to D and F in multiples of 16 (no copy
+    when they are already)."""
+    d, f = x.shape[-1], w1.shape[0]
+    pd, pf = _round_up(d) - d, _round_up(f) - f
+    if pd == 0 and pf == 0:
+        return x, w1, b1, w2, b2
+    return (F.pad(x, (0, pd)), F.pad(w1, (0, pd, 0, pf)), F.pad(b1, (0, pf)),
+            F.pad(w2, (0, pf, 0, pd)), F.pad(b2, (0, pd)))
 
 
 def fused_ffn_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -76,20 +95,21 @@ def _forward(x, w1, b1, w2, b2):
         return fused_ffn_reference(x, w1, b1, w2, b2)
     x, w1, b1, w2, b2 = (t.contiguous() for t in (x, w1, b1, w2, b2))
     dev = _build.require_cuda("fused_ffn", x, w1, b1, w2, b2)
-    x, w1, w2 = (_aligned(t) for t in (x, w1, w2))
     n, d = x.shape
-    f = w1.shape[0]
+    x, w1, b1, w2, b2 = _padded(x, w1, b1, w2, b2)
+    x, w1, w2 = (_aligned(t) for t in (x, w1, w2))
+    dp, fp = x.shape[1], w1.shape[0]
     y = torch.empty_like(x)
     if n == 0:
-        return y
+        return y[:, :d]
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.asr_fused_ffn(_build.DTYPE_CODES[x.dtype], x.data_ptr(),
                                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                               b2.data_ptr(), y.data_ptr(), n, d, f,
+                               b2.data_ptr(), y.data_ptr(), n, dp, fp,
                                _build.stream_ptr(dev))
-    _build.check("fused_ffn", rc, f"N={n}, D={d}, F={f}")
-    return y
+    _build.check("fused_ffn", rc, f"N={n}, D={dp}, F={fp}")
+    return y if dp == d else y[:, :d].contiguous()
 
 
 class FusedFFN(torch.autograd.Function):
@@ -113,7 +133,7 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     x [..., D] (float32 or bfloat16; leading axes flattened); W1 [F, D],
     b1 [F], W2 [D, F], b2 [D], cast to x's dtype as the JAX ``fused_ffn``
     casts them. Returns x's shape in x's dtype; differentiable in every
-    input. D and F within ``supports``."""
+    input. Any D and F within ``supports``."""
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError("fused_ffn: x must be float32 or bfloat16, got "
                          f"{x.dtype}")

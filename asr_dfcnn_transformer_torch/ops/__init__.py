@@ -1,4 +1,4 @@
-"""CTC loss, decoders and edit distance."""
+"""CTC loss, decoders, edit distance and the matmul inverse FFT."""
 
 from asr_dfcnn_transformer_torch.ops.ctc import ctc_loss  # noqa: F401
 from asr_dfcnn_transformer_torch.ops.ctc_decode import (  # noqa: F401
@@ -11,4 +11,8 @@ from asr_dfcnn_transformer_torch.ops.ctc_decode import (  # noqa: F401
 from asr_dfcnn_transformer_torch.ops.edit_distance import (  # noqa: F401
     batched_edit_distance,
     edit_distance,
+)
+from asr_dfcnn_transformer_torch.ops.matfft import (  # noqa: F401
+    ifft_matmul,
+    irfft_matmul,
 )

@@ -2,7 +2,7 @@
 
     python -m asr_dfcnn_transformer_torch.profile_stages [--out PATH]
         [--model am_lm|e2e] [--decode greedy|beam] [--train]
-        [--fused-ffn auto|pallas|einsum]
+        [--fused-ffn auto|pallas|einsum] [--augment]
 
 Builds the full-width bf16 SE-DFCNN + Transformer LM from a seeded
 ``torch.Generator`` and, for each of the server's buckets at its batch of
@@ -32,7 +32,10 @@ step, device kernel time and the top kernels (tables to ``<out>.am`` and
 width (batch 8 at bucket 1600, 48-token labels padded to 64, dropout 0.1,
 SpecAugment on): CUDA-event times of a step's stages (fbank, SpecAugment
 + LFR, pre-net, encoder, decoder, loss, backward, Adam), then a few traced
-steps (table to ``<out>.e2e``).
+steps (table to ``<out>.e2e``). ``--train --augment`` gives the AM trainer
+colored noise and SpecAugment (``augment_noise=True, augment_spec=True``)
+and first times an AM step's stages with CUDA events (the draws, the noise
+mix, fbank + SpecAugment, forward, CTC loss, backward, Adam).
 
 Every model comes from ``train/factory.py``'s builders over the default
 ``Config``; ``--fused-ffn pallas`` builds the LM and the e2e model with
@@ -56,6 +59,7 @@ from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
                                                      batched_fbank,
                                                      samples_for_frames)
 from asr_dfcnn_transformer_torch.audio.lfr import batched_lfr
+from asr_dfcnn_transformer_torch.audio.noise import add_noise_from_draws
 from asr_dfcnn_transformer_torch.audio.specaugment import spec_augment
 from asr_dfcnn_transformer_torch.data import AMBatch, LMBatch
 from asr_dfcnn_transformer_torch.infer.e2e_serving import e2e_program
@@ -67,7 +71,7 @@ from asr_dfcnn_transformer_torch.models import (beam_decode_cached, e2e_loss,
                                                 logit_lengths)
 from asr_dfcnn_transformer_torch.models import speech_transformer as st
 from asr_dfcnn_transformer_torch.ops import (ctc_beam_search_decode,
-                                             ctc_greedy_decode)
+                                             ctc_greedy_decode, ctc_loss)
 from asr_dfcnn_transformer_torch.train import (AMTrainer, E2ETrainer,
                                                LMTrainer, factory)
 
@@ -85,8 +89,12 @@ PORT_KERNELS = ("log_mel_kernel", "cmvn_kernel", "masked_attention_kernel",
                 "ctc_beta_xi_kernel", "topk_last_kernel",
                 "beam_search_kernel", "dual_attention_kernel",
                 "dual_attention_bwd_kernel", "ffn_bf16_kernel",
-                "ffn_f32_kernel")  # csrc/'s __global__ functions
+                "ffn_f32_kernel", "ffn_bf16_wide_kernel",
+                "ffn_f32_wide_kernel",
+                "interleave_epilogue_kernel")  # csrc/'s __global__ functions
 E2E_STAGES = ("fbank+lfr", "prenet", "encoder", "decode")
+AM_TRAIN_STAGES = ("draws", "noise", "fbank+specaug", "forward", "ctc",
+                   "backward", "adam")
 E2E_TRAIN_STAGES = ("fbank", "specaug+lfr", "prenet", "encoder", "decoder",
                     "loss", "backward", "adam")
 E2E_BUCKETS = (128, 512, 1600)       # E2EServing's
@@ -258,7 +266,33 @@ def _write_table(events, path: str) -> None:
                   "of device time each")
 
 
-def profile_training(am, lm, av, lv, out: str, steps: int = 3) -> None:
+def _am_train_stages(tr, sig, lens, pny, pny_len, bucket, gen):
+    """One augmented ``AMTrainer.train_step``, stage by stage; returns the
+    CUDA events around the stages."""
+    model = tr.model.train()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    ev[0].record()
+    noise, spec = tr.augment_draws(*sig.shape, generator=gen)
+    ev[1].record()
+    sig = add_noise_from_draws(sig, lens, noise)
+    ev[2].record()
+    feats = tr.features(sig, lens, bucket, spec)
+    ev[3].record()
+    logits = model(feats, generator=gen)
+    ev[4].record()
+    in_len = logit_lengths(frames_from_samples(lens), logits.shape[1])
+    loss = ctc_loss(logits, in_len, pny, pny_len, blank_id=-1).mean()
+    ev[5].record()
+    tr.opt.zero_grad(set_to_none=True)
+    loss.backward()
+    ev[6].record()
+    tr.apply_gradients()
+    ev[7].record()
+    return ev, loss
+
+
+def profile_training(am, lm, av, lv, out: str, steps: int = 3,
+                     augment: bool = False) -> None:
     """The training path's breakdown, one trainer at a time."""
     rng = np.random.default_rng(SEED)
     s = samples_for_frames(1600)
@@ -274,8 +308,24 @@ def profile_training(am, lm, av, lv, out: str, steps: int = 3) -> None:
     lm_batch = LMBatch(ids, rng.integers(1, lv.size, (64, 64)).astype(
         np.int32), np.full(64, 64, np.int32), np.ones(64, np.float32))
     with tempfile.TemporaryDirectory() as workdir:
+        am_tr = AMTrainer(am, os.path.join(workdir, "am"),
+                          augment_noise=augment, augment_spec=augment or None)
+        if augment:
+            dev = next(am.parameters()).device
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            sig_d, lens_d, pny_d, len_d = (torch.from_numpy(a).to(dev) for a
+                                           in (sig, lens, pny, pny_len))
+            per, wall = _timed_batches(
+                lambda: _am_train_stages(am_tr, sig_d, lens_d, pny_d, len_d,
+                                         1600, gen), len(AM_TRAIN_STAGES))
+            cells = ", ".join(f"{n} {t:.3f}" for n, t in
+                              zip(AM_TRAIN_STAGES, per))
+            print(f"train am with noise and SpecAugment, batch 16 at bucket "
+                  f"1600 (CUDA events, mean of {ITERS} steps): {cells}; "
+                  f"device sum {per.sum():.3f}, host wall {wall:.3f} per "
+                  "step")
         for name, tr, batch in (
-                ("am", AMTrainer(am, os.path.join(workdir, "am")), am_batch),
+                ("am", am_tr, am_batch),
                 ("lm", LMTrainer(lm, os.path.join(workdir, "lm")),
                  lm_batch)):
             for _ in range(2):
@@ -368,6 +418,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fused-ffn", choices=("auto", "pallas", "einsum"),
                     default="auto",
                     help="the LM's and the e2e model's FFN backend")
+    ap.add_argument("--augment", action="store_true",
+                    help="with --train: colored noise and SpecAugment in "
+                    "the AM step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_stages: no CUDA device", file=sys.stderr)
@@ -389,7 +442,7 @@ def main(argv=None) -> int:
     am = factory.build_am_model(config, dev, gen).eval()
     lm = factory.build_lm_model(config, dev, gen).eval()
     if args.train:
-        profile_training(am, lm, av, lv, args.out)
+        profile_training(am, lm, av, lv, args.out, augment=args.augment)
         return 0
     cfg = FbankConfig()
     rng = np.random.default_rng(SEED)

@@ -85,14 +85,15 @@ def build_e2e_model(cfg: Config, device=None,
         device=device, generator=generator)
 
 
-def build_am_trainer(cfg: Config, workdir: str, device=None,
+def build_am_trainer(cfg: Config, workdir: str, augment_noise: bool = False,
+                     augment_spec=None, device=None,
                      generator: Optional[torch.Generator] = None):
-    """The JAX builder's ``mesh``, ``augment_noise`` and ``augment_spec``
-    wait for ROADMAP Queue A 12, A 7 and A 5.4."""
+    """The JAX builder's ``mesh`` waits for ROADMAP Queue A 12."""
     from asr_dfcnn_transformer_torch.train import AMTrainer
     return AMTrainer(build_am_model(cfg, device, generator), workdir,
                      lr=cfg.am.lr, decay_steps=cfg.train.decay_steps,
                      min_lr=cfg.train.min_lr, feature_dim=cfg.am.feature_dim,
+                     augment_noise=augment_noise, augment_spec=augment_spec,
                      max_to_keep=cfg.train.max_to_keep)
 
 

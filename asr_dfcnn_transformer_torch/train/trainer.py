@@ -2,8 +2,9 @@
 of ``train/trainer.py`` (``AMTrainer`` :236, ``LMTrainer`` :524,
 ``E2ETrainer`` :753).
 
-One step: batch to the device, (AM, e2e) fbank through the ``log_mel`` /
-``cmvn`` kernels (e2e: then SpecAugment when asked for, and LFR), the
+One step: batch to the device, (AM, when asked for) colored noise on the
+raw signals, (AM, e2e) fbank through the ``log_mel`` / ``cmvn`` kernels,
+SpecAugment when asked for (e2e: then LFR), the
 model's training forward, the loss (CTC through the ``ctc_alpha`` /
 ``ctc_beta_xi`` kernels, or a label-smoothed cross entropy), ``backward``
 (attention through the backward kernels), then Adam. As
@@ -14,9 +15,8 @@ metrics carry that ``lr``.
 Around the steps: JSONL metrics, a non-finite-loss guard, per-epoch dev
 sweeps with a metric-gated best checkpoint, and resume from the latest
 checkpoint (the e2e trainer: step-numbered checkpoints and an epoch
-marker). Not ported yet: the device mesh, noise augmentation, SpecAugment
-in the AM step, ``remat_stages``, TensorBoard (with the e2e attention
-images), profiling and identity stamps.
+marker). Not ported yet: the device mesh, ``remat_stages``, TensorBoard
+(with the e2e attention images), profiling and identity stamps.
 """
 
 from __future__ import annotations
@@ -31,8 +31,12 @@ import torch
 
 from asr_dfcnn_transformer_torch.audio.fbank import FbankConfig, batched_fbank
 from asr_dfcnn_transformer_torch.audio.lfr import batched_lfr
+from asr_dfcnn_transformer_torch.audio.noise import (add_noise_from_draws,
+                                                     noise_draws)
 from asr_dfcnn_transformer_torch.audio.specaugment import (SpecAugmentConfig,
-                                                           spec_augment)
+                                                           mask_features,
+                                                           spec_augment,
+                                                           spec_draws)
 from asr_dfcnn_transformer_torch.core import constants
 from asr_dfcnn_transformer_torch.data.batches import AMBatch, LMBatch
 from asr_dfcnn_transformer_torch.models.dfcnn import (frames_from_samples,
@@ -157,30 +161,66 @@ class _TrainerBase:
 
 
 class AMTrainer(_TrainerBase):
-    """SE-DFCNN CTC trainer (train_acoustic_model semantics)."""
+    """SE-DFCNN CTC trainer (train_acoustic_model semantics).
+
+    ``augment_noise``: mix colored noise into the raw signals of each train
+    step (``audio/noise.py``). ``augment_spec``: None (off), True (the
+    default ``SpecAugmentConfig``) or a config; it masks the fbank features
+    of each train step within their valid frames. A step draws from its
+    generator in the JAX step's key order: the noise, then the masks, then
+    dropout. Eval steps stay clean."""
 
     def __init__(self, model, workdir: str, lr: float = 7e-4,
                  decay_steps: int = 5000, min_lr: float = 1e-6,
-                 feature_dim: int = 200, max_to_keep: int = 5):
+                 feature_dim: int = 200, augment_noise: bool = False,
+                 augment_spec=None, max_to_keep: int = 5):
         super().__init__(model, workdir, "am", lr, decay_steps, min_lr,
                          max_to_keep)
         self.fbank_cfg = FbankConfig(nfilt=feature_dim)
+        self.augment_noise = augment_noise
+        if augment_spec is True:
+            augment_spec = SpecAugmentConfig()
+        self.augment_spec = augment_spec or None
 
     def features(self, signals: torch.Tensor, signal_lengths: torch.Tensor,
-                 bucket_frames: int) -> torch.Tensor:
+                 bucket_frames: int, masks=None) -> torch.Tensor:
         """Normalised fbank features [B, 1, T, F] (NCHW) of a batch, through
-        the ``log_mel`` and ``cmvn`` kernels."""
-        feats, _ = batched_fbank(signals, signal_lengths, cfg=self.fbank_cfg,
-                                 out_frames=bucket_frames)
+        the ``log_mel`` and ``cmvn`` kernels; with ``masks`` (SpecAugment's
+        draws) masked within their valid frames."""
+        feats, valid = batched_fbank(signals, signal_lengths,
+                                     cfg=self.fbank_cfg,
+                                     out_frames=bucket_frames)
+        if masks is not None:
+            feats = mask_features(feats, valid, self.augment_spec, masks)
         return feats[:, None]
 
-    def _forward(self, batch: AMBatch, generator=None):
+    def augment_draws(self, batch_size: int, num_samples: int,
+                      generator: Optional[torch.Generator] = None):
+        """A train step's random draws, noise first, then the masks: (the
+        noise draws or None, the SpecAugment draws or None), on the
+        generator's device (the model's without one)."""
+        noise = spec = None
+        if self.augment_noise:
+            noise = noise_draws(batch_size, num_samples, generator,
+                                device=self.device)
+        if self.augment_spec is not None:
+            spec = spec_draws(batch_size, self.augment_spec, generator,
+                              device=self.device)
+        return noise, spec
+
+    def _forward(self, batch: AMBatch, generator=None, augment=False):
         """(per-example CTC losses, logits, logit lengths, pinyin, pinyin
         lengths, weights) on the device."""
         sig, sig_len, pny, pny_len, w = self._to_device(
             batch.signals, batch.signal_lengths, batch.pinyin,
             batch.pinyin_lengths, batch.weights)
-        feats = self.features(sig, sig_len, batch.bucket_frames)
+        noise = spec = None
+        if augment:
+            noise, spec = self.augment_draws(sig.shape[0], sig.shape[1],
+                                             generator)
+        if noise is not None:
+            sig = add_noise_from_draws(sig, sig_len, noise)
+        feats = self.features(sig, sig_len, batch.bucket_frames, spec)
         logits = self.model(feats, generator=generator)
         in_len = logit_lengths(frames_from_samples(sig_len), logits.shape[1])
         losses = ctc_loss(logits, in_len, pny, pny_len, blank_id=-1)
@@ -190,7 +230,7 @@ class AMTrainer(_TrainerBase):
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, object]:
         self.model.train()
-        losses, _, _, _, _, w = self._forward(batch, generator)
+        losses, _, _, _, _, w = self._forward(batch, generator, augment=True)
         loss = _weighted_mean(losses, w)
         lr = self._backward_and_update(loss)
         return {"loss": loss.detach(), "lr": lr}

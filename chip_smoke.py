@@ -25,7 +25,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    encoder's [8, 8, 134, 64] and the pre-net's time rows [640, 1, 134,
    64], with its shared-memory layout held to the C query; ``fused_ffn``
    at [4096, 512], [800, 512], [1072, 512] and [8, 512] in bf16 and
-   [800, 512] in f32, inner 2048), each
+   [800, 512] in f32, inner 2048, at the wide kernels' [4096, 1024] in
+   bf16 and [800, 1024] in f32, inner 4096, and at ragged widths;
+   ``interleave_epilogue`` bit for bit at [128, 256, 512] in bf16 and f32,
+   [16, 256, 512] and a ragged [3, 2, 4]), each
    with its tolerance; then each kernel's time beside its twin's (CUDA
    events after warm-up, in turns), its bound computed from the inputs, and
    the time of the one PyTorch call that computes the same function, where
@@ -87,6 +90,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     decode; finite losses and gradients. Then the same seeded models in f32
     with "pallas" and "einsum": the LM's hanzi and the e2e greedy ids must
     agree wherever the einsum model's margin >= 1e-3.
+12. Colored-noise AM training: (a) ``irfft_matmul`` at [128, 131,073] ->
+    262,144 with ``epilogue="pallas"`` (``interleave_epilogue`` once a
+    call) bit-equal to "xla", both near cuFFT, with the three transforms'
+    times; (b) card against CPU: the noise mixtures on the same draws, and
+    one small f32 noisy, SpecAugmented ``AMTrainer`` step's loss and
+    gradients; (c) 10 full-width ``AMTrainer(augment_noise=True,
+    augment_spec=True)`` steps on phase 5's batch (the noise at n 262,144
+    through cuFFT), beside phase 5's clean step; (d) a synthetic corpus, its
+    offline noise corpus, and one ``fit`` epoch of the full-width noisy AM
+    on the port's ``DataLoader`` batches with a checkpoint. The launch
+    counters are reset before and read after each path.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -144,6 +158,9 @@ KERNELS = {
         "asr_dfcnn_transformer_tpu/ops/pallas/attn_kernel.py:176"),
     "fused_ffn": ("asr_dfcnn_transformer_torch/csrc/ffn.cu",
                   "asr_dfcnn_transformer_tpu/ops/pallas/ffn_kernel.py:146"),
+    "interleave_epilogue": (
+        "asr_dfcnn_transformer_torch/csrc/fft_epilogue.cu",
+        "asr_dfcnn_transformer_tpu/ops/pallas/fft_epilogue.py:47"),
 }
 SERVED = {"greedy": ("log_mel", "cmvn", "masked_attention"),
           "beam": ("log_mel", "cmvn", "masked_attention", "topk_last",
@@ -168,6 +185,7 @@ E2E_TRAINED = ("log_mel", "cmvn", "masked_attention", "masked_attention_drop",
 E2E_BATCH, E2E_BUCKET, E2E_LABELS = 8, 1600, (48, 64)  # E2EConfig.batch_size
 E2E_LR = 1e-3         # 3.3x E2EConfig.lr: ten steps show the fit, dropout on
 MARGIN = 1e-3
+NOISE_BATCH, NOISE_N = 128, 262144    # irfft_matmul's docstring shape
 # Peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): memory, and
 # the best rate for each type of operation (f64 on the tensor cores, f32
 # outside them, bf16 on them).
@@ -222,6 +240,26 @@ def paired_ms(kernel_fn, plain_fn, plain_iters: int = 20):
     k2 = cuda_ms(kernel_fn)
     p2 = cuda_ms(plain_fn, plain_iters, min(3, plain_iters))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_us(fn, kernel: str, iters: int = 10):
+    """Device time per launch (us) of the ``__global__`` function named
+    ``kernel`` over ``iters`` calls of fn, from torch.profiler; None when
+    the trace shows no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if kernel in e.key and e.count and e.self_device_time_total]
+    if not hits:
+        return None
+    return (sum(e.self_device_time_total for e in hits)
+            / sum(e.count for e in hits))
 
 
 def nbytes(*tensors) -> int:
@@ -379,6 +417,7 @@ def phase_kernels(results):
     check_cross_attention(rng)
     check_attention_bwd_f32(rng)
     check_fused_ffn(results, rng)
+    check_interleave_epilogue(results, rng)
     for name, r in results.items():
         lib = ("—" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -920,16 +959,18 @@ def check_fused_ffn(results, rng):
     """``fused_ffn`` against its twin at the paths' shapes: [4096, 512] (LM
     training, 64 x 64), [800, 512] (LM serving, 8 x 100), [1072, 512] (the
     e2e encoder, 8 x 134), [8, 512] (a cached decoder step) in bf16 and
-    [800, 512] in f32, inner width 2048; then a ragged [37, 48] with inner
-    208 in both types (a part-filled row tile, fewer output tiles than
-    warps, a last inner chunk of 16). bf16: within 2e-2 and at most 1 in
-    100 elements differing at all (the kernel's f32 sums run in another
+    [800, 512] in f32, inner width 2048; the widths above 512 that the wide
+    kernels take, [4096, 1024] with inner 4096 in bf16 and [800, 1024] in
+    f32; then a ragged [37, 48] with inner 208 (a part-filled row tile,
+    fewer output tiles than warps, a last inner chunk of 16) and D 40 / F 72
+    (zero-padded to 48 / 80) in both types. bf16: within 2e-2 and at most 1
+    in 100 elements differing at all (the kernel's f32 sums run in another
     order than cuBLAS's, so an element may round the other way, and an
-    inner element that does moves the output by a fraction of an ulp); f32
-    within 1e-5. The path's shapes are timed beside the twin and the
-    library yardstick, ``F.linear`` -> relu -> ``F.linear`` on cuBLAS with
-    the same roundings (the twin's own ops, called directly), with their
-    bound."""
+    inner element that does moves the output by a fraction of an ulp); the
+    count that differ is printed; f32 within 1e-5. The shapes of D 512 and
+    1024 are timed beside the twin and the library yardstick, ``F.linear``
+    -> relu -> ``F.linear`` on cuBLAS with the same roundings (the twin's
+    own ops, called directly), with their bound."""
     import torch
     import torch.nn.functional as F
     from asr_dfcnn_transformer_torch.kernels import (fused_ffn,
@@ -940,8 +981,12 @@ def check_fused_ffn(results, rng):
                            (1072, torch.bfloat16, 512, 2048),
                            (8, torch.bfloat16, 512, 2048),
                            (800, torch.float32, 512, 2048),
+                           (4096, torch.bfloat16, 1024, 4096),
+                           (800, torch.float32, 1024, 4096),
                            (37, torch.bfloat16, 48, 208),
-                           (37, torch.float32, 48, 208)):
+                           (37, torch.float32, 48, 208),
+                           (37, torch.bfloat16, 40, 72),
+                           (37, torch.float32, 40, 72)):
         x, w1, b1, w2, b2 = ffn_problem(rng, n, dtype, d, f)
         got = fused_ffn(x, w1, b1, w2, b2)
         want = fused_ffn_reference(x, w1, b1, w2, b2)
@@ -957,7 +1002,7 @@ def check_fused_ffn(results, rng):
         line = (f"fused_ffn [{n}, {d}] F {f} {dtype}: max abs err {err:.3g}, "
                 f"{n_diff} of {got.numel()} elements differ ({tol}) "
                 f"{'ok' if ok else 'FAIL'}")
-        if f != 2048:
+        if d % 512:
             print(line)
             require(ok, f"fused_ffn disagrees with its twin at [{n}, {d}] "
                     f"F {f} {dtype}")
@@ -978,9 +1023,56 @@ def check_fused_ffn(results, rng):
               f"({bound['bound_by']})")
         require(ok, f"fused_ffn disagrees with its twin at [{n}, {d}] "
                 f"{dtype}")
-        if n == LM_BATCH * LM_LEN:
+        if n == LM_BATCH * LM_LEN and d == 512:
             r.update(bound, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                      library_ms=lib_ms)
+
+
+def check_interleave_epilogue(results, rng):
+    """``interleave_epilogue`` against its twin, bit for bit, at its
+    docstring's shape [128, 256, 512] (batch 128, n 262,144) in bf16 and
+    f32, at the AM step's [16, 256, 512] in bf16 and at a ragged [3, 2, 4]
+    (n 16) in both types; each timed beside its twin (CUDA events, in
+    turns) with its device time per launch (profiler) and its bound: the
+    bytes of z read once and of x written once. No one PyTorch call
+    computes this relayout."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import (
+        interleave_epilogue, interleave_epilogue_reference)
+    r = results["interleave_epilogue"]
+    for shape, dtype in (((128, 256, 512), torch.bfloat16),
+                         ((128, 256, 512), torch.float32),
+                         ((16, 256, 512), torch.bfloat16),
+                         ((3, 2, 4), torch.bfloat16),
+                         ((3, 2, 4), torch.float32)):
+        n = 2 * shape[1] * shape[2]
+        zr, zi = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(DEVICE, dtype) for _ in range(2))
+        got = interleave_epilogue(zr, zi, n)
+        want = interleave_epilogue_reference(zr, zi, n)
+        same = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        line = (f"interleave_epilogue {list(shape)} {dtype}: bit-equal "
+                f"{same} (max abs err {err:.3g})")
+        print(line)
+        require(same and got.shape == (shape[0], n),
+                f"interleave_epilogue disagrees with its twin at "
+                f"{list(shape)} {dtype}")
+        k_ms, p_ms = paired_ms(lambda: interleave_epilogue(zr, zi, n),
+                               lambda: interleave_epilogue_reference(zr, zi,
+                                                                     n))
+        us = device_us(lambda: interleave_epilogue(zr, zi, n),
+                       "interleave_epilogue_kernel")
+        bound = {}
+        set_bound(bound, nbytes(zr, zi, got), {})
+        us_text = "not measured" if us is None else f"{us:.1f} us"
+        print(f"time interleave_epilogue {list(shape)} {dtype}: kernel "
+              f"{k_ms:.4f} ms, device {us_text} a launch, plain {p_ms:.4f} "
+              f"ms, bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}), "
+              "library — no one call")
+        if shape == (128, 256, 512) and dtype == torch.bfloat16:
+            r.update(bound, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                     library_ms=None)
 
 
 def build_models(dtype, device):
@@ -1226,6 +1318,7 @@ def phase_training(results):
           f"{LM_BATCH} x {LM_LEN}, dropout {lm.config.dropout_rate}; "
           f"bf16 compute, f32 parameters, Adam (AM lr 7e-4, LM lr {LM_LR})")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    stats = {}
     try:
         reset_launches()
         for name, tr, batch in (
@@ -1233,7 +1326,7 @@ def phase_training(results):
                 ("lm", LMTrainer(lm, os.path.join(workdir, "lm"), lr=LM_LR),
                  lmb)):
             gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-            train_steps(name, tr, batch, gen)
+            stats[name] = train_steps(name, tr, batch, gen)
             fit_epoch(name, tr, batch, gen)
         counts = dict(LAUNCHES)
     finally:
@@ -1242,6 +1335,7 @@ def phase_training(results):
     for name in TRAINED:
         require(counts.get(name, 0) > 0, f"{name} was never launched")
         results[name]["launches"] = counts[name]
+    return stats["am"]
 
 
 def phase_train_card_vs_cpu():
@@ -1723,6 +1817,254 @@ def compare_ffn_backends(signals, lengths):
     require(err_mem <= E2E_MEMORY_ATOL, "fused_ffn: e2e memory differs")
 
 
+def phase_noise(results, clean_am):
+    """Phase 12: colored-noise AM training and the matmul inverse FFT."""
+    phase_irfft_matmul(results)
+    phase_noise_card_vs_cpu()
+    phase_noise_training(clean_am)
+    phase_noise_data()
+
+
+def phase_irfft_matmul(results):
+    """12a: ``irfft_matmul`` at its docstring's shape, [128, 131,073] ->
+    262,144, on seeded half-spectra (real DC and Nyquist bins, as cuFFT's
+    C2R assumes). The launch counters are reset before and read after the
+    two "pallas" transforms (bf16 and f32 compute): ``interleave_epilogue``
+    must run once each. Each "pallas" result is bit-equal to "xla"; each is
+    within 0.03 (bf16 compute, the JAX test's bound) or 1e-4 (f32) of the
+    peak of ``torch.fft.irfft`` (cuFFT); then the three transforms' times
+    (CUDA events)."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    from asr_dfcnn_transformer_torch.ops.matfft import irfft_matmul
+    rng = np.random.default_rng(SEED + 12)
+    h = NOISE_N // 2
+    sr, si = (torch.from_numpy(rng.standard_normal(
+        (NOISE_BATCH, h + 1)).astype(np.float32)).to(DEVICE)
+        for _ in range(2))
+    si[:, 0] = 0.0
+    si[:, h] = 0.0
+
+    def cufft():
+        return torch.fft.irfft(torch.complex(sr, si), n=NOISE_N)
+
+    def matfft(cd, epilogue):
+        return lambda: irfft_matmul(sr, si, NOISE_N, compute_dtype=cd,
+                                    epilogue=epilogue)
+
+    ref = cufft()
+    peak = float(ref.abs().max())
+    computes = ((torch.bfloat16, 0.03), (torch.float32, 1e-4))
+    torch.cuda.synchronize()
+    reset_launches()
+    pallas = {cd: matfft(cd, "pallas")() for cd, _ in computes}
+    torch.cuda.synchronize()
+    launches = LAUNCHES.get("interleave_epilogue", 0)
+    print(f"irfft_matmul [{NOISE_BATCH}, {h + 1}] -> {NOISE_N}: "
+          f"interleave_epilogue launches {launches} (required 2)")
+    require(launches == 2, "irfft_matmul(epilogue='pallas') did not run "
+            "interleave_epilogue once a call")
+    results["interleave_epilogue"]["launches"] = launches
+    t_fft = cuda_ms(cufft)
+    times = [f"cuFFT (torch.fft.irfft) {t_fft:.4f} ms"]
+    for cd, tol in computes:
+        xla = matfft(cd, "xla")()
+        same = torch.equal(pallas[cd], xla)
+        err = float((xla - ref).abs().max()) / peak
+        print(f"irfft_matmul {cd}: pallas bit-equal to xla {same}; max abs "
+              f"err against cuFFT {err:.3g} of the peak (tol {tol}) "
+              f"{'ok' if same and err < tol else 'FAIL'}")
+        require(same and err < tol, f"irfft_matmul {cd} disagrees")
+        times.append(f"{cd} xla {cuda_ms(matfft(cd, 'xla')):.4f} ms, pallas "
+                     f"{cuda_ms(matfft(cd, 'pallas')):.4f} ms")
+    print(f"time irfft [{NOISE_BATCH}, {h + 1}] -> {NOISE_N}: "
+          + "; ".join(times))
+
+
+def phase_noise_card_vs_cpu():
+    """12b: ``add_noise_from_draws`` on the card and on the CPU on the same
+    draws (made on the CPU from a seeded generator): the mixtures within
+    1e-5 of each signal's peak, the padding exactly 0 on both. Then one
+    small f32 ``AMTrainer(augment_noise=True, augment_spec=True)`` step at
+    phase 6's widths on the same weights and the same draws (a CPU
+    generator on both sides): the card mixes the noise with its own
+    arithmetic (cuFFT), and both steps take fbank and masks on the CPU from
+    their own mixtures (phase 6's reason: phase 2 holds the fbank kernels
+    to their twins); loss and gradients within phase 6's tolerances."""
+    import torch
+    from asr_dfcnn_transformer_torch.audio.fbank import samples_for_frames
+    from asr_dfcnn_transformer_torch.audio.noise import (
+        add_noise_from_draws, noise_draws)
+    from asr_dfcnn_transformer_torch.models import SEDFCNN, SEDFCNNConfig
+    from asr_dfcnn_transformer_torch.train import AMTrainer
+    rng = np.random.default_rng(SEED + 13)
+    b, s = 4, samples_for_frames(BUCKETS[0])
+    lens = np.array([s, s - 999, s // 2, 4000], np.int32)
+    sig = np.zeros((b, s), np.float32)
+    for i, m in enumerate(lens):
+        sig[i, :m] = tone_utterance(rng, int(m))
+    draws = noise_draws(b, s, torch.Generator().manual_seed(SEED))
+    cpu = add_noise_from_draws(torch.from_numpy(sig), torch.from_numpy(lens),
+                               draws)
+    card = add_noise_from_draws(torch.from_numpy(sig).to(DEVICE),
+                                torch.from_numpy(lens).to(DEVICE),
+                                draws).cpu()
+    peak = cpu.abs().amax(dim=1, keepdim=True)
+    err = float(((card - cpu).abs() / peak).max())
+    pad = torch.arange(s)[None, :] >= torch.from_numpy(lens)[:, None]
+    zero = bool((card[pad] == 0).all() and (cpu[pad] == 0).all())
+    print(f"add_noise card vs CPU [{b}, {s}]: max abs diff {err:.3g} of each "
+          f"signal's peak (tol 1e-5), padding exactly 0: {zero} "
+          f"{'ok' if err <= 1e-5 and zero else 'FAIL'}")
+    require(err <= 1e-5 and zero, "add_noise differs between card and CPU")
+
+    model = SEDFCNN(SEDFCNNConfig(48, stage_features=(8, 8, 16, 16, 16),
+                                  head_features=16, dropout_rate=0.0,
+                                  dtype=torch.float32), device="cpu",
+                    generator=torch.Generator().manual_seed(SEED))
+    batch = am_batch(rng, 4, 128, (8, 12), 48)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_noise_cmp_")
+    try:
+        out, cpu_tr = {}, None
+        for where in ("cpu", DEVICE):
+            tr = AMTrainer(copy.deepcopy(model).to(where),
+                           os.path.join(workdir, where), augment_noise=True,
+                           augment_spec=True)
+            if cpu_tr is None:
+                cpu_tr = tr
+            else:
+                tr.features = lambda sig, lens, bucket, masks=None: \
+                    cpu_tr.features(sig.cpu(), lens.cpu(), bucket, masks).to(
+                        DEVICE)
+            loss = float(tr.train_step(
+                batch, torch.Generator().manual_seed(SEED))["loss"])
+            out[where] = (loss, {n: p.grad.cpu()
+                                 for n, p in tr.model.named_parameters()})
+        compare_steps("am with noise and SpecAugment", out["cpu"],
+                      out[DEVICE])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_noise_training(clean_am):
+    """12c: ``build_am_trainer(Config(), augment_noise=True,
+    augment_spec=True)`` at full width, 10 steps on phase 5's batch (16 at
+    bucket 1600: the noise at n 262,144 through cuFFT), with train_steps'
+    checks; ms/step and peak memory beside phase 5's clean step. Two draws
+    of one generator mix different noise and a generator of the same seed
+    repeats the first. The launch counters are reset before and read after
+    the steps: ``log_mel``, ``cmvn`` and both CTC kernels ran."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.audio.noise import add_noise_from_draws
+    from asr_dfcnn_transformer_torch.core.config import Config
+    from asr_dfcnn_transformer_torch.kernels import reset_launches
+    from asr_dfcnn_transformer_torch.train import factory
+    rng = np.random.default_rng(SEED + 3)
+    amb = am_batch(rng, AM_BATCH, AM_BUCKET, AM_LABELS,
+                   vocab.acoustic_vocab().size)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_noise_")
+    try:
+        tr = factory.build_am_trainer(
+            Config(), os.path.join(workdir, "am"), augment_noise=True,
+            augment_spec=True, device=DEVICE,
+            generator=torch.Generator().manual_seed(SEED))
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        torch.cuda.synchronize()
+        reset_launches()
+        out = train_steps("am noisy", tr, amb, gen)
+        counts = out["launches"]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"am noisy: {out['ms_per_step']:.2f} ms/step, peak "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB; phase 5's clean step "
+          f"{clean_am['ms_per_step']:.2f} ms/step, peak "
+          f"{clean_am['peak_bytes'] / 2**30:.2f} GiB")
+    print(f"launch counts on the noisy AM path: {counts}")
+    for name in ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi"):
+        require(counts.get(name, 0) > 0, f"{name} was never launched on the "
+                "noisy AM path")
+    sig, lens = (torch.from_numpy(a).to(DEVICE)
+                 for a in (amb.signals, amb.signal_lengths))
+
+    def mixed(g):
+        return add_noise_from_draws(
+            sig, lens, tr.augment_draws(*sig.shape, generator=g)[0])
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    first, second = mixed(g), mixed(g)
+    again = mixed(torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+    differ, repeat = not torch.equal(first, second), torch.equal(first, again)
+    print(f"am noisy: two draws mix different noise {differ}, the same seed "
+          f"repeats it {repeat}")
+    require(differ and repeat, "noise draws do not follow the generator")
+
+
+def phase_noise_data():
+    """12d: the host data path on the card: a synthetic corpus written by
+    ``data/synthetic.py`` (24 utterances a split) in a temp dir, a noisy
+    copy of each train utterance twice over by ``generate_noise_corpus``
+    (the second copies resolve only under ``noise_root``), then one ``fit``
+    epoch of the full-width AM with ``augment_noise=True`` on the port's
+    ``DataLoader`` batches (clean + noise manifests, batch 8, prefetched),
+    with a dev sweep and a checkpoint. The launch counters are reset
+    before and read after: ``log_mel``, ``cmvn`` and both CTC kernels
+    ran."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.audio.noise_corpus import (
+        generate_noise_corpus)
+    from asr_dfcnn_transformer_torch.core.config import Config
+    from asr_dfcnn_transformer_torch.data import (DataLoader, load_manifests,
+                                                  make_synthetic_corpus,
+                                                  prefetch)
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    from asr_dfcnn_transformer_torch.train import factory
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        data_dir, wav_root, _, _ = make_synthetic_corpus(
+            os.path.join(workdir, "corpus"), num_utts=24, num_classes=8,
+            seed=SEED)
+        clean = load_manifests(data_dir, "train", corpora=("thchs",))
+        noise_root = os.path.join(workdir, "noisy")
+        n = generate_noise_corpus(clean, wav_root, noise_root, data_dir,
+                                  rate=1.0, n_per_utt=2, seed=SEED)
+        train = load_manifests(data_dir, "train", corpora=("thchs",),
+                               use_noise=True)
+        loader = DataLoader(train, av, lv, speech_root=wav_root,
+                            noise_root=noise_root)
+        from_noise = sum(loader._resolve(p).startswith(noise_root)
+                         for p in train.paths)
+        print(f"noise corpus: {n} noisy utterances for {len(clean)} clean; "
+              f"the loader reads {from_noise} of {len(train)} rows from "
+              "the noise root")
+        require(n == 2 * len(clean) and from_noise == len(clean),
+                "the noise corpus or the noise_root fallback failed")
+        dev = DataLoader(load_manifests(data_dir, "dev", corpora=("thchs",)),
+                         av, lv, speech_root=wav_root)
+        tr = factory.build_am_trainer(
+            Config(), os.path.join(workdir, "am"), augment_noise=True,
+            device=DEVICE, generator=torch.Generator().manual_seed(SEED))
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        torch.cuda.synchronize()
+        reset_launches()
+        out = tr.fit(lambda: prefetch(loader.am_batches(8, seed=SEED)),
+                     lambda: dev.am_batches(8, shuffle=False), epochs=1,
+                     generator=gen)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        saved = tr.ckpt.latest_step()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"noisy fit on loader batches: {out}, {tr.step} steps, checkpoint "
+          f"step {saved}; launch counts {counts}")
+    require(saved == 0 and tr.step > 0 and np.isfinite(out["dev_loss"]),
+            "the loader-driven noisy fit saved no checkpoint")
+    for name in ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi"):
+        require(counts.get(name, 0) > 0, f"{name} was never launched on the "
+                "loader-driven noisy fit")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1740,13 +2082,14 @@ def main() -> int:
     phase_kernels(results)
     phase_served(results)
     phase_card_vs_cpu()
-    phase_training(results)
+    clean_am = phase_training(results)
     phase_train_card_vs_cpu()
     phase_e2e_served(results)
     phase_e2e_card_vs_cpu()
     phase_e2e_training(results)
     phase_e2e_train_card_vs_cpu()
     phase_fused_ffn(results)
+    phase_noise(results, clean_am)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -19,6 +19,7 @@ from asr_dfcnn_transformer_tpu.ops.pallas.ffn_kernel import (
 from asr_dfcnn_transformer_torch.convert import (e2e_state_dict,
                                                  flax_to_state_dict,
                                                  lm_state_dict)
+from asr_dfcnn_transformer_torch.kernels import ffn as ffn_kernel
 from asr_dfcnn_transformer_torch.kernels import fused_ffn
 from asr_dfcnn_transformer_torch.models import (SpeechTransformer,
                                                 SpeechTransformerConfig,
@@ -205,12 +206,16 @@ def test_speech_transformer_with_fused_ffn_matches_jax():
 
 @pytest.mark.parametrize("d,inner", [(24, 96), (528, 2112), (64, 200)])
 def test_pallas_refuses_widths_the_kernel_cannot_take(d, inner):
-    """Refused when the module is built, naming the limit; the unfused
-    backends take any width."""
+    """Widths the kernel once refused (D above 512, D or F not a multiple
+    of 16) build with "pallas" as with the unfused backends; refused, when
+    the module is built and before any weight is made, are only widths
+    beyond the launcher's C ints, which the JAX kernel's VMEM cannot hold
+    either."""
     kw = dict(dtype=torch.float32, device="cpu", generator=torch.Generator())
-    with pytest.raises(ValueError, match="the kernel takes 16 <= D <= 512"):
-        layers.FeedForward(d, inner, fused="pallas", **kw)
+    layers.FeedForward(d, inner, fused="pallas", **kw)
     layers.FeedForward(d, inner, fused="einsum", **kw)
+    with pytest.raises(ValueError, match="the kernel takes 1 <= D, F <="):
+        layers.FeedForward(2**31, inner, fused="pallas", **kw)
 
 
 def test_wrapper_raises_off_cpu_and_cuda():
@@ -222,3 +227,57 @@ def test_wrapper_raises_off_cpu_and_cuda():
     b1, b2 = torch.empty(64, device="meta"), torch.empty(16, device="meta")
     with pytest.raises(ValueError, match="expected CUDA or CPU tensors"):
         fused_ffn(x, w1, b1, w2, b2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_feedforward_builds_and_matches_jax(dtype):
+    """``FeedForward(1024, fused="pallas")`` (inner 4096, above the old
+    512 limit) builds on the CPU and matches the JAX block with its kernel
+    interpreted, on bridged weights."""
+    d = 1024
+    x = np.random.default_rng(8).standard_normal((2, 3, d)).astype(
+        np.float32)
+    jffn = JaxFFN(d, fused="pallas", dtype=JAX_DTYPE[dtype])
+    xj = jnp.asarray(x, JAX_DTYPE[dtype])
+    variables = _np(jax.jit(JaxFFN(d, fused="einsum",
+                                   dtype=JAX_DTYPE[dtype]).init)(
+        jax.random.PRNGKey(8), xj))
+    variables["params"]["Dense_0"]["bias"] = _weights(d, 4 * d, 9)[1]
+    want = jax.jit(jffn.apply)(variables, xj)
+    port = layers.FeedForward(d, fused="pallas", dtype=dtype, device="cpu",
+                              generator=torch.Generator())
+    port.load_state_dict(flax_to_state_dict(variables), strict=True)
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(x).to(dtype))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d,f", [(37, 40, 72), (5, 24, 200), (9, 1000, 40)])
+def test_ragged_widths_are_padded_exactly(n, d, f, dtype):
+    """The zero padding of D and F to multiples of 16 (what the kernel
+    receives on the card) leaves the twin's output as it is: bit for bit
+    in bf16, and in f32 to the last bits (the CPU's BLAS blocks K 1000 and
+    its padded 1008 apart, so the f32 sums run in another order); and the
+    port matches the JAX kernel at the ragged width."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = _weights(d, f, n + 1)
+    args = [torch.from_numpy(x).to(dtype)] + [
+        a.to(dtype) for a in _port_weights(*w)]
+    want = ffn_kernel.fused_ffn_reference(*args)
+    padded = ffn_kernel._padded(*args)
+    assert padded[0].shape[1] % 16 == 0 and padded[1].shape[0] % 16 == 0
+    got = ffn_kernel.fused_ffn_reference(*padded)[:, :d]
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    jax_out = jax.jit(jax_fused_ffn)(jnp.asarray(x, JAX_DTYPE[dtype]),
+                                     *(jnp.asarray(a) for a in w))
+    np.testing.assert_allclose(fused_ffn(*args).float().numpy(),
+                               np.asarray(jax_out, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
