@@ -9,11 +9,13 @@ forward and its backward each run the plain-PyTorch twin
 for CPU tensors, launch the kernel for CUDA tensors, and raise for anything
 else, so the CPU tests run the same Function the card runs.
 
-The backward kernel keeps a row's Q, K, V, dO and its [T, T] tiles in
+The backward kernels keep a row's Q, K, V, dO and its [T, T] tiles in
 shared memory, which bounds (T, C) more tightly than the forward's
-T <= 160, C <= 128. ``bwd_smem_bytes`` mirrors the kernel's layout, so a
-forward whose inputs require grad refuses, on the CPU as on the card, a
-size whose backward could not run, rather than fail in ``backward()``.
+T <= 160, C <= 128 (bfloat16 runs on the tensor cores, float32 on scalar
+FMAs, each with its own layout). ``bwd_smem_bytes`` mirrors the kernels'
+layouts, so a forward whose inputs require grad refuses, on the CPU as on
+the card, a size whose backward could not run, rather than fail in
+``backward()``.
 """
 
 from __future__ import annotations
@@ -38,16 +40,33 @@ def _r16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
+def _row_stride(n: int, pad: bool) -> int:
+    """csrc/dual_attention.cu ``row_stride``: n rounded up to 8, plus 8
+    where that leaves an even count of 16-byte chunks."""
+    n8 = (n + 7) // 8 * 8
+    return n8 + (8 if pad and n8 // 8 % 2 == 0 else 0)
+
+
+def _mma_bwd_bytes(t: int, c: int, pad: bool) -> int:
+    return 16 + t * (4 * _row_stride(c, pad) + 2 * _row_stride(t, pad)) * 2
+
+
 def bwd_smem_bytes(t: int, c: int, dtype: torch.dtype) -> int:
     """Shared memory of one backward block at [., T, C], as the kernel lays
-    it out (``BwdLayout``; ``asr_dual_attention_bwd_smem`` gives the
-    same): Q and dO rows of even(C), K and V rows padded by a 32-bit word,
-    the P and dS tiles [T, T] in the dtype, and per warp four f32 rows."""
-    size = 2 if dtype == torch.bfloat16 else 4
+    it out (``asr_dual_attention_bwd_smem`` gives the same). bfloat16, the
+    tensor-core kernel (``mma_bwd_smem``): a 16-byte zero block, Q, dO, K
+    and V [T][row_stride(C)] and the P and dS tiles [T][row_stride(T)],
+    unpadded strides where the padded ones would exceed ``MAX_SMEM``.
+    float32, the scalar kernel (``BwdLayout``): Q and dO rows of even(C), K
+    and V rows padded by a 32-bit word, the P and dS tiles [T, T], and per
+    warp four f32 rows."""
+    if dtype == torch.bfloat16:
+        padded = _mma_bwd_bytes(t, c, True)
+        return padded if padded <= MAX_SMEM else _mma_bwd_bytes(t, c, False)
     ce = (c + 1) // 2 * 2
-    ks = ce + 4 // size
-    return (2 * _r16(t * ce * size) + 2 * _r16(t * ks * size)
-            + 2 * _r16(t * t * size) + _r16(_BWD_WARPS * (2 * ce + 2 * t) * 4))
+    ks = ce + 1
+    return (2 * _r16(t * ce * 4) + 2 * _r16(t * ks * 4)
+            + 2 * _r16(t * t * 4) + _r16(_BWD_WARPS * (2 * ce + 2 * t) * 4))
 
 
 def supports(t: int, c: int, dtype: torch.dtype, grad: bool) -> bool:

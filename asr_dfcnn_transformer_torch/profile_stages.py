@@ -88,7 +88,8 @@ PORT_KERNELS = ("log_mel_kernel", "cmvn_kernel", "masked_attention_kernel",
                 "masked_attention_bwd_keys_kernel", "ctc_alpha_kernel",
                 "ctc_beta_xi_kernel", "topk_last_kernel",
                 "beam_search_kernel", "dual_attention_kernel",
-                "dual_attention_bwd_kernel", "ffn_bf16_kernel",
+                "dual_attention_bwd_kernel", "dual_attention_mma_kernel",
+                "dual_attention_bwd_mma_kernel", "ffn_bf16_kernel",
                 "ffn_f32_kernel", "ffn_bf16_wide_kernel",
                 "ffn_f32_wide_kernel",
                 "interleave_epilogue_kernel")  # csrc/'s __global__ functions

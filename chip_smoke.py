@@ -6,7 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi), then a build of
-   every CUDA kernel of the paths from ``asr_dfcnn_transformer_torch/csrc``.
+   every CUDA kernel of the paths from ``asr_dfcnn_transformer_torch/csrc``
+   (the compiler's registers and spills, and each kernel's count of
+   tensor-core HMMA instructions from ``cuobjdump -sass``).
 2. Kernels against their plain-PyTorch twins on the card, on seeded inputs
    at the main paths' shapes (``log_mel`` + ``cmvn``; ``masked_attention``
    in f32 and bf16 at the LM's causal and the e2e's key-masked shapes;
@@ -16,10 +18,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    [8, 200, 1536], W = K = 8, L 100, with batch-1, exhausted-candidate and
    tie-heavy cases; ``dual_axis_attention`` at the e2e pre-net's frequency
    rows [1072, 80, 64] in bf16 and f32, its unmasked time rows [640, 134,
-   64] and a ragged [13, 7, 32], forward and backward, with the backward's
-   shared-memory layout held to the C query and its refusal of the f32
-   time rows; ``masked_attention`` at the teacher-forced decoder's
-   cross-attention shape, q [8, 8, 65, 64] against key-masked kv [8, 8,
+   64], a ragged [13, 7, 32] and, in bf16, the edges of the tensor-core
+   tiles ([45, 160, 128], [45, 33, 7], [45, 17, 16], [45, 1, 1]), forward
+   and backward, with the backward's shared-memory layout held to the C
+   query and its refusal of the f32 time rows and of bf16 [., 160, 128];
+   ``masked_attention`` at the teacher-forced decoder's cross-attention
+   shape, q [8, 8, 65, 64] against key-masked kv [8, 8,
    134, 64], forward, dropout forward and backward in bf16 and f32; the
    masked attention backward in f32 at e2e training's T' 134, Dh 64, the
    encoder's [8, 8, 134, 64] and the pre-net's time rows [640, 1, 134,
@@ -118,6 +122,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import as_completed
+from pathlib import Path
 
 import numpy as np
 
@@ -302,6 +307,27 @@ def phase_device():
         if "registers" in line or "Compiling entry" in line \
                 or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    for name, count in sass_hmma_counts(_build.build()).items():
+        print(f"  sass: {name}: {count} HMMA")
+
+
+def sass_hmma_counts(lib) -> dict:
+    """The count of HMMA (tensor-core) instructions in each kernel of the
+    library that has any, from ``cuobjdump -sass``; {} where the toolkit
+    has no cuobjdump."""
+    from asr_dfcnn_transformer_torch.kernels import _build
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+        elif name and "HMMA" in line:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
 
 
 def phase_kernels(results):
@@ -726,6 +752,11 @@ def check_dual_attention(results, rng):
     cases = ((freq_rows, torch.bfloat16), (freq_rows, torch.float32),
              ((MAX_BATCH * 80, 134, 64), torch.bfloat16),
              ((13, 7, 32), torch.bfloat16), ((13, 7, 32), torch.float32))
+    # the bf16 tensor-core kernels at the edges of their 16 x 16 tiles: the
+    # largest T and C, T and C one past a tile (C not a multiple of 8: the
+    # element-wise copy), exact tiles, and one key of one channel
+    cases += tuple(((45, t, c), torch.bfloat16)
+                   for t, c in ((160, 128), (33, 7), (17, 16), (1, 1)))
     for shape, dtype in cases:
         q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev, dtype) for _ in range(3))
@@ -765,8 +796,8 @@ def check_dual_attention_bwd(results, rng, cases):
     place (dsum over the rounded P, say) stays inside 2e-2 but changes a
     fifth of the elements. The Python mirror
     of the kernel's shared-memory layout must equal the C query, and the
-    launcher must refuse the f32 time rows, which need more than the card
-    has."""
+    launcher must refuse the f32 time rows and every case whose layout
+    needs more than the card has (bf16 [., 160, 128])."""
     import torch
     import torch.nn.functional as F
     from asr_dfcnn_transformer_torch.kernels import (
@@ -779,15 +810,23 @@ def check_dual_attention_bwd(results, rng, cases):
             native = lib.asr_dual_attention_bwd_smem(code, t, c)
             require(mirror == native, f"dual_axis_attention_bwd shared memory "
                     f"at T={t}, C={c}, {dtype}: Python {mirror}, C {native}")
-    x = torch.zeros((2, 134, 64), device=dev)
-    try:
-        dual_attention._backward(x, x, x, x)
-    except RuntimeError as e:
-        print(f"dual_axis_attention_bwd f32 [2, 134, 64] refused: {e}")
-    else:
-        raise PhaseError("the f32 [., 134, 64] backward was not refused")
+    refused = [(s, d) for s, d in cases
+               if not dual_attention.supports(s[1], s[2], d, grad=True)]
+    refused.append(((2, 134, 64), torch.float32))
+    for shape, dtype in refused:
+        x = torch.zeros(shape, device=dev, dtype=dtype)
+        try:
+            dual_attention._backward(x, x, x, x)
+        except RuntimeError as e:
+            print(f"dual_axis_attention_bwd {list(shape)} {dtype} "
+                  f"refused: {e}")
+        else:
+            raise PhaseError(f"the {dtype} {list(shape)} backward was not "
+                             "refused")
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     for shape, dtype in cases:
+        if (shape, dtype) in refused:
+            continue
         q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev, dtype) for _ in range(4))
         got = dual_attention._backward(q, k, v, g)

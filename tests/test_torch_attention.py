@@ -23,8 +23,9 @@ from asr_dfcnn_transformer_tpu.ops.pallas.attn_kernel import (
 from asr_dfcnn_transformer_torch.kernels import (MaskedAttention, cmvn,
                                                  log_mel, masked_attention)
 from asr_dfcnn_transformer_torch.models.layers import attention_mask
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

@@ -25,8 +25,9 @@ from asr_dfcnn_transformer_torch.ops import (ctc_beam_search_decode,
                                              ctc_beam_search_stream_step,
                                              ctc_greedy_decode)
 from asr_dfcnn_transformer_torch.ops.ctc_decode import _beam_finish
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -19,8 +19,9 @@ from asr_dfcnn_transformer_torch.kernels import (alpha_stack_reference,
                                                  ctc_beta_xi)
 from asr_dfcnn_transformer_torch.ops import ctc as tctc
 from asr_dfcnn_transformer_torch.ops import ctc_loss
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 B, T, V, L = 4, 16, 10, 5
 

@@ -26,8 +26,9 @@ from asr_dfcnn_transformer_torch.kernels import (
     dual_axis_attention_reference)
 from asr_dfcnn_transformer_torch.kernels import dual_attention
 from asr_dfcnn_transformer_torch.models import layers
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -153,6 +154,62 @@ def test_backward_limit_refuses_at_forward_time(t, c, dtype, fits):
         dual_axis_attention(x, x, xg)
     with torch.no_grad():
         assert dual_axis_attention(xg, x, x).shape == (1, t, c)
+
+
+# bytes of one backward block at the sizes chip_smoke.py phase 2 queries:
+# bf16, the tensor-core layout: 16 + T (4 stride(C) + 2 stride(T)) 2, with
+# stride(n) = round8(n), + 8 where round8(n) / 8 is even, unless the padded
+# total exceeds 232,448 bytes (then no + 8); f32, the scalar layout: Q, dO
+# [T][even C], K, V [T][even C + 1], P, dS [T][T] in f32, each rounded up to
+# 16 bytes, and 8 warps of four f32 rows (2 even C + 2 T)
+_BWD_SMEM = [
+    (80, 64, torch.bfloat16, 74256),    # 16 + 80 (4 * 72 + 2 * 88) * 2
+    (134, 64, torch.bfloat16, 150096),  # 16 + 134 (4 * 72 + 2 * 136) * 2
+    (7, 32, torch.bfloat16, 2480),      # 16 + 7 (4 * 40 + 2 * 8) * 2
+    (160, 128, torch.bfloat16, 266256),  # unpadded: 16 + 160 (4 * 128
+                                         # + 2 * 160) * 2, still too large
+    (1, 1, torch.bfloat16, 112),        # 16 + 1 (4 * 8 + 2 * 8) * 2
+    (33, 7, torch.bfloat16, 7408),      # 16 + 33 (4 * 8 + 2 * 40) * 2
+    (80, 64, torch.float32, 142976),
+    (134, 64, torch.float32, 294624),
+    (7, 32, torch.float32, 6560),
+    (160, 128, torch.float32, 552192),
+    (1, 1, torch.float32, 288),
+    (33, 7, torch.float32, 15872),
+]
+
+
+@pytest.mark.parametrize("t,c,dtype,need", _BWD_SMEM)
+def test_backward_shared_memory_mirror_is_pinned(t, c, dtype, need):
+    """``bwd_smem_bytes`` gives each layout's size by its own formula (the
+    card's query, ``asr_dual_attention_bwd_smem``, must agree: phase 2),
+    and ``supports`` refuses with grad exactly the sizes above 232,448
+    bytes."""
+    assert dual_attention.bwd_smem_bytes(t, c, dtype) == need
+    assert dual_attention.supports(t, c, dtype, grad=True) == (
+        need <= dual_attention.MAX_SMEM)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_limit_takes_every_size_it_took(dtype):
+    """Every (T, C) the scalar kernels' layout fitted (the one both dtypes
+    had before the bf16 backward moved to the tensor cores: Q and dO rows
+    of even(C), K and V rows one 32-bit word longer, the P and dS tiles,
+    each rounded to 16 bytes, and 8 warps of four f32 rows) is still taken
+    with grad."""
+    size = 2 if dtype == torch.bfloat16 else 4
+
+    def r16(n):
+        return (n + 15) // 16 * 16
+
+    for t in range(1, dual_attention.MAX_T + 1):
+        for c in range(1, dual_attention.MAX_C + 1):
+            ce = (c + 1) // 2 * 2
+            ks = ce + 4 // size
+            old = (2 * r16(t * ce * size) + 2 * r16(t * ks * size)
+                   + 2 * r16(t * t * size) + r16(8 * (2 * ce + 2 * t) * 4))
+            if old <= dual_attention.MAX_SMEM:
+                assert dual_attention.supports(t, c, dtype, grad=True), (t, c)
 
 
 @pytest.mark.parametrize("shape,match", [

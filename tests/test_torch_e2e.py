@@ -40,8 +40,9 @@ from asr_dfcnn_transformer_torch.models import (SpeechTransformer,
                                                 greedy_decode,
                                                 greedy_decode_cached)
 from asr_dfcnn_transformer_torch.models import speech_transformer as st
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 KW = dict(vocab_size=50, d_model=32, num_heads=4, num_enc_blocks=2,
           num_dec_blocks=2, prenet_channels=8, position_max_length=64,

@@ -42,8 +42,9 @@ from asr_dfcnn_transformer_torch.models import (SpeechTransformer,
                                                 SpeechTransformerConfig,
                                                 e2e_loss)
 from asr_dfcnn_transformer_torch.train import E2ETrainer
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 KW = dict(vocab_size=30, d_model=16, num_heads=2, num_enc_blocks=1,
           num_dec_blocks=1, prenet_channels=4, position_max_length=32)

@@ -16,8 +16,9 @@ from asr_dfcnn_transformer_tpu.train import factory as jax_factory
 from asr_dfcnn_transformer_torch.core import config
 from asr_dfcnn_transformer_torch.data import LMBatch
 from asr_dfcnn_transformer_torch.train import factory
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 SMALL = dict(

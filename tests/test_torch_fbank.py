@@ -14,8 +14,9 @@ import torch
 from asr_dfcnn_transformer_tpu.audio import fbank as jf
 from asr_dfcnn_transformer_torch.audio import fbank as tf
 from asr_dfcnn_transformer_torch.kernels import cmvn, log_mel
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 
 @pytest.fixture(scope="module")

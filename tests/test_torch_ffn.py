@@ -25,8 +25,9 @@ from asr_dfcnn_transformer_torch.models import (SpeechTransformer,
                                                 SpeechTransformerConfig,
                                                 TransformerLM,
                                                 TransformerLMConfig, layers)
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}

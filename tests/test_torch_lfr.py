@@ -16,8 +16,9 @@ from asr_dfcnn_transformer_tpu.audio.lfr import (
 from asr_dfcnn_transformer_torch.audio.lfr import (batched_lfr,
                                                    build_lfr_features,
                                                    lfr_length)
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 
 @pytest.mark.parametrize("t", [1, 2, 3, 4, 10, 11, 12, 64])

@@ -16,8 +16,9 @@ from asr_dfcnn_transformer_tpu.ops.pallas.fft_epilogue import (
 from asr_dfcnn_transformer_torch.kernels import (interleave_epilogue,
                                                  interleave_epilogue_reference)
 from asr_dfcnn_transformer_torch.ops import matfft
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 

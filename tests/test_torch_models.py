@@ -39,8 +39,9 @@ from asr_dfcnn_transformer_torch.models import (
 from asr_dfcnn_transformer_torch.models.transformer_lm import lm_loss_and_acc
 from asr_dfcnn_transformer_torch.ops import (batched_edit_distance,
                                              ctc_greedy_decode, edit_distance)
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 
 def _np_tree(variables):

@@ -13,8 +13,9 @@ import torch
 
 from asr_dfcnn_transformer_tpu.audio import noise as jax_noise
 from asr_dfcnn_transformer_torch.audio import noise
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 
 def jax_draws(key, b, s, snr_db_range=(5, 10), alpha_range=(-1.0, 1.0)):

@@ -25,8 +25,9 @@ from asr_dfcnn_transformer_torch.core.config import AmConfig, Config
 from asr_dfcnn_transformer_torch.data import AMBatch
 from asr_dfcnn_transformer_torch.models import SEDFCNN, SEDFCNNConfig
 from asr_dfcnn_transformer_torch.train import AMTrainer, factory
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 AM_KW = dict(vocab_size=24, stage_features=(4, 4, 8, 8, 8),
              se_ratio=(1, 2, 2, 2, 2), head_features=8, dropout_rate=0.0)

@@ -27,8 +27,9 @@ from asr_dfcnn_transformer_torch.infer import (BatchingServer, Pipeline,
 from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
                                                 TransformerLM,
                                                 TransformerLMConfig)
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,8 +18,9 @@ from asr_dfcnn_transformer_torch.models import (SpeechTransformer,
                                                 SpeechTransformerConfig,
                                                 TransformerLM,
                                                 TransformerLMConfig)
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 IDS = np.array([[3, 5, 9, 2, 0, 0, 0, 0],
                 [7, 7, 7, 7, 7, 7, 7, 6]], np.int32)

@@ -22,8 +22,9 @@ from asr_dfcnn_transformer_torch.audio.specaugment import (SpecAugmentConfig,
                                                            mask_features,
                                                            rand_bands,
                                                            spec_augment)
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 B, T, F = 5, 120, 40
 VALID = np.array([120, 90, 37, 3, 0], np.int32)

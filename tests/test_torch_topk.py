@@ -10,8 +10,9 @@ import torch
 from asr_dfcnn_transformer_tpu.ops.pallas.topk_kernel import \
     topk_last as jax_topk_last
 from asr_dfcnn_transformer_torch.kernels import topk_last, topk_last_reference
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 
 def _port(x, k):

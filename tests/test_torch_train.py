@@ -41,8 +41,9 @@ from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
 from asr_dfcnn_transformer_torch.train import (AMTrainer, CheckpointManager,
                                                LMTrainer,
                                                polynomial_decay_with_cycle)
+from tests._torch_cpu import use_two_threads
 
-torch.set_num_threads(2)
+use_two_threads()
 
 AM_KW = dict(vocab_size=24, stage_features=(4, 4, 8, 8, 8),
              se_ratio=(1, 2, 2, 2, 2), head_features=8, dropout_rate=0.0)
