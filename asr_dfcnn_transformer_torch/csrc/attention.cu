@@ -36,10 +36,39 @@
 // dropped = P_type; dsum = sum(dP * P) over the undropped f32 P;
 // dS = P * (dP - dsum) * scale rounded to the input type; dQ = dS.K,
 // dK = dS^T.Q, dV = dropped^T.dO, all accumulated in f32.
-// Bound: at the LM's training shape ([64, 8, 64, 64]) the problem is again
-// a few MB, so it is latency- and issue-bound. Design: FlashAttention-2's
-// recompute in two launches, so that a block's shared memory depends on Dh
-// alone and the backward takes every (Tq, Tk) the forward takes. Launch
+// Bound: at the LM's training shape ([64, 8, 64, 64] bf16, keep 0.5) the
+// function moves 31.5 MB (Q, K, V, dO, the keep mask and the three
+// gradients: 9.4 us at 3.35 TB/s) for 10 products over the causal
+// triangle (0.7 us of bf16 tensor-core time): it is bound by bytes, and
+// each (b, h) is a few tens of KB, so the kernel must not recompute or
+// re-stage what one block can hold.
+//   bf16 at Tq, Tk <= 160 and Dh <= 64 (bwd_path 1; every shape of the LM
+//   and e2e training paths: the LM's [64, 8, 64, 64] causal, the e2e
+//   encoder's [8, 8, 134, 64], the pre-net's time rows [640, 1, 134, 64],
+//   the decoder's causal [8, 8, 65, 64] and cross q 65 / kv 134):
+//   masked_attention_bwd_mma_kernel, one block per (b, h), modelled on
+//   dual_attention_bwd_mma_kernel. Q, K, V and dO are staged once with
+//   cp.async into padded rows (mma.cuh); a warp takes 16 query rows: S =
+//   Q.K^T on mma.sync m16n8k16 with f32 accumulation, the scale and the
+//   additive mask (key-valid row, causal; never a skip, so a row whose
+//   keys are all invalid spreads over all Tk keys, future ones included),
+//   the softmax in registers with each score formed once; dP = dO.V^T on
+//   the tensor cores key tile by key tile, twice (dsum over the unrounded
+//   P, then dS); the key-valid row and the keep mask read from global
+//   memory (staging them in shared memory was slower: byte copies, and
+//   fewer blocks an SM); the dropped P and dS in bf16 through shared
+//   memory; dQ = dS.K from dS in registers. After one barrier a warp takes
+//   16 key rows: dK = dS^T.Q and dV = dropped^T.dO by
+//   ldmatrix.trans. Shared memory (mma_bwd_smem, kernels/attention.py
+//   mma_bwd_smem_bytes): 16 + (2 Tq + 2 Tk) (Dh + 8) 2 + 2 Tq stride(Tk) 2
+//   bytes: 55,312 at [64, 64, 64] (four blocks an SM), 150,096 at [134,
+//   134, 64] (the encoder and the time rows), 56,176 at the decoder's [65,
+//   65, 64], 92,688 at q 65 / kv 134; at most 199,696 (Tq = Tk = 160).
+//   Each output is written once, no atomics: the same output from launch
+//   to launch.
+//   Elsewhere (f32, Dh above 64, T above 160): FlashAttention-2's recompute
+//   in two launches, so that a block's shared memory depends on Dh alone
+//   and the backward takes every (Tq, Tk) the forward takes. Launch
 // (a), one block per (b*h, 16 query rows), one warp per two rows: it walks
 // the keys in chunks of 64 staged in shared memory four times (the row
 // max, the sum, dsum, then dS and dQ), keeps each row's state in registers
@@ -60,6 +89,7 @@
 #include <math.h>
 
 #include "dtype.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -555,6 +585,263 @@ masked_attention_bwd_keys_kernel(const T* __restrict__ q,
   }
 }
 
+// ------------------------------------------- bf16 backward, tensor cores
+
+constexpr int kMmaMaxT = 160;   // Tq and Tk the one-block kernel takes
+constexpr int kMmaMaxDh = 64;   // Dh it takes (four 16-column tiles)
+
+// One 16-byte block of zeros, then Q and dO [Tq][row_stride(Dh)], K and V
+// [Tk][row_stride(Dh)], and the dropped-P and dS tiles [Tq][row_stride(Tk)],
+// all bf16.
+__host__ __device__ constexpr size_t mma_bwd_smem(int tq, int tk, int dh) {
+  return 16 + (2 * static_cast<size_t>(tq) * row_stride(dh, true) +
+               2 * static_cast<size_t>(tk) * row_stride(dh, true) +
+               2 * static_cast<size_t>(tq) * row_stride(tk, true)) *
+                  2;
+}
+// the layout grows with Tq, Tk and Dh, so it fits at every shape within
+// the limits (199,696 bytes at the largest)
+static_assert(mma_bwd_smem(kMmaMaxT, kMmaMaxT, kMmaMaxDh) <=
+                  static_cast<size_t>(kMaxSmem),
+              "the tensor-core backward's limits exceed shared memory");
+
+// 1 where the backward takes the one-block tensor-core kernel, 0 where the
+// two chunked launches: by shape and type alone.
+inline int bwd_path(int dtype_code, int tq, int tk, int dh) {
+  return dtype_code == 1 && tq <= kMmaMaxT && tk <= kMmaMaxT &&
+                 dh <= kMmaMaxDh
+             ? 1
+             : 0;
+}
+
+// The backward of one (b, h) in one block, all five products on mma.sync.
+// MT: the most 16-row tiles of Tq and of Tk the instance takes; a block has
+// max(tiles(Tq), tiles(Tk)) warps. Phase 1, one warp per 16 query rows:
+// S = Q.K^T, the mask and the softmax in f32 (P kept unrounded in
+// registers); dP = dO.V^T key tile by key tile, twice (dsum over the
+// unrounded P, then dS); the dropped P and dS go to shared memory in bf16
+// and dQ = dS.K takes dS from registers. Phase 2, after one barrier, one
+// warp per 16 key rows: dK = dS^T.Q and dV = dropped^T.dO through
+// ldmatrix.trans of the two tiles.
+template <int MT>
+__global__ void __launch_bounds__(MT * 32)
+masked_attention_bwd_mma_kernel(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                const unsigned char* __restrict__ k_valid,
+                                const unsigned char* __restrict__ keep,
+                                float keep_prob, const bf16* __restrict__ dout,
+                                bf16* __restrict__ dq, bf16* __restrict__ dk,
+                                bf16* __restrict__ dv, int H, int Tq, int Tk,
+                                int Dh, float scale, int causal, int vec) {
+  constexpr int MC = kMmaMaxDh / kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sc = row_stride(Dh, true), st = row_stride(Tk, true);
+  const int ntq = tiles16(Tq), ntk = tiles16(Tk), nc = tiles16(Dh);
+  bf16* qs = reinterpret_cast<bf16*>(smem + 16);
+  bf16* dos = qs + Tq * sc;
+  bf16* kss = dos + Tq * sc;
+  bf16* vss = kss + Tk * sc;
+  bf16* pss = vss + Tk * sc;
+  bf16* dss = pss + Tq * st;
+  const int bh = blockIdx.x;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * Dh;
+  const size_t koff = static_cast<size_t>(bh) * Tk * Dh;
+  stage(qs, q + qoff, Tq, Dh, sc, vec);
+  stage(kss, k + koff, Tk, Dh, sc, vec);
+  cp_async_commit();
+  stage(vss, v + koff, Tk, Dh, sc, vec);
+  stage(dos, dout + qoff, Tq, Dh, sc, vec);
+  cp_async_commit();
+  if (threadIdx.x == 0)
+    *reinterpret_cast<uint4*>(smem) = make_uint4(0, 0, 0, 0);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const uint32_t zero = smem_u32(smem);
+  const SmemMat tq{smem_u32(qs), zero, Tq, round8(Dh), sc};
+  const SmemMat tdo{smem_u32(dos), zero, Tq, round8(Dh), sc};
+  const SmemMat tk{smem_u32(kss), zero, Tk, round8(Dh), sc};
+  const SmemMat tv{smem_u32(vss), zero, Tk, round8(Dh), sc};
+  const SmemMat tp{smem_u32(pss), zero, Tq, round8(Tk), st};
+  const SmemMat tds{smem_u32(dss), zero, Tq, round8(Tk), st};
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i0 = warp * kTile;  // phase 1 queries, phase 2 keys
+  const unsigned char* valid = k_valid + static_cast<size_t>(bh / H) * Tk;
+  const unsigned char* keep_bh =
+      keep == nullptr ? nullptr : keep + static_cast<size_t>(bh) * Tq * Tk;
+  const float kp_t = to_f32(from_f32<bf16>(keep_prob));  // keep in the type
+  // a thread's element e of n8 key tile j: row i0 + g + 8 (e >> 1), key
+  // 8j + 2 (lane & 3) + (e & 1)
+  auto row_of = [&](int e) { return i0 + (lane >> 2) + 8 * (e >> 1); };
+  auto key_of = [&](int j, int e) { return 8 * j + 2 * (lane & 3) + (e & 1); };
+  // the keep mask at (row, key): 1 or 0 (1 without dropout)
+  auto kept = [&](int row, int key) {
+    return keep_bh == nullptr ||
+           (row < Tq && key < Tk && keep_bh[row * Tk + key] != 0);
+  };
+
+  float s[2 * MT][4];
+  if (warp < ntq) {
+    score_tile<MT, MC>(s, tq, tk, i0, ntk, nc, lane);
+    // the score rounded, then the additive mask (never a skip: a row whose
+    // keys are all invalid spreads over all Tk keys); keys past Tk -> -inf
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key_of(j, e);
+        const int row = row_of(e);
+        const bool ok = key < Tk && valid[key] != 0 && (!causal || key <= row);
+        s[j][e] = key < Tk ? __fadd_rn(__fmul_rn(s[j][e], scale),
+                                       ok ? 0.f : kBigNeg)
+                           : -INFINITY;
+        m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+      }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+      m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] / sum[e >> 1];
+    // the dropped P in bf16: P rounded, then (P / keep) rounded, times
+    // the mask
+#pragma unroll
+    for (int kk = 0; kk < MT; ++kk) {
+      if (kk >= ntk) break;
+      float d[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pt = to_f32(from_f32<bf16>(s[2 * kk + h][e]));
+          d[h][e] = keep_bh == nullptr
+                        ? pt
+                        : (kept(row_of(e), key_of(2 * kk + h, e))
+                               ? to_f32(from_f32<bf16>(pt / kp_t))
+                               : 0.f);
+        }
+      uint32_t pa[4];
+      acc_to_a(pa, d[0], d[1]);
+      store_frag(pss, st, pa, i0, kk * kTile, Tq, round8(Tk), lane);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[2 * MC][4];
+  if (warp < ntq) {
+    uint32_t da[MC][4];  // the warp's dO rows as A fragments
+#pragma unroll
+    for (int kc = 0; kc < MC; ++kc)
+      if (kc < nc) frag_a(da[kc], tdo, i0, kc * kTile, lane);
+    // dP for keys 16kk.., times mask / keep_prob with dropout
+    auto dp_tile = [&](float (&dp)[2][4], int kk) {
+      dp_slice<MC>(dp, da, tv, kk, nc, lane);
+      if (keep_bh != nullptr)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[h][e] = __fmul_rn(
+                dp[h][e],
+                (kept(row_of(e), key_of(2 * kk + h, e)) ? 1.f : 0.f) /
+                    keep_prob);
+    };
+    float dsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < MT; ++kk) {
+      if (kk >= ntk) break;
+      float dp[2][4];
+      dp_tile(dp, kk);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dsum[e >> 1] = fmaf(dp[h][e], s[2 * kk + h][e], dsum[e >> 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      dsum[h] += __shfl_xor_sync(0xffffffffu, dsum[h], 1);
+      dsum[h] += __shfl_xor_sync(0xffffffffu, dsum[h], 2);
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * MC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < MT; ++kk) {
+      if (kk >= ntk) break;
+      float dp[2][4];
+      dp_tile(dp, kk);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[h][e] = __fmul_rn(
+              __fmul_rn(s[2 * kk + h][e], dp[h][e] - dsum[e >> 1]), scale);
+      uint32_t dsa[4];  // dS rounded to bf16
+      acc_to_a(dsa, dp[0], dp[1]);
+      store_frag(dss, st, dsa, i0, kk * kTile, Tq, round8(Tk), lane);
+#pragma unroll
+      for (int cc = 0; cc < MC; ++cc) {
+        if (cc >= nc) break;
+        uint32_t b[4];
+        frag_b_kn(b, tk, kk * kTile, cc * kTile, lane);
+        mma16816(acc[2 * cc], dsa, b[0], b[1]);
+        mma16816(acc[2 * cc + 1], dsa, b[2], b[3]);
+      }
+    }
+    store_tile<MC>(acc, dq + qoff, i0, Tq, Dh, Dh, lane);
+  }
+  __syncthreads();
+
+  if (warp >= ntk) return;
+  // phase 2: one warp per 16 key rows i0.. -> dK = dS^T.Q, dV = dropped^T.dO
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const SmemMat& tile = which == 0 ? tds : tp;
+    const SmemMat& rhs = which == 0 ? tq : tdo;
+#pragma unroll
+    for (int j = 0; j < 2 * MC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int qq = 0; qq < MT; ++qq) {
+      if (qq >= ntq) break;
+      uint32_t a[4];
+      frag_a_t(a, tile, i0, qq * kTile, lane);
+#pragma unroll
+      for (int cc = 0; cc < MC; ++cc) {
+        if (cc >= nc) break;
+        uint32_t b[4];
+        frag_b_kn(b, rhs, qq * kTile, cc * kTile, lane);
+        mma16816(acc[2 * cc], a, b[0], b[1]);
+        mma16816(acc[2 * cc + 1], a, b[2], b[3]);
+      }
+    }
+    store_tile<MC>(acc, (which == 0 ? dk : dv) + koff, i0, Tk, Dh, Dh, lane);
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -598,6 +885,33 @@ int launch_bwd(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int MT>
+int launch_bwd_mma(const void* q, const void* k, const void* v,
+                   const void* k_valid, const void* keep, float keep_prob,
+                   const void* dout, void* dq, void* dk, void* dv, int B,
+                   int H, int Tq, int Tk, int Dh, float scale, int causal,
+                   cudaStream_t stream) {
+  const size_t smem = mma_bwd_smem(Tq, Tk, Dh);
+  const cudaError_t err =
+      allow_smem(masked_attention_bwd_mma_kernel<MT>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = Dh % 8 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout);
+  const int warps = tiles16(Tq) > tiles16(Tk) ? tiles16(Tq) : tiles16(Tk);
+  masked_attention_bwd_mma_kernel<MT><<<B * H, 32 * warps, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const unsigned char*>(k_valid),
+      static_cast<const unsigned char*>(keep), keep_prob,
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq, Tk, Dh, scale,
+      causal, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -638,10 +952,23 @@ long long asr_masked_attention_bwd_smem(int dtype_code, int dh) {
                                     : bwd_smem_bytes<float>(dh));
 }
 
+// 1 where the backward at (Tq, Tk, Dh) takes the one-block tensor-core
+// kernel, 0 where the two chunked launches; kernels/attention.py bwd_path
+// mirrors it.
+int asr_masked_attention_bwd_path(int dtype_code, int tq, int tk, int dh) {
+  return bwd_path(dtype_code, tq, tk, dh);
+}
+
+// Shared memory of the tensor-core backward at (Tq, Tk, Dh).
+long long asr_masked_attention_bwd_mma_smem(int tq, int tk, int dh) {
+  return static_cast<long long>(mma_bwd_smem(tq, tk, dh));
+}
+
 // The backward: q, dout [B, H, Tq, Dh], k/v [B, H, Tk, Dh], k_valid, keep
 // as the forward -> dq [B, H, Tq, Dh], dk / dv [B, H, Tk, Dh], all in the
 // input type; stats is an f32 scratch of 3 * B * H * Tq (each query row's
-// max, sum and dsum, written by the first launch and read by the second).
+// max, sum and dsum, written by the first launch and read by the second)
+// on the chunked path, unused (and may be null) on the tensor-core one.
 int asr_masked_attention_bwd(int dtype_code, const void* q, const void* k,
                              const void* v, const void* k_valid,
                              const void* keep, float keep_prob,
@@ -651,6 +978,10 @@ int asr_masked_attention_bwd(int dtype_code, const void* q, const void* k,
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0)
     return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bwd_path(dtype_code, Tq, Tk, Dh) == 1)
+    return (Tq <= 64 && Tk <= 64 ? launch_bwd_mma<4> : launch_bwd_mma<10>)(
+        q, k, v, k_valid, keep, keep_prob, dout, dq, dk, dv, B, H, Tq, Tk,
+        Dh, scale, causal, s);
   if (dtype_code == 1)
     return launch_bwd<__nv_bfloat16>(q, k, v, k_valid, keep, keep_prob, dout,
                                      dq, dk, dv, stats, B, H, Tq, Tk, Dh,

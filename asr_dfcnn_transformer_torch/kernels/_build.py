@@ -45,6 +45,8 @@ _SIGNATURES = {
     "asr_masked_attention": ((_I, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I,
                               _I, _I, _F, _I, _P), _I),
     "asr_masked_attention_bwd_smem": ((_I, _I), ctypes.c_longlong),
+    "asr_masked_attention_bwd_path": ((_I, _I, _I, _I), _I),
+    "asr_masked_attention_bwd_mma_smem": ((_I, _I, _I), ctypes.c_longlong),
     "asr_masked_attention_bwd": ((_I, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P,
                                   _P, _I, _I, _I, _I, _I, _F, _I, _P), _I),
     "asr_dual_attention": ((_I, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
@@ -56,7 +58,8 @@ _SIGNATURES = {
     "asr_ctc_beta_xi": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
                         _I),
     "asr_topk_last": ((_P, _P, _P, _I, _I, _I, _P), _I),
-    "asr_fused_ffn": ((_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "asr_fused_ffn_plan": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
+    "asr_fused_ffn": ((_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "asr_interleave_epilogue": ((_I, _P, _P, _P, _I, _I, _I, _F, _P), _I),
     "asr_beam_search": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P), _I),

@@ -13,9 +13,14 @@ Dropout is a keep mask [B, H, Tq, Tk] drawn by the caller, as in the JAX
 package: the backward re-applies the same mask, so the VJP is exact.
 
 The forward stages one (b, h)'s K and V in shared memory, which bounds Tk
-(``asr_masked_attention_smem``). The backward walks keys and queries in
-chunks, so its shared memory depends on Dh alone (``bwd_smem_bytes``
-mirrors its layout) and it takes every shape the forward takes.
+(``asr_masked_attention_smem``). The backward has two paths, chosen by
+shape and type alone (``bwd_path`` mirrors ``asr_masked_attention_bwd_path``):
+in bf16 at Tq, Tk <= 160 and Dh <= 64 (every shape of the LM and e2e
+training paths) one block per (b, h) runs all five products on the tensor
+cores (``mma_bwd_smem_bytes``); elsewhere two launches walk keys and
+queries in chunks, so their shared memory depends on Dh alone
+(``bwd_smem_bytes`` mirrors its layout) and they take every shape the
+forward takes.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ MAX_DH = 128
 # keys a chunk in its first launch; key rows a block and queries a chunk in
 # its second
 _BWD_WARPS, _BWD_QROWS, _KEY_CHUNK, _BWD_KROWS, _QUERY_CHUNK = 8, 16, 64, 16, 32
+# the one-block tensor-core backward's limits: Tq and Tk, Dh
+_MMA_MAX_T, _MMA_MAX_DH = 160, 64
 
 
 def _scale(dh: int) -> float:
@@ -118,6 +125,30 @@ def bwd_smem_bytes(dh: int, dtype: torch.dtype) -> int:
     return max(rows, keys)
 
 
+def _row_stride(n: int) -> int:
+    """csrc/mma.cuh row_stride(n, true): n rounded up to 8, plus 8 where
+    that leaves an even count of 16-byte chunks."""
+    r8 = (n + 7) // 8 * 8
+    return r8 + (8 if (r8 // 8) % 2 == 0 else 0)
+
+
+def mma_bwd_smem_bytes(tq: int, tk: int, dh: int) -> int:
+    """Shared memory of the one-block tensor-core backward
+    (``asr_masked_attention_bwd_mma_smem``): a 16-byte zero block, Q and dO
+    [Tq][stride(Dh)], K and V [Tk][stride(Dh)], the dropped-P and dS tiles
+    [Tq][stride(Tk)], all bf16."""
+    sc, st = _row_stride(dh), _row_stride(tk)
+    return 16 + (2 * tq * sc + 2 * tk * sc + 2 * tq * st) * 2
+
+
+def bwd_path(tq: int, tk: int, dh: int, dtype: torch.dtype) -> str:
+    """Which backward the launcher runs at (Tq, Tk, Dh) in ``dtype``:
+    ``"mma"`` (one block per (b, h) on the tensor cores) or ``"chunked"``
+    (the two launches), as ``asr_masked_attention_bwd_path`` decides."""
+    fits = tq <= _MMA_MAX_T and tk <= _MMA_MAX_T and dh <= _MMA_MAX_DH
+    return "mma" if dtype == torch.bfloat16 and fits else "chunked"
+
+
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors if t is not None)
 
@@ -170,18 +201,21 @@ def _backward(q, k, v, k_valid, dout, causal, keep_mask, keep_prob):
     tk = k.shape[2]
     code = _build.DTYPE_CODES[q.dtype]
     lib = _build.library()
-    _check_smem("masked_attention_bwd",
-                lib.asr_masked_attention_bwd_smem(code, dh), tk, dh)
-    # each query row's max, sum and dsum, from the first launch to the second
-    stats = torch.empty((3, b, h, tq), dtype=torch.float32, device=dev)
+    stats = None
+    if bwd_path(tq, tk, dh, q.dtype) == "chunked":
+        _check_smem("masked_attention_bwd",
+                    lib.asr_masked_attention_bwd_smem(code, dh), tk, dh)
+        # each query row's max, sum and dsum, from the first launch to the
+        # second
+        stats = torch.empty((3, b, h, tq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.asr_masked_attention_bwd(
             code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_valid.data_ptr(),
             None if keep_mask is None else keep_mask.data_ptr(),
             keep_prob, dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), b, h, tq, tk, dh, _scale(dh),
-            int(causal), _build.stream_ptr(dev))
+            dv.data_ptr(), None if stats is None else stats.data_ptr(), b, h,
+            tq, tk, dh, _scale(dh), int(causal), _build.stream_ptr(dev))
     _build.check("masked_attention_bwd", rc)
     return dq, dk, dv
 

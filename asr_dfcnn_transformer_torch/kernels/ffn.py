@@ -2,10 +2,11 @@
 
 Replaces ``ops/pallas/ffn_kernel.py: fused_ffn`` (``_fused_ffn`` and its
 body ``_ffn_kernel``); the CUDA source is ``csrc/ffn.cu``, which keeps the
-[N, F] inner activation out of device memory. ``fused_ffn`` is the
-``FusedFFN`` autograd Function: its forward runs the plain-PyTorch twin
-``fused_ffn_reference`` for CPU tensors, launches the kernel for CUDA
-tensors and raises for anything else; its backward is
+[N, F] inner activation out of device memory and, in bf16, splits F
+across the blocks of a cluster (``plan`` mirrors its tiling).
+``fused_ffn`` is the ``FusedFFN`` autograd Function: its forward runs the
+plain-PyTorch twin ``fused_ffn_reference`` for CPU tensors, launches the
+kernel for CUDA tensors and raises for anything else; its backward is
 ``fused_ffn_bwd_reference``, plain PyTorch on both devices, as the JAX VJP
 (``_fused_ffn_bwd``) is plain XLA.
 
@@ -27,6 +28,15 @@ from asr_dfcnn_transformer_torch.kernels import _build
 
 MULTIPLE = 16    # D and F in whole mma tiles (padded up to it)
 MAX_WIDTH = 2**31 - MULTIPLE   # csrc/ffn.cu takes D and F as C ints
+# csrc/ffn.cu's tiling. f32: rows a block, widest output column group.
+# bf16: rows a block, k-tile columns (one 128-byte row), ring stages,
+# widest F-slice and output group, most slices a row tile (a cluster), the
+# shared memory kept for the mbarriers and the ring's 1024-byte alignment
+_ROWS_F32, _MAX_D = 32, 512
+_ROWS, _KT, _STAGES, _SPAN, _MAX_CLUSTER, _SLACK = 128, 64, 3, 256, 8, 2048
+#: the fields of ``plan``, in the order of ``asr_fused_ffn_plan``'s
+PLAN_FIELDS = ("rows", "slices", "width", "passes", "groups", "smem",
+               "workspace")
 
 
 def supports(d: int, f: int) -> bool:
@@ -44,6 +54,43 @@ def check_supported(d: int, f: int) -> None:
 
 def _round_up(n: int) -> int:
     return -(-n // MULTIPLE) * MULTIPLE
+
+
+def _r16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def plan(n: int, d: int, f: int, dtype: torch.dtype = torch.bfloat16
+         ) -> dict:
+    """The tiling ``csrc/ffn.cu`` launches for x [n, d] with f inner
+    columns (d and f multiples of 16), as ``asr_fused_ffn_plan`` gives it:
+    ``rows`` of x a block; ``slices``, the F-slices of one row tile (the
+    blocks of one cluster, one slice each); ``width``, the inner columns a
+    slice; ``passes``, the launches, each over ``slices * width`` inner
+    columns; ``groups`` of 256 output columns (the slice and the group
+    are what 128 f32 accumulators a thread hold); ``smem``, the
+    dynamic shared memory a block; ``workspace``, the bytes of the f32
+    running sum between passes. Block (s, i) of pass p takes rows
+    ``rows * i ..`` and inner columns ``(p * slices + s) * width ..``, cut
+    at n and f. f32 keeps its 32 rows a block and all of F."""
+    if dtype != torch.bfloat16:
+        dg = min(d, _MAX_D)
+        smem = (_r16(_ROWS_F32 * dg * 4) + 2 * _r16(32 * (dg + 1) * 4)
+                + _r16(_ROWS_F32 * 32 * 4))
+        return dict(rows=_ROWS_F32, slices=1, width=f, passes=1,
+                    groups=-(-d // _MAX_D), smem=smem, workspace=0)
+    s = _MAX_CLUSTER
+    while s > f // 16:        # at least 16 inner columns a slice
+        s //= 2
+    width = _r16(-(-min(f, s * _SPAN) // s))
+    passes = -(-f // (s * width))
+    # the ring of k-tiles (x [128][64] and W1 [256][64] each), the inner
+    # slice in atoms of [128][64], b1's slice
+    smem = (_SLACK + _STAGES * (_ROWS + _SPAN) * 128
+            + -(-width // _KT) * _ROWS * 128 + _SPAN * 2)
+    return dict(rows=_ROWS, slices=s, width=width, passes=passes,
+                groups=-(-d // _SPAN), smem=smem,
+                workspace=n * d * 4 if passes > 1 else 0)
 
 
 def _padded(x, w1, b1, w2, b2):
@@ -103,11 +150,17 @@ def _forward(x, w1, b1, w2, b2):
     if n == 0:
         return y[:, :d]
     lib = _build.library()
+    code = _build.DTYPE_CODES[x.dtype]
+    # the f32 running sum between passes, where F needs more than one, in
+    # the bytes the launcher's own plan gives (field 6)
+    ws_bytes = lib.asr_fused_ffn_plan(code, n, dp, fp, 6)
+    ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.asr_fused_ffn(_build.DTYPE_CODES[x.dtype], x.data_ptr(),
+        rc = lib.asr_fused_ffn(code, x.data_ptr(),
                                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                               b2.data_ptr(), y.data_ptr(), n, dp, fp,
-                               _build.stream_ptr(dev))
+                               b2.data_ptr(), y.data_ptr(),
+                               ws.data_ptr() if ws_bytes else None, n, dp,
+                               fp, _build.stream_ptr(dev))
     _build.check("fused_ffn", rc, f"N={n}, D={dp}, F={fp}")
     return y if dp == d else y[:, :d].contiguous()
 

@@ -84,14 +84,14 @@ SEED = 0
 BEAM_WIDTH = 8
 LM_MAX_LEN = 100
 PORT_KERNELS = ("log_mel_kernel", "cmvn_kernel", "masked_attention_kernel",
+                "masked_attention_bwd_mma_kernel",
                 "masked_attention_bwd_rows_kernel",
                 "masked_attention_bwd_keys_kernel", "ctc_alpha_kernel",
                 "ctc_beta_xi_kernel", "topk_last_kernel",
                 "beam_search_kernel", "dual_attention_kernel",
                 "dual_attention_bwd_kernel", "dual_attention_mma_kernel",
                 "dual_attention_bwd_mma_kernel", "ffn_bf16_kernel",
-                "ffn_f32_kernel", "ffn_bf16_wide_kernel",
-                "ffn_f32_wide_kernel",
+                "ffn_f32_kernel", "ffn_f32_wide_kernel",
                 "interleave_epilogue_kernel")  # csrc/'s __global__ functions
 E2E_STAGES = ("fbank+lfr", "prenet", "encoder", "decode")
 AM_TRAIN_STAGES = ("draws", "noise", "fbank+specaug", "forward", "ctc",

@@ -27,10 +27,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    134, 64], forward, dropout forward and backward in bf16 and f32; the
    masked attention backward in f32 at e2e training's T' 134, Dh 64, the
    encoder's [8, 8, 134, 64] and the pre-net's time rows [640, 1, 134,
-   64], with its shared-memory layout held to the C query; ``fused_ffn``
-   at [4096, 512], [800, 512], [1072, 512] and [8, 512] in bf16 and
-   [800, 512] in f32, inner 2048, at the wide kernels' [4096, 1024] in
-   bf16 and [800, 1024] in f32, inner 4096, and at ragged widths;
+   64], with its shared-memory layout held to the C query; the bf16
+   backward at every shape of the LM and e2e training paths (the LM's
+   causal [64, 8, 64, 64] at keep 1.0 and 0.5, the encoder at keep 0.9,
+   the time rows, the decoder's causal [8, 8, 65, 64] and its cross
+   shape), each on the tensor-core path (``bwd_path`` held to the C
+   query, its shared memory too), launched twice with bit-identical
+   results, and at keep 1.0 timed beside the backward of
+   ``scaled_dot_product_attention`` with the float mask; the bf16
+   backward off those paths, the same way: the chunked launches at
+   [8, 8, 200, 64] (causal, keep 0.9) and [8, 4, 64, 128], the
+   tensor-core kernel at B 2, H 3 and Tq / Tk / Dh 1 / 1 / 7, 160 / 160 /
+   64 (causal), 134 / 65 / 32 (keep 0.9) and 17 / 33 / 16;
+   ``fused_ffn``
+   at [4096, 512], [800, 512], [1072, 512], [8, 512], [1, 512] and
+   [200, 512] (inner 2000) in bf16 and [800, 512] in f32, inner 2048, at
+   [4096, 1024] in bf16 and [800, 1024] in f32, inner 4096, and at
+   ragged widths, each launched twice with the same output and with its
+   tiling (``kernels/ffn.py`` plan) held to the launcher's;
    ``interleave_epilogue`` bit for bit at [128, 256, 512] in bf16 and f32,
    [16, 256, 512] and a ragged [3, 2, 4]), each
    with its tolerance; then each kernel's time beside its twin's (CUDA
@@ -223,48 +237,14 @@ def tone_utterance(rng: np.random.Generator, n: int) -> np.ndarray:
     return x.astype(np.float32)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms from CUDA events, after warm-up."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def paired_ms(kernel_fn, plain_fn, plain_iters: int = 20):
     """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
+    from asr_dfcnn_transformer_torch.timing import cuda_ms
     p1 = cuda_ms(plain_fn, plain_iters, min(3, plain_iters))
     k1 = cuda_ms(kernel_fn)
     k2 = cuda_ms(kernel_fn)
     p2 = cuda_ms(plain_fn, plain_iters, min(3, plain_iters))
     return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-def device_us(fn, kernel: str, iters: int = 10):
-    """Device time per launch (us) of the ``__global__`` function named
-    ``kernel`` over ``iters`` calls of fn, from torch.profiler; None when
-    the trace shows no device time for it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if kernel in e.key and e.count and e.self_device_time_total]
-    if not hits:
-        return None
-    return (sum(e.self_device_time_total for e in hits)
-            / sum(e.count for e in hits))
 
 
 def nbytes(*tensors) -> int:
@@ -339,6 +319,7 @@ def phase_kernels(results):
     from asr_dfcnn_transformer_torch.kernels import (
         cmvn, cmvn_reference, log_mel, log_mel_reference, masked_attention,
         masked_attention_reference)
+    from asr_dfcnn_transformer_torch.timing import cuda_ms
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
     empty = torch.from_numpy(np.flatnonzero(mel_filterbank().sum(0) == 0))
@@ -442,6 +423,7 @@ def phase_kernels(results):
     check_dual_attention(results, rng)
     check_cross_attention(rng)
     check_attention_bwd_f32(rng)
+    check_attention_bwd_edges(rng)
     check_fused_ffn(results, rng)
     check_interleave_epilogue(results, rng)
     for name, r in results.items():
@@ -472,6 +454,7 @@ def check_ctc_kernels(results, rng):
                                                      beta_xi_reference,
                                                      ctc_alpha, ctc_beta_xi)
     from asr_dfcnn_transformer_torch.ops import ctc as ctc_ops
+    from asr_dfcnn_transformer_torch.timing import cuda_ms
     dev = torch.device(DEVICE)
     logits, logit_len, labels, label_len = ctc_problem(rng)
     v = logits.shape[-1]
@@ -560,10 +543,64 @@ def check_ctc_kernels(results, rng):
             "the CPU")
 
 
+def bwd_case(label, q, k, v, k_valid, dout, causal, keep, kp,
+             path_bf16="mma"):
+    """The masked attention backward at one shape: against its twin (bf16
+    within 2e-2, f32 within 1e-5, as phase 2 holds it everywhere), launched
+    twice and required bit-identical, with the path it took (``bwd_path``,
+    held to the C query ``asr_masked_attention_bwd_path``, and on the
+    tensor-core path its shared memory held to
+    ``asr_masked_attention_bwd_mma_smem``). The path must be
+    ``path_bf16`` in bf16 ("mma" at every main-path shape) and "chunked"
+    in f32. Returns (the gradients, the largest error)."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import _build
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    lib = _build.library()
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    code = _build.DTYPE_CODES[q.dtype]
+    path = attn.bwd_path(tq, tk, dh, q.dtype)
+    native = lib.asr_masked_attention_bwd_path(code, tq, tk, dh)
+    require((native == 1) == (path == "mma"),
+            f"masked_attention_bwd path at {label}: Python {path}, C {native}")
+    if path == "mma":
+        mirror = attn.mma_bwd_smem_bytes(tq, tk, dh)
+        c_smem = lib.asr_masked_attention_bwd_mma_smem(tq, tk, dh)
+        require(mirror == c_smem, f"masked_attention_bwd shared memory at "
+                f"{label}: Python {mirror}, C {c_smem}")
+    want = path_bf16 if q.dtype == torch.bfloat16 else "chunked"
+    require(path == want, f"masked_attention_bwd at {label} {q.dtype} took "
+            f"the {path} path, not the {want} one")
+    got = attn._backward(q, k, v, k_valid, dout, causal, keep, kp)
+    again = attn._backward(q, k, v, k_valid, dout, causal, keep, kp)
+    twin = attn.masked_attention_bwd_reference(q, k, v, k_valid, dout, causal,
+                                               keep, kp)
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-5
+    errs, ok, worst = [], True, 0.0
+    for name, x, y in zip(("dq", "dk", "dv"), got, twin):
+        good, err = close_enough(x, y, tol, tol)
+        ok &= good and bool(torch.isfinite(x.float()).all())
+        worst = max(worst, err)
+        errs.append(f"{name} {err:.3g}")
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    print(f"masked_attention_bwd {label} [{b}, {h}, {tq}/{tk}, {dh}] "
+          f"{q.dtype} causal {causal} keep {kp}: path {path}, max abs err "
+          f"{', '.join(errs)} (tol {tol}), bit-identical twice {same} "
+          f"{'ok' if ok and same else 'FAIL'}")
+    require(ok, f"masked_attention_bwd disagrees with its twin at {label}")
+    require(same, f"masked_attention_bwd at {label} differs between launches")
+    return got, worst
+
+
 def check_attention_training_kernels(results, rng):
     """The backward kernel and the dropout forward against their twins at
     the LM's training shape [64, 8, 64, 64]: causal, ragged keys with one
-    fully invalid row, keep mask off and at 0.5."""
+    fully invalid row, keep mask off and at 0.5 (at keep 1.0 beside the
+    library yardstick); then the bf16 backward at e2e training's encoder
+    [8, 8, 134, 64] (keep 0.9) and pre-net time rows [640, 1, 134, 64] (no
+    keep mask). Every bf16 backward here takes the tensor-core path and
+    gives the same output twice (``bwd_case``)."""
     import torch
     from asr_dfcnn_transformer_torch.kernels import attention as attn
     dev = torch.device(DEVICE)
@@ -588,20 +625,14 @@ def check_attention_training_kernels(results, rng):
                 good &= bool(torch.isfinite(fwd.float()).all())
                 ok &= good
                 errs.append(f"out {err_f:.3g}")
-            got = attn._backward(qd, kd, vd, k_valid, dd, True, mask, kp)
-            want = attn.masked_attention_bwd_reference(qd, kd, vd, k_valid,
-                                                       dd, True, mask, kp)
-            err_b = 0.0
-            for name, x, y in zip(("dq", "dk", "dv"), got, want):
-                good, err = close_enough(x, y, tol[dtype], tol[dtype])
-                good &= bool(torch.isfinite(x.float()).all())
-                ok &= good
-                err_b = max(err_b, err)
-                errs.append(f"{name} {err:.3g}")
+            got, err_b = bwd_case("LM", qd, kd, vd, k_valid, dd, True, mask,
+                                  kp)
             print(f"attention training kernels [{b}, {h}, {t}, {dh}] {dtype} "
-                  f"keep {kp}: max abs err {', '.join(errs)} (tol "
+                  f"keep {kp}: max abs err {', '.join(errs) or '-'} (tol "
                   f"{tol[dtype]}) {'ok' if ok else 'FAIL'}")
             require(ok, "an attention training kernel disagrees with its twin")
+            if dtype == torch.bfloat16 and mask is None:
+                bwd_library_keep1(qd, kd, vd, k_valid, dd)
             if dtype != torch.bfloat16 or mask is None:
                 continue
             results["masked_attention_drop"]["max_abs_err"] = err_f
@@ -628,7 +659,92 @@ def check_attention_training_kernels(results, rng):
                       nbytes(qd, kd, vd, k_valid, dd, mask, *got),
                       {"bf16": 10 * pairs * dh})
             results["masked_attention_drop"]["library_ms"] = None
+            # at keep 0.5 no PyTorch call takes the keep mask (the keep 1.0
+            # yardstick is printed above)
             results["masked_attention_bwd"]["library_ms"] = None
+    # the e2e training shapes: the encoder's self-attention (key-masked,
+    # keep 0.9) and the pre-net's time rows (no dropout)
+    for b, h, keep_p in ((E2E_BATCH, 8, 0.9), (E2E_BATCH * 80, 1, 1.0)):
+        t = 134
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+            (b, h, t, dh)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(4))
+        k_valid = torch.arange(t, device=dev)[None, :] < torch.from_numpy(
+            rng.integers(t // 3, t + 1, size=b)).to(dev)[:, None]
+        k_valid[0] = False                       # one fully invalid row
+        keep = (None if keep_p == 1.0 else torch.from_numpy(
+            rng.uniform(size=(b, h, t, t)) < keep_p).to(dev))
+        bwd_case("e2e encoder" if h == 8 else "e2e pre-net time rows", q, k,
+                 v, k_valid, dout, False, keep, keep_p)
+
+
+def bwd_library_keep1(q, k, v, k_valid, dout):
+    """The masked backward's library yardstick: at keep 1.0 the backward of
+    ``scaled_dot_product_attention`` with a float additive mask (the -1e9 of
+    ``_scores`` for invalid and future keys, in the inputs' type) computes
+    the same function, fully invalid rows included. Its backward
+    (``autograd.grad`` per call) by CUDA events and by the device time of
+    all its kernels, beside the kernel's, at the LM's shape."""
+    import torch
+    import torch.nn.functional as F
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    from asr_dfcnn_transformer_torch.timing import (additive_mask, cuda_ms,
+                                                     device_us)
+    mask = additive_mask(k_valid, q.shape[2], k.shape[2], True, q.dtype)
+    q4, k4, v4 = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out, (q4, k4, v4), dout, retain_graph=True)
+
+    def kernel():
+        attn._backward(q, k, v, k_valid, dout, True, None, 1.0)
+
+    k_ms, lib_ms = cuda_ms(kernel), cuda_ms(sdpa_bwd)
+    k_us = device_us(kernel, "masked_attention_bwd")
+    lib_us = device_us(sdpa_bwd, None)
+    print(f"time masked_attention_bwd keep 1.0 {list(q.shape)} bf16: kernel "
+          f"{k_ms:.4f} ms ({k_us:.1f} us of device time); library "
+          f"(scaled_dot_product_attention backward, float mask) {lib_ms:.4f} "
+          f"ms ({lib_us:.1f} us of device time)")
+
+
+BWD_EDGES = (   # label, (B, H, Tq, Tk, Dh), causal, keep probability, path
+    # bf16 shapes the launcher sends to the two chunked launches: rows
+    # longer than 160, heads wider than 64
+    ("long rows", (8, 8, 200, 200, 64), True, 0.9, "chunked"),
+    ("wide heads", (8, 4, 64, 64, 128), False, 1.0, "chunked"),
+    # the tensor-core kernel's edges: one query and one key with Dh 7
+    # (element-wise staging), the 10-tile instance at its limit, Tq above
+    # Tk (phase-2 warps leave early) at Dh 32, part-filled tiles at Dh 16
+    ("one row", (2, 3, 1, 1, 7), True, 0.9, "mma"),
+    ("limit", (2, 3, 160, 160, 64), True, 1.0, "mma"),
+    ("Tq > Tk", (2, 3, 134, 65, 32), False, 0.9, "mma"),
+    ("ragged tiles", (2, 3, 17, 33, 16), True, 1.0, "mma"),
+)
+
+
+def check_attention_bwd_edges(rng):
+    """The bf16 masked attention backward off the main paths (``bwd_case``
+    at each of ``BWD_EDGES``): the chunked launches at shapes the
+    tensor-core kernel does not take, and that kernel at the edges of its
+    tiles, each on the path named, within 2e-2 of its twin and the same
+    output twice; ragged keys with one fully invalid row."""
+    import torch
+    dev = torch.device(DEVICE)
+    for label, (b, h, tq, tk, dh), causal, kp, path in BWD_EDGES:
+        q, dout = (torch.from_numpy(rng.standard_normal(
+            (b, h, tq, dh)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2))
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (b, h, tk, dh)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2))
+        k_valid = torch.arange(tk, device=dev)[None, :] < torch.from_numpy(
+            rng.integers(tk // 3, tk + 1, size=b)).to(dev)[:, None]
+        k_valid[0] = False                       # one fully invalid row
+        keep = (None if kp == 1.0 else torch.from_numpy(
+            rng.uniform(size=(b, h, tq, tk)) < kp).to(dev))
+        bwd_case(label, q, k, v, k_valid, dout, causal, keep, kp, path)
 
 
 def check_beam_kernels(results, rng):
@@ -643,6 +759,7 @@ def check_beam_kernels(results, rng):
                                                      beam_search_reference,
                                                      topk_last,
                                                      topk_last_reference)
+    from asr_dfcnn_transformer_torch.timing import cuda_ms
     dev = torch.device(DEVICE)
     b, t, v, w = MAX_BATCH, 200, 1536, BEAM_WIDTH
 
@@ -747,6 +864,7 @@ def check_dual_attention(results, rng):
     import torch.nn.functional as F
     from asr_dfcnn_transformer_torch.kernels import (
         dual_axis_attention, dual_axis_attention_reference)
+    from asr_dfcnn_transformer_torch.timing import cuda_ms
     dev = torch.device(DEVICE)
     freq_rows = (MAX_BATCH * 134, 80, 64)     # B 8 x T' 134 rows of F' 80
     cases = ((freq_rows, torch.bfloat16), (freq_rows, torch.float32),
@@ -802,6 +920,7 @@ def check_dual_attention_bwd(results, rng, cases):
     import torch.nn.functional as F
     from asr_dfcnn_transformer_torch.kernels import (
         dual_axis_attention_bwd_reference, _build, dual_attention)
+    from asr_dfcnn_transformer_torch.timing import cuda_ms
     dev = torch.device(DEVICE)
     lib = _build.library()
     for t, c in ((80, 64), (134, 64), (7, 32), (160, 128), (1, 1), (33, 7)):
@@ -870,9 +989,10 @@ def check_cross_attention(rng):
     """``masked_attention`` at the teacher-forced decoder's cross-attention
     shape, q [8, 8, 65, 64] against key-masked k / v [8, 8, 134, 64]: the
     forward, the dropout forward (keep 0.9) and the backward against their
-    twins in bf16 and f32, then the bf16 times."""
+    twins in bf16 and f32, with the decoder's causal self-attention
+    backward [8, 8, 65, 64] (keep 0.9; ``bwd_case``: the tensor-core path in
+    bf16, the same output twice), then the bf16 times."""
     import torch
-    from asr_dfcnn_transformer_torch.kernels import _build
     from asr_dfcnn_transformer_torch.kernels import attention as attn
     dev = torch.device(DEVICE)
     b, h, tq, tk, dh = E2E_BATCH, 8, E2E_LABELS[1] + 1, 134, 64
@@ -884,10 +1004,7 @@ def check_cross_attention(rng):
         rng.integers(tk // 3, tk + 1, size=b)).to(dev)[:, None]
     keep = torch.from_numpy(rng.uniform(size=(b, h, tq, tk)) < 0.9).to(dev)
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-    lib = _build.library()
     for dtype in (torch.bfloat16, torch.float32):
-        smem = lib.asr_masked_attention_bwd_smem(_build.DTYPE_CODES[dtype],
-                                                 dh)
         qd, kd, vd, dd = (x.to(dtype) for x in (q, k, v, dout))
         errs, ok = [], True
         for name, got, want in (
@@ -900,17 +1017,17 @@ def check_cross_attention(rng):
             good, err = close_enough(got, want, tol[dtype], tol[dtype])
             ok &= good and bool(torch.isfinite(got.float()).all())
             errs.append(f"{name} {err:.3g}")
-        grads = attn._backward(qd, kd, vd, k_valid, dd, False, keep, 0.9)
-        wants = attn.masked_attention_bwd_reference(qd, kd, vd, k_valid, dd,
-                                                    False, keep, 0.9)
-        for name, got, want in zip(("dq", "dk", "dv"), grads, wants):
-            good, err = close_enough(got, want, tol[dtype], tol[dtype])
-            ok &= good and bool(torch.isfinite(got.float()).all())
-            errs.append(f"{name} {err:.3g}")
+        bwd_case("cross", qd, kd, vd, k_valid, dd, False, keep, 0.9)
+        # the decoder's causal self-attention over its 65 label positions
+        qs, ks, vs = (x[:, :, :tq] for x in (qd, kd, vd))
+        dec_valid = k_valid[:, :tq].clone()
+        dec_valid[0] = False                     # one fully invalid row
+        bwd_case("decoder causal", qs.contiguous(), ks.contiguous(),
+                 vs.contiguous(), dec_valid, dd, True,
+                 keep[..., :tq].contiguous(), 0.9)
         print(f"masked_attention cross q [{b}, {h}, {tq}, {dh}] kv [{b}, {h}, "
-              f"{tk}, {dh}] {dtype} (backward {smem} bytes of shared "
-              f"memory): max abs err {', '.join(errs)} (tol {tol[dtype]}) "
-              f"{'ok' if ok else 'FAIL'}")
+              f"{tk}, {dh}] {dtype}: forward max abs err {', '.join(errs)} "
+              f"(tol {tol[dtype]}) {'ok' if ok else 'FAIL'}")
         require(ok, "masked_attention disagrees with its twin at the "
                 "cross-attention shape")
         if dtype != torch.bfloat16:
@@ -998,27 +1115,37 @@ def check_fused_ffn(results, rng):
     """``fused_ffn`` against its twin at the paths' shapes: [4096, 512] (LM
     training, 64 x 64), [800, 512] (LM serving, 8 x 100), [1072, 512] (the
     e2e encoder, 8 x 134), [8, 512] (a cached decoder step) in bf16 and
-    [800, 512] in f32, inner width 2048; the widths above 512 that the wide
-    kernels take, [4096, 1024] with inner 4096 in bf16 and [800, 1024] in
-    f32; then a ragged [37, 48] with inner 208 (a part-filled row tile,
-    fewer output tiles than warps, a last inner chunk of 16) and D 40 / F 72
-    (zero-padded to 48 / 80) in both types. bf16: within 2e-2 and at most 1
-    in 100 elements differing at all (the kernel's f32 sums run in another
-    order than cuBLAS's, so an element may round the other way, and an
-    inner element that does moves the output by a fraction of an ulp); the
-    count that differ is printed; f32 within 1e-5. The shapes of D 512 and
-    1024 are timed beside the twin and the library yardstick, ``F.linear``
-    -> relu -> ``F.linear`` on cuBLAS with the same roundings (the twin's
-    own ops, called directly), with their bound."""
+    [800, 512] in f32, inner width 2048; D 1024 with inner 4096, [4096,
+    1024] in bf16 (four column groups, two passes over F with the
+    workspace) and [800, 1024] in f32 (the wide f32 kernel); a single
+    row [1, 512] and [200, 512] with inner 2000 in bf16 (a part-filled row
+    tile of the 128-row tiling and a part-filled last F-slice); then a
+    ragged [37, 48] with inner 208 (fewer inner and output columns than a
+    tile) and D 40 / F 72 (zero-padded to 48 / 80) in both types. bf16:
+    within 2e-2 and at most 1 in 100 elements differing at all (the
+    kernel's f32 sums run in another order than cuBLAS's, so an element may
+    round the other way, and an inner element that does moves the output by
+    a fraction of an ulp); the count that differ is printed; f32 within
+    1e-5. Every shape is launched twice and must give the same output, and
+    its tiling (``kernels/ffn.py`` plan: rows, slices, width, passes,
+    groups, shared memory, workspace) must equal the launcher's
+    (``asr_fused_ffn_plan``). The shapes of D 512 and 1024 are timed beside
+    the twin and the library yardstick, ``F.linear`` -> relu ->
+    ``F.linear`` on cuBLAS with the same roundings (the twin's own ops,
+    called directly), with their bound."""
     import torch
     import torch.nn.functional as F
-    from asr_dfcnn_transformer_torch.kernels import (fused_ffn,
+    from asr_dfcnn_transformer_torch.kernels import (_build, ffn, fused_ffn,
                                                      fused_ffn_reference)
+    from asr_dfcnn_transformer_torch.timing import cuda_ms
     r = results["fused_ffn"]
+    lib = _build.library()
     for n, dtype, d, f in ((4096, torch.bfloat16, 512, 2048),
                            (800, torch.bfloat16, 512, 2048),
                            (1072, torch.bfloat16, 512, 2048),
                            (8, torch.bfloat16, 512, 2048),
+                           (1, torch.bfloat16, 512, 2048),
+                           (200, torch.bfloat16, 512, 2000),
                            (800, torch.float32, 512, 2048),
                            (4096, torch.bfloat16, 1024, 4096),
                            (800, torch.float32, 1024, 4096),
@@ -1028,8 +1155,18 @@ def check_fused_ffn(results, rng):
                            (37, torch.float32, 40, 72)):
         x, w1, b1, w2, b2 = ffn_problem(rng, n, dtype, d, f)
         got = fused_ffn(x, w1, b1, w2, b2)
+        same = torch.equal(got, fused_ffn(x, w1, b1, w2, b2))
         want = fused_ffn_reference(x, w1, b1, w2, b2)
         n_diff = int((got != want).sum())
+        pd, pf = -(-d // 16) * 16, -(-f // 16) * 16   # the padded widths
+        plan = ffn.plan(n, pd, pf, dtype)
+        native = {k: lib.asr_fused_ffn_plan(_build.DTYPE_CODES[dtype], n, pd,
+                                            pf, i)
+                  for i, k in enumerate(ffn.PLAN_FIELDS)}
+        require(plan == native, f"fused_ffn plan at [{n}, {pd}] F {pf} "
+                f"{dtype}: Python {plan}, C {native}")
+        require(same, f"fused_ffn at [{n}, {d}] F {f} {dtype} differs "
+                "between launches")
         if dtype == torch.float32:
             ok, err = close_enough(got, want, 1e-5, 1e-5)
             tol = "rtol = atol = 1e-5"
@@ -1039,9 +1176,10 @@ def check_fused_ffn(results, rng):
             tol = "2e-2; at most 1 in 100 differ"
         ok &= bool(torch.isfinite(got.float()).all())
         line = (f"fused_ffn [{n}, {d}] F {f} {dtype}: max abs err {err:.3g}, "
-                f"{n_diff} of {got.numel()} elements differ ({tol}) "
+                f"{n_diff} of {got.numel()} elements differ ({tol}), the "
+                f"same twice, plan {plan} (the C query's) "
                 f"{'ok' if ok else 'FAIL'}")
-        if d % 512:
+        if d % 512 or n in (1, 200):          # checked, not timed
             print(line)
             require(ok, f"fused_ffn disagrees with its twin at [{n}, {d}] "
                     f"F {f} {dtype}")
@@ -1078,6 +1216,7 @@ def check_interleave_epilogue(results, rng):
     import torch
     from asr_dfcnn_transformer_torch.kernels import (
         interleave_epilogue, interleave_epilogue_reference)
+    from asr_dfcnn_transformer_torch.timing import device_us
     r = results["interleave_epilogue"]
     for shape, dtype in (((128, 256, 512), torch.bfloat16),
                          ((128, 256, 512), torch.float32),
@@ -1876,6 +2015,7 @@ def phase_irfft_matmul(results):
     import torch
     from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
     from asr_dfcnn_transformer_torch.ops.matfft import irfft_matmul
+    from asr_dfcnn_transformer_torch.timing import cuda_ms
     rng = np.random.default_rng(SEED + 12)
     h = NOISE_N // 2
     sr, si = (torch.from_numpy(rng.standard_normal(

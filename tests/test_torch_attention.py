@@ -236,3 +236,36 @@ def test_backward_shared_memory_fits_every_forward_shape():
         == attn._BWD_QROWS
     assert int(consts["kBwdWarps"]) * int(consts["kKeysPerWarp"]) \
         == attn._BWD_KROWS
+    # the one-block tensor-core backward takes bf16 at Tq, Tk <= 160 and
+    # Dh <= 64 and fits the card at every such shape (its layout grows with
+    # each, so the largest is the limit); everything else (f32, wider heads,
+    # longer rows) keeps the chunked launches above
+    assert int(consts["kMmaMaxT"]) == attn._MMA_MAX_T
+    assert int(consts["kMmaMaxDh"]) == attn._MMA_MAX_DH
+    assert attn.mma_bwd_smem_bytes(160, 160, 64) == 199_696 <= attn.MAX_SMEM
+    for tq in (1, 15, 16, 17, 64, 65, 100, 134, 160, 161, 1600):
+        for tk in (1, 16, 64, 134, 160, 161, 1600):
+            for dh in (1, 16, 63, 64, 65, 128):
+                fits = tq <= 160 and tk <= 160 and dh <= 64
+                assert attn.bwd_path(tq, tk, dh, torch.bfloat16) == (
+                    "mma" if fits else "chunked"), (tq, tk, dh)
+                assert attn.bwd_path(tq, tk, dh, torch.float32) == "chunked"
+
+
+@pytest.mark.parametrize("label,tq,tk,smem", [
+    ("lm", 64, 64, 55_312),            # [64, 8, 64, 64] causal, keep 0.5
+    ("e2e_encoder", 134, 134, 150_096),  # [8, 8, 134, 64], keep 0.9
+    ("e2e_time_rows", 134, 134, 150_096),  # [640, 1, 134, 64]
+    ("decoder_causal", 65, 65, 56_176),  # [8, 8, 65, 64], keep 0.9
+    ("decoder_cross", 65, 134, 92_688),  # q [8, 8, 65, 64], kv 134
+])
+def test_backward_takes_the_tensor_cores_at_main_path_shapes(label, tq, tk,
+                                                             smem):
+    """Every bf16 backward shape of the LM and e2e training paths takes
+    the one-block tensor-core kernel, with the shared memory its source
+    note gives (csrc/attention.cu; chip_smoke.py holds the mirror to the C
+    query on the card); f32 keeps the chunked launches."""
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    assert attn.bwd_path(tq, tk, 64, torch.bfloat16) == "mma"
+    assert attn.bwd_path(tq, tk, 64, torch.float32) == "chunked"
+    assert attn.mma_bwd_smem_bytes(tq, tk, 64) == smem

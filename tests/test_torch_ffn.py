@@ -282,3 +282,50 @@ def test_ragged_widths_are_padded_exactly(n, d, f, dtype):
     np.testing.assert_allclose(fused_ffn(*args).float().numpy(),
                                np.asarray(jax_out, np.float32),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [48, 512, 1024])
+@pytest.mark.parametrize("n", [1, 8, 37, 800, 1072, 4096])
+def test_plan_covers_every_row_and_inner_column_once(n, d):
+    """``ffn.plan`` (the mirror of csrc/ffn.cu plan(); chip_smoke.py holds
+    it to the C query on the card): its blocks (pass, row tile, slice)
+    cover every row of x and every inner column exactly once, its column
+    groups every output column once, within the card's shared memory and
+    the 256 inner columns a block's accumulators hold; the workspace is the
+    launcher's f32 [N, D] where F takes more than one pass, else none.
+    F is 4 D, as the models' FFNs, and 8208 (five passes)."""
+    for f in (4 * d, 8208):
+        p = ffn_kernel.plan(n, d, f)
+        assert p["slices"] in (1, 2, 4, 8) and p["width"] % 16 == 0
+        assert 16 <= p["width"] <= 256 and p["smem"] <= 232448
+        rows = np.zeros(n, int)
+        for i in range(-(-n // p["rows"])):
+            rows[i * p["rows"]:(i + 1) * p["rows"]] += 1
+        cols = np.zeros(f, int)
+        for pass_ in range(p["passes"]):
+            for s in range(p["slices"]):
+                c0 = (pass_ * p["slices"] + s) * p["width"]
+                cols[c0:c0 + p["width"]] += 1
+        out = np.zeros(d, int)
+        for g in range(p["groups"]):
+            out[g * 256:(g + 1) * 256] += 1
+        assert (rows == 1).all() and (cols == 1).all() and (out == 1).all()
+        assert p["workspace"] == (n * d * 4 if p["passes"] > 1 else 0)
+        f32 = ffn_kernel.plan(n, d, f, torch.float32)
+        assert (f32["slices"], f32["passes"], f32["workspace"]) == (1, 1, 0)
+
+
+def test_plan_mirrors_the_kernels_constants():
+    """The tiling constants of ``kernels/ffn.py`` are csrc/ffn.cu's."""
+    import re
+    src = (ffn_kernel._build.CSRC / "ffn.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["kBRows"] == ffn_kernel._ROWS
+    assert consts["kKT"] == ffn_kernel._KT
+    assert consts["kStages"] == ffn_kernel._STAGES
+    assert consts["kMaxSlice"] == consts["kGroup"] == ffn_kernel._SPAN
+    assert consts["kMaxCluster"] == ffn_kernel._MAX_CLUSTER
+    assert consts["kAlignSlack"] == ffn_kernel._SLACK
+    assert consts["kRows"] == ffn_kernel._ROWS_F32
+    assert consts["kMaxD"] == ffn_kernel._MAX_D
