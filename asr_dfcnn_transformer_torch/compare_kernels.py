@@ -1,7 +1,8 @@
 """Time this tree's kernels against another checkout's, in turns, on one card.
 
     python3 -m asr_dfcnn_transformer_torch.compare_kernels \\
-        --kernel {dual_attention,fused_ffn,masked_attention_bwd} \\
+        --kernel {dual_attention,fused_ffn,masked_attention,
+                  masked_attention_bwd} \\
         --other DIR [--out PATH]
 
 ``DIR`` is the root of another checkout of the repository (for example
@@ -20,6 +21,15 @@ point on the same seeded bf16 inputs at the main paths' shapes:
   [4096, 1024] with inner 4096; held to the twin within 2e-2 with at most
   one element in 100 differing; the yardstick ``F.linear`` -> relu ->
   ``F.linear`` on cuBLAS.
+- ``masked_attention``: the forward at every main-path shape: the LM
+  served [8, 8, 100, 64] causal and trained [64, 8, 64, 64] causal at keep
+  0.5, the e2e encoder [8, 8, 134, 64] at keep 0.9 and without a keep
+  mask, the pre-net's time rows [640, 1, 134, 64], the decoder's causal [8,
+  8, 65, 64] and its cross-attention q 65 / kv 134, both at keep 0.9;
+  ragged keys with a fully invalid row; held to the twin within 2e-2,
+  with the count of differing elements; the yardstick, where there is no
+  keep mask, ``scaled_dot_product_attention`` with the float additive
+  mask.
 - ``masked_attention_bwd``: the LM's [64, 8, 64, 64] causal at keep 0.5
   and at keep 1.0, the e2e encoder's [8, 8, 134, 64] at keep 0.9 and the
   pre-net's time rows [640, 1, 134, 64] without a keep mask, ragged keys
@@ -66,6 +76,15 @@ DUAL_KERNELS = {             # __global__ names by library, bf16
 }
 FFN_SHAPES = ((4096, 512, 2048), (1072, 512, 2048), (800, 512, 2048),
               (8, 512, 2048), (4096, 1024, 4096))
+FWD_CASES = (   # label, (B, H, Tq, Tk, Dh), causal, keep probability
+    ("lm_serving", (8, 8, 100, 100, 64), True, 1.0),
+    ("lm_training", (64, 8, 64, 64, 64), True, 0.5),
+    ("e2e_encoder_keep", (8, 8, 134, 134, 64), False, 0.9),
+    ("e2e_encoder", (8, 8, 134, 134, 64), False, 1.0),
+    ("e2e_time_rows", (640, 1, 134, 134, 64), False, 1.0),
+    ("decoder_causal", (8, 8, 65, 65, 64), True, 0.9),
+    ("decoder_cross", (8, 8, 65, 134, 64), False, 0.9),
+)
 BWD_CASES = (   # label, (B, H, T, Dh), causal, keep probability
     ("lm", (64, 8, 64, 64), True, 0.5),
     ("lm_keep1", (64, 8, 64, 64), True, 1.0),
@@ -100,6 +119,17 @@ def _bound_ms(n_bytes: float, bf16_ops: float) -> float:
 def _bf16(rng, shape, dev, scale=1.0):
     return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
         np.float32)).to(dev, torch.bfloat16)
+
+
+def _masks(rng, b, h, tq, tk, kp, dev):
+    """Ragged key validity [b, tk] with one fully invalid row, and a keep
+    mask [b, h, tq, tk] at ``kp`` (None at 1.0)."""
+    k_valid = torch.from_numpy(rng.uniform(size=(b, tk)) > 0.3).to(dev)
+    k_valid[:, 0] = True
+    k_valid[0] = False                           # one fully invalid row
+    keep = (None if kp == 1.0 else torch.from_numpy(
+        rng.uniform(size=(b, h, tq, tk)) < kp).to(dev))
+    return k_valid, keep
 
 
 def _differing(got, want, tol: float, most: float) -> int:
@@ -241,16 +271,63 @@ def compare_fused_ffn(libs, dev, rng) -> dict:
     return res
 
 
+def compare_masked_attention(libs, dev, rng) -> dict:
+    stream = _build.stream_ptr(dev)
+    res = {"dtype": "bfloat16"}
+    for label, (b, h, tq, tk, dh), causal, kp in FWD_CASES:
+        q = _bf16(rng, (b, h, tq, dh), dev)
+        k, v = (_bf16(rng, (b, h, tk, dh), dev) for _ in range(2))
+        k_valid, keep = _masks(rng, b, h, tq, tk, kp, dev)
+        out = {side: torch.empty_like(q) for side in libs}
+
+        def call(side):
+            def run():
+                rc = libs[side].asr_masked_attention(
+                    1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    k_valid.data_ptr(),
+                    None if keep is None else keep.data_ptr(), kp,
+                    out[side].data_ptr(), b, h, tq, tk, dh, attn._scale(dh),
+                    int(causal), stream)
+                if rc:
+                    raise SystemExit(f"{side} forward failed: {rc}")
+            return run
+
+        want = attn.masked_attention_reference(q, k, v, k_valid, causal, keep,
+                                               kp)
+        key = f"fwd_{label}"
+        for side in libs:
+            call(side)()
+            torch.cuda.synchronize()
+            res[f"{key}_{side}_differing"] = _differing((out[side],), (want,),
+                                                        2e-2, 1.0)
+            res[f"{key}_{side}_device_us"] = _us(call(side),
+                                                 "masked_attention")
+        res[f"{key}_other_ms"], res[f"{key}_this_ms"] = _in_turns(
+            call("other"), call("this"))
+        # Q, K, V, the key mask, the keep mask and the output; QK^T and P.V
+        # over the causal triangle (Tq <= Tk) or the rectangle
+        pairs = b * h * (tq * (tq + 1) // 2 if causal else tq * tk)
+        n_bytes = (2 * b * h * tq * dh + 2 * b * h * tk * dh) * 2 + b * tk \
+            + (0 if keep is None else keep.numel())
+        res[f"{key}_bound_ms"] = _bound_ms(n_bytes, 4 * pairs * dh)
+        if keep is not None:
+            continue
+        mask = additive_mask(k_valid, tq, tk, causal, torch.bfloat16)
+
+        def sdpa():
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        res[f"{key}_library_ms"] = _ms(sdpa)
+        res[f"{key}_library_device_us"] = _us(sdpa, None)
+    return res
+
+
 def compare_masked_attention_bwd(libs, dev, rng) -> dict:
     stream = _build.stream_ptr(dev)
     res = {"dtype": "bfloat16"}
     for label, (b, h, t, dh), causal, kp in BWD_CASES:
         q, k, v, g = (_bf16(rng, (b, h, t, dh), dev) for _ in range(4))
-        k_valid = torch.from_numpy(rng.uniform(size=(b, t)) > 0.3).to(dev)
-        k_valid[:, 0] = True
-        k_valid[0] = False                       # one fully invalid row
-        keep = (None if kp == 1.0 else
-                torch.from_numpy(rng.uniform(size=(b, h, t, t)) < kp).to(dev))
+        k_valid, keep = _masks(rng, b, h, t, t, kp, dev)
         grads = {side: tuple(torch.empty_like(q) for _ in range(3))
                  for side in libs}
         stats = torch.empty((3, b, h, t), dtype=torch.float32, device=dev)
@@ -302,6 +379,7 @@ def compare_masked_attention_bwd(libs, dev, rng) -> dict:
 
 COMPARE = {"dual_attention": compare_dual_attention,
            "fused_ffn": compare_fused_ffn,
+           "masked_attention": compare_masked_attention,
            "masked_attention_bwd": compare_masked_attention_bwd}
 
 

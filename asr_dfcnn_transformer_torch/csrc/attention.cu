@@ -18,17 +18,47 @@
 //   semantics as _mflash_fwd_kernel applies them; a null mask leaves the
 //   path without dropout exactly as it was.
 //
-// Forward bound: at the LM's shape ([B, 8, 100, 64] bf16) the whole problem is a
-// few hundred KB, so the kernel is bound by latency and instruction issue,
-// not by bytes or tensor-core FLOPs. Design: one block per (b*h, 16-query
-// tile) with K and V for that (b, h) staged once in shared memory (K rows
-// padded by one 32-bit word so lanes reading different keys hit different
-// banks), one warp per query row: lanes own keys for the scores and the
-// softmax (warp shuffles for max and sum), then own head dims for P.V.
-// The [Tq, Tk] score matrix never leaves shared memory. The TPU version's
-// block-diagonal row packing was an MXU-shape device and is dropped. Tk is
-// limited by shared memory (raises above it); Dh <= 128. Tensor-core
-// (mma/wgmma) tiles are later work.
+// Forward bound: at the LM's serving shape ([8, 8, 100, 64] bf16) the whole
+// problem is a few hundred KB (1.0 us of bytes at 3.35 TB/s), at the
+// pre-net's time rows ([640, 1, 134, 64]) 44 MB (13.1 us): bytes, never the
+// tensor cores, bound it, and the small shapes are bound by latency. Two
+// paths, by type and shape alone (fwd_path, kernels/attention.py fwd_path):
+//   bf16 at Tk <= 160 and Dh <= 64, any Tq (every forward of the LM and e2e
+//   paths: the LM's [8, 8, 100, 64] causal and [64, 8, 64, 64] causal keep
+//   0.5, the encoder's [8, 8, 134, 64] (keep 0.9 in training), the time
+//   rows, the decoder's causal [8, 8, 65, 64] and cross q 65 / kv 134, keep
+//   0.9): masked_attention_mma_kernel. A block takes one (b, h) and up to
+//   64 query rows (Tq's 16-row tiles spread evenly over the fewest blocks of
+//   at most four warps) and stages K and V once with cp.async into padded
+//   rows (mma.cuh), with each key's additive mask in f32 beside them. A warp
+//   takes 16 query rows: Q's A fragments straight from global memory, S =
+//   Q.K^T on mma.sync m16n8k16 with f32 accumulation, the whole score row
+//   in registers (20 n8 tiles at Tk 160), so that one pass gives the exact
+//   softmax of the normalised, rounded P (no online rescaling): the score
+//   rounded, the mask added (-1e9 never a skip: a row whose keys are all
+//   invalid spreads over all Tk keys, future ones included; key padding is
+//   -inf, out of the max, the sum and P.V), quad shuffles for the row max
+//   and sum, expf, the division by the sum (a reciprocal and one FMA
+//   correction: the correctly rounded quotient, without the slow path `/`
+//   takes for the zero numerators of masked keys), P rounded to bf16; with
+//   a keep mask (its bits loaded before the products, 16 bits at a time
+//   where Tk is even) (P / keep) rounded, times the mask. P goes from the
+//   accumulator layout straight into A fragments, O = P.V through
+//   ldmatrix.trans of V, one bf16 store: no atomics, the same output from
+//   launch to launch. Instances by 16-key tiles (4, 7, 10), keep mask and
+//   causal. Shared memory (mma_fwd_smem, kernels/attention.py
+//   mma_fwd_smem_bytes): 16 + 4 Tk stride(Dh) + 64 tiles16(Tk) bytes at
+//   Dh 64: 18,704 at Tk 64, 19,056 at Tk 65, 29,264 at Tk 100, 39,184 at
+//   Tk 134, at most 46,736 (Tk 160), within the 48 KB a block gets without
+//   opting in.
+//   Elsewhere (f32, Tk above 160, Dh above 64): masked_attention_kernel,
+//   one block per (b*h, 16-query tile) with K and V for that (b, h) staged
+//   in shared memory (K rows padded by one 32-bit word so lanes reading
+//   different keys hit different banks), one warp per query row: lanes own
+//   keys for the scores and the softmax (warp shuffles for max and sum),
+//   then own head dims for P.V. The TPU version's block-diagonal row packing
+//   was an MXU-shape device and is dropped. Tk is limited by shared memory
+//   (raises above it); Dh <= 128.
 //
 // Backward (recompute VJP, as _mflash_bwd_kernel): P = exp(s - max) / sum
 // in f32 (not the forward's softmax call); dP = dO.V^T; with dropout
@@ -912,16 +942,325 @@ int launch_bwd_mma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// -------------------------------------------- bf16 forward, tensor cores
+
+constexpr int kFwdMaxTk = 160;  // keys a warp's register-resident rows hold
+constexpr int kFwdMaxDh = 64;   // Dh it takes (four 16-column tiles)
+constexpr int kFwdWarps = 4;    // the most warps a block has (64 query rows)
+
+// One 16-byte block of zeros, K and V [Tk][row_stride(Dh)] in bf16, then
+// each key's additive mask in f32 [16 tiles16(Tk)]; Q goes from global
+// memory straight to registers.
+__host__ __device__ constexpr size_t mma_fwd_smem(int tk, int dh) {
+  return 16 + 2 * static_cast<size_t>(tk) * row_stride(dh, true) * 2 +
+         static_cast<size_t>(tiles16(tk)) * kTile * 4;
+}
+// within the 48 KB a block gets without opting in (46,736 bytes at most)
+static_assert(mma_fwd_smem(kFwdMaxTk, kFwdMaxDh) <= 48 * 1024,
+              "the tensor-core forward's limits exceed 48 KB");
+
+// 1 where the forward takes the tensor-core kernel, 0 where the scalar one:
+// by type and shape alone, any Tq.
+inline int fwd_path(int dtype_code, int tk, int dh) {
+  return dtype_code == 1 && tk <= kFwdMaxTk && dh <= kFwdMaxDh ? 1 : 0;
+}
+
+// Warps a block (16 query rows each): Tq's 16-row tiles spread evenly over
+// the fewest blocks of at most kFwdWarps warps.
+inline int fwd_warps(int tq) {
+  const int t = tiles16(tq);
+  const int blocks = (t + kFwdWarps - 1) / kFwdWarps;
+  return (t + blocks - 1) / blocks;
+}
+
+// x / y from r = 1 / y (correctly rounded): the product, then one FMA
+// correction. This is the correctly rounded quotient wherever it is above
+// 1e-36 (tests/test_torch_attention.py holds an exact emulation to
+// rational division at probabilities against row sums and keep
+// probabilities), without the slow path that `/` takes for a zero
+// numerator, which every masked key gives.
+__device__ __forceinline__ float div_by(float x, float y, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q, y, x), r, q);
+}
+
+// The A fragment of rows r0.., columns c0.. of a row-major [rows][cols]
+// bf16 matrix in global memory, zero past its edges: 32-bit loads where
+// `pairs` (cols even, base 4-byte aligned), else element by element.
+__device__ __forceinline__ void frag_a_global(uint32_t (&a)[4], const bf16* m,
+                                              int r0, int c0, int rows,
+                                              int cols, bool pairs, int lane) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = r0 + (lane >> 2) + 8 * (e & 1);
+    const int c = c0 + 2 * (lane & 3) + 8 * (e >> 1);
+    uint32_t x = 0;
+    if (r < rows && c < cols) {
+      const bf16* p = m + static_cast<size_t>(r) * cols + c;
+      if (pairs) {
+        x = __ldg(reinterpret_cast<const unsigned int*>(p));
+      } else {
+        x = __bfloat16_as_ushort(p[0]);
+        if (c + 1 < cols)
+          x |= static_cast<uint32_t>(__bfloat16_as_ushort(p[1])) << 16;
+      }
+    }
+    a[e] = x;
+  }
+}
+
+// The forward of one (b, h) and 16 x (warps) query rows, both products on
+// mma.sync. MT: the most 16-key tiles the instance takes; DROP: with a
+// keep mask; CAUSAL: with the causal mask. K and V are staged once a block
+// with cp.async, each key's additive mask (0, -1e9 for an invalid key, -inf
+// past Tk) beside them. A warp holds its 16 rows' Q fragments, its
+// keep-mask bits (loaded before the products) and its whole score rows in
+// registers: S = Q.K^T, the score rounded, the mask added (-1e9 for a
+// future key when causal), the row max and sum (quad shuffles), expf and
+// the division by the sum, P rounded to bf16 (with dropout, (P / keep)
+// rounded, times the mask) as it is repacked from the accumulator layout
+// into A fragments for O = P.V through ldmatrix.trans of V; f32
+// accumulation, one bf16 store.
+template <int MT, bool DROP, bool CAUSAL>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+masked_attention_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const unsigned char* __restrict__ k_valid,
+                            const unsigned char* __restrict__ keep,
+                            float keep_prob, bf16* __restrict__ out, int H,
+                            int Tq, int Tk, int Dh, float scale, int vec,
+                            int pairs, int keep16) {
+  constexpr int MC = kFwdMaxDh / kTile;
+  constexpr int NB = (8 * MT + 31) / 32;  // keep bits: 4 a thread's n8 tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sc = row_stride(Dh, true);
+  const int ntk = tiles16(Tk), nc = tiles16(Dh);
+  bf16* kss = reinterpret_cast<bf16*>(smem + 16);
+  bf16* vss = kss + Tk * sc;
+  float* bias = reinterpret_cast<float*>(vss + Tk * sc);
+  const int bh = blockIdx.x;
+  const size_t koff = static_cast<size_t>(bh) * Tk * Dh;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * Dh;
+  stage(kss, k + koff, Tk, Dh, sc, vec);
+  cp_async_commit();
+  stage(vss, v + koff, Tk, Dh, sc, vec);
+  cp_async_commit();
+  if (threadIdx.x == 0)
+    *reinterpret_cast<uint4*>(smem) = make_uint4(0, 0, 0, 0);
+  const unsigned char* valid = k_valid + static_cast<size_t>(bh / H) * Tk;
+  for (int i = threadIdx.x; i < ntk * kTile; i += blockDim.x)
+    bias[i] = i < Tk ? (valid[i] != 0 ? 0.f : kBigNeg) : -INFINITY;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i0 = (static_cast<int>(blockIdx.y) * (blockDim.x >> 5) + warp) *
+                 kTile;
+  // a thread's element e of n8 key tile j: row i0 + g + 8 (e >> 1), key
+  // 8j + 2 (lane & 3) + (e & 1)
+  auto row_of = [&](int e) { return i0 + (lane >> 2) + 8 * (e >> 1); };
+  auto key_of = [&](int j, int e) { return 8 * j + 2 * (lane & 3) + (e & 1); };
+  uint32_t qa[MC][4];  // the warp's Q rows as A fragments
+  uint32_t kbits[NB];  // keep-mask bit 4j + e (DROP)
+#pragma unroll
+  for (int i = 0; i < NB; ++i) kbits[i] = 0;
+  if (i0 < Tq) {
+#pragma unroll
+    for (int kc = 0; kc < MC; ++kc)
+      if (kc < nc)
+        frag_a_global(qa[kc], q + qoff, i0, kc * kTile, Tq, Dh, pairs != 0,
+                      lane);
+    if (DROP) {
+      const unsigned char* keep_bh = keep + static_cast<size_t>(bh) * Tq * Tk;
+#pragma unroll
+      for (int j = 0; j < 2 * MT; ++j) {
+        if (j >= 2 * ntk) break;
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          // keys 8j + 2 (lane & 3) and + 1 of one row: one 16-bit load
+          // where Tk is even (and the mask 2-byte aligned)
+          const int row = row_of(e), key = key_of(j, e);
+          if (row >= Tq || key >= Tk) continue;
+          const unsigned char* p =
+              keep_bh + static_cast<size_t>(row) * Tk + key;
+          uint32_t two;
+          if (keep16) {
+            two = *reinterpret_cast<const unsigned short*>(p);
+            two = (two & 0xffu ? 1u : 0u) | (two >> 8 ? 2u : 0u);
+          } else {
+            two = (p[0] != 0 ? 1u : 0u) |
+                  (key + 1 < Tk && p[1] != 0 ? 2u : 0u);
+          }
+          kbits[(4 * j + e) >> 5] |= two << ((4 * j + e) & 31);
+        }
+      }
+    }
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const uint32_t zero = smem_u32(smem);
+  const SmemMat tk{smem_u32(kss), zero, Tk, round8(Dh), sc};
+  const SmemMat tv{smem_u32(vss), zero, Tk, round8(Dh), sc};
+  float s[2 * MT][4];
+  float sum[2] = {0.f, 0.f};
+  if (i0 < Tq) {
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < MC; ++kc) {
+      if (kc >= nc) break;
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        if (j >= ntk) break;
+        uint32_t b[4];
+        frag_b_nk(b, tk, j * kTile, kc * kTile, lane);
+        mma16816(s[2 * j], qa[kc], b[0], b[1]);
+        mma16816(s[2 * j + 1], qa[kc], b[2], b[3]);
+      }
+    }
+    // the score rounded, then the additive mask (never a skip: a row whose
+    // keys are all invalid spreads over all Tk keys, future ones included);
+    // keys past Tk (the tiles' padding) get -inf, out of the max and sum
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j) {
+      if (j >= 2 * ntk) break;
+      const float2 kb =
+          *reinterpret_cast<const float2*>(bias + key_of(j, 0));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float add = (e & 1) ? kb.y : kb.x;
+        if (CAUSAL && key_of(j, e) > row_of(e)) add = fminf(add, kBigNeg);
+        s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), add);
+        m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+      m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j) {
+      if (j >= 2 * ntk) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (i0 >= Tq) return;
+
+  const float rinv[2] = {1.f / sum[0], 1.f / sum[1]};
+  const float kp_t = to_f32(from_f32<bf16>(keep_prob));  // keep in the type
+  const float rkp = 1.f / kp_t;
+  float o[2 * MC][4];
+#pragma unroll
+  for (int j = 0; j < 2 * MC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < MT; ++kk) {
+    if (kk >= ntk) break;
+    // P for keys 16kk.., rounded to bf16 as it is packed; with dropout P
+    // rounded, then (P / keep) times the mask, rounded as it is packed
+    float d[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int bit = 4 * (2 * kk + h) + e;
+        float p = div_by(s[2 * kk + h][e], sum[e >> 1], rinv[e >> 1]);
+        if (DROP)
+          p = (kbits[bit >> 5] >> (bit & 31)) & 1u
+                  ? div_by(to_f32(from_f32<bf16>(p)), kp_t, rkp)
+                  : 0.f;
+        d[h][e] = p;
+      }
+    uint32_t a[4];
+    acc_to_a(a, d[0], d[1]);
+#pragma unroll
+    for (int cc = 0; cc < MC; ++cc) {
+      if (cc >= nc) break;
+      uint32_t b[4];
+      frag_b_kn(b, tv, kk * kTile, cc * kTile, lane);
+      mma16816(o[2 * cc], a, b[0], b[1]);
+      mma16816(o[2 * cc + 1], a, b[2], b[3]);
+    }
+  }
+  store_tile<MC>(o, out + qoff, i0, Tq, Dh, Dh, lane);
+}
+
+template <int MT, bool DROP, bool CAUSAL>
+int launch_fwd_mma(const void* q, const void* k, const void* v,
+                   const void* k_valid, const void* keep, float keep_prob,
+                   void* out, int B, int H, int Tq, int Tk, int Dh,
+                   float scale, cudaStream_t stream) {
+  const size_t smem = mma_fwd_smem(Tk, Dh);
+  const int vec = Dh % 8 == 0 && aligned16(k) && aligned16(v);
+  const int pairs =
+      Dh % 2 == 0 && (reinterpret_cast<uintptr_t>(q) & 3) == 0;
+  const int keep16 =
+      Tk % 2 == 0 && (reinterpret_cast<uintptr_t>(keep) & 1) == 0;
+  const int warps = fwd_warps(Tq);
+  const dim3 grid(B * H, (tiles16(Tq) + warps - 1) / warps);
+  masked_attention_mma_kernel<MT, DROP, CAUSAL>
+      <<<grid, 32 * warps, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const unsigned char*>(k_valid),
+      static_cast<const unsigned char*>(keep), keep_prob,
+      static_cast<bf16*>(out), H, Tq, Tk, Dh, scale, vec, pairs, keep16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance for a keep mask or none, causal or not
+template <int MT>
+int launch_fwd_mma_for(const void* q, const void* k, const void* v,
+                       const void* k_valid, const void* keep, float keep_prob,
+                       void* out, int B, int H, int Tq, int Tk, int Dh,
+                       float scale, int causal, cudaStream_t stream) {
+  const auto run =
+      keep != nullptr
+          ? (causal ? launch_fwd_mma<MT, true, true>
+                    : launch_fwd_mma<MT, true, false>)
+          : (causal ? launch_fwd_mma<MT, false, true>
+                    : launch_fwd_mma<MT, false, false>);
+  return run(q, k, v, k_valid, keep, keep_prob, out, B, H, Tq, Tk, Dh, scale,
+             stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one launch needs; the wrapper refuses shapes above the
-// card's limit before launching.
+// Shared memory one launch of the scalar forward needs; the wrapper refuses
+// shapes above the card's limit before launching.
 long long asr_masked_attention_smem(int dtype_code, int tk, int dh) {
   return static_cast<long long>(dtype_code == 1
                                     ? smem_bytes<__nv_bfloat16>(tk, dh)
                                     : smem_bytes<float>(tk, dh));
+}
+
+// 1 where the forward at (Tq, Tk, Dh) takes the tensor-core kernel, 0
+// where the scalar one; kernels/attention.py fwd_path mirrors it.
+int asr_masked_attention_path(int dtype_code, int tq, int tk, int dh) {
+  (void)tq;  // any Tq
+  return fwd_path(dtype_code, tk, dh);
+}
+
+// Shared memory of the tensor-core forward at (Tk, Dh).
+long long asr_masked_attention_mma_smem(int tk, int dh) {
+  return static_cast<long long>(mma_fwd_smem(tk, dh));
 }
 
 // dtype_code 0: float32, 1: bfloat16. q [B, H, Tq, Dh], k/v [B, H, Tk, Dh],
@@ -935,6 +1274,14 @@ int asr_masked_attention(int dtype_code, const void* q, const void* k,
                          void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fwd_path(dtype_code, Tk, Dh) == 1) {
+    const int nt = tiles16(Tk);
+    return (nt <= 4 ? launch_fwd_mma_for<4>
+                    : nt <= 7 ? launch_fwd_mma_for<7>
+                              : launch_fwd_mma_for<10>)(
+        q, k, v, k_valid, keep, keep_prob, out, B, H, Tq, Tk, Dh, scale,
+        causal, s);
+  }
   if (dtype_code == 1)
     return launch<__nv_bfloat16>(q, k, v, k_valid, keep, keep_prob, out, B,
                                  H, Tq, Tk, Dh, scale, causal, s);

@@ -42,6 +42,8 @@ _SIGNATURES = {
                     _I),
     "asr_cmvn": ((_P, _P, _P, _I, _I, _I, _P), _I),
     "asr_masked_attention_smem": ((_I, _I, _I), ctypes.c_longlong),
+    "asr_masked_attention_path": ((_I, _I, _I, _I), _I),
+    "asr_masked_attention_mma_smem": ((_I, _I), ctypes.c_longlong),
     "asr_masked_attention": ((_I, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I,
                               _I, _I, _F, _I, _P), _I),
     "asr_masked_attention_bwd_smem": ((_I, _I), ctypes.c_longlong),

@@ -12,9 +12,16 @@ else, so the CPU tests run the same Function the card runs.
 Dropout is a keep mask [B, H, Tq, Tk] drawn by the caller, as in the JAX
 package: the backward re-applies the same mask, so the VJP is exact.
 
-The forward stages one (b, h)'s K and V in shared memory, which bounds Tk
-(``asr_masked_attention_smem``). The backward has two paths, chosen by
-shape and type alone (``bwd_path`` mirrors ``asr_masked_attention_bwd_path``):
+The forward has two paths, chosen by shape and type alone (``fwd_path``
+mirrors ``asr_masked_attention_path``): in bf16 at Tk <= 160 and Dh <= 64,
+any Tq (every forward shape of the LM and e2e paths, with and without a
+keep mask), blocks of up to 64 query rows form the scores and P.V on the
+tensor cores with each row's scores held in registers
+(``mma_fwd_smem_bytes``: K and V staged once a block); elsewhere (f32,
+longer keys, wider heads) a scalar kernel stages one (b, h)'s K and V in
+shared memory, which bounds Tk (``asr_masked_attention_smem``). The
+backward has two paths, chosen by shape and type alone (``bwd_path``
+mirrors ``asr_masked_attention_bwd_path``):
 in bf16 at Tq, Tk <= 160 and Dh <= 64 (every shape of the LM and e2e
 training paths) one block per (b, h) runs all five products on the tensor
 cores (``mma_bwd_smem_bytes``); elsewhere two launches walk keys and
@@ -40,6 +47,8 @@ MAX_DH = 128
 _BWD_WARPS, _BWD_QROWS, _KEY_CHUNK, _BWD_KROWS, _QUERY_CHUNK = 8, 16, 64, 16, 32
 # the one-block tensor-core backward's limits: Tq and Tk, Dh
 _MMA_MAX_T, _MMA_MAX_DH = 160, 64
+# the tensor-core forward's limits: Tk, Dh (any Tq)
+_FWD_MAX_TK, _FWD_MAX_DH = 160, 64
 
 
 def _scale(dh: int) -> float:
@@ -149,6 +158,23 @@ def bwd_path(tq: int, tk: int, dh: int, dtype: torch.dtype) -> str:
     return "mma" if dtype == torch.bfloat16 and fits else "chunked"
 
 
+def mma_fwd_smem_bytes(tk: int, dh: int) -> int:
+    """Shared memory of the tensor-core forward
+    (``asr_masked_attention_mma_smem``): a 16-byte zero block, K and V
+    [Tk][stride(Dh)] in bf16, then each key's additive mask in f32 over
+    the 16-key tiles; independent of Tq."""
+    return 16 + 2 * tk * _row_stride(dh) * 2 + _r16(tk) * 4
+
+
+def fwd_path(tq: int, tk: int, dh: int, dtype: torch.dtype) -> str:
+    """Which forward the launcher runs at (Tq, Tk, Dh) in ``dtype``:
+    ``"mma"`` (the tensor cores) or ``"scalar"``, as
+    ``asr_masked_attention_path`` decides; any Tq."""
+    del tq
+    fits = tk <= _FWD_MAX_TK and dh <= _FWD_MAX_DH
+    return "mma" if dtype == torch.bfloat16 and fits else "scalar"
+
+
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors if t is not None)
 
@@ -172,8 +198,9 @@ def _forward(q, k, v, k_valid, causal, keep_mask, keep_prob):
     tk = k.shape[2]
     code = _build.DTYPE_CODES[q.dtype]
     lib = _build.library()
-    _check_smem("masked_attention", lib.asr_masked_attention_smem(code, tk, dh),
-                tk, dh)
+    if fwd_path(tq, tk, dh, q.dtype) == "scalar":
+        _check_smem("masked_attention",
+                    lib.asr_masked_attention_smem(code, tk, dh), tk, dh)
     name = "masked_attention" if keep_mask is None else "masked_attention_drop"
     with torch.cuda.device(dev):
         rc = lib.asr_masked_attention(
@@ -280,5 +307,9 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not 0.0 < keep_prob <= 1.0:
             raise ValueError(f"masked_attention: keep_prob {keep_prob} is "
                              "not in (0, 1]")
+        if keep_prob >= 1.0:
+            # no dropout, as masked_flash_attention: the forward and the
+            # VJP both ignore the mask
+            keep_mask = None
     return MaskedAttention.apply(q, k, v, k_valid, keep_mask,
                                  float(keep_prob), bool(causal))

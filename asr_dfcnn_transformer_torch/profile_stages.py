@@ -84,6 +84,7 @@ SEED = 0
 BEAM_WIDTH = 8
 LM_MAX_LEN = 100
 PORT_KERNELS = ("log_mel_kernel", "cmvn_kernel", "masked_attention_kernel",
+                "masked_attention_mma_kernel",
                 "masked_attention_bwd_mma_kernel",
                 "masked_attention_bwd_rows_kernel",
                 "masked_attention_bwd_keys_kernel", "ctc_alpha_kernel",

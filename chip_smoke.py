@@ -10,11 +10,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (the compiler's registers and spills, and each kernel's count of
    tensor-core HMMA instructions from ``cuobjdump -sass``).
 2. Kernels against their plain-PyTorch twins on the card, on seeded inputs
-   at the main paths' shapes (``log_mel`` + ``cmvn``; ``masked_attention``
-   in f32 and bf16 at the LM's causal and the e2e's key-masked shapes;
-   ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129;
-   the attention backward and the dropout forward at the LM's training
-   shape; ``topk_last`` at [1600, 1536], k 8, and ``beam_search`` at
+   at the main paths' shapes (``log_mel`` + ``cmvn``; the
+   ``masked_attention`` forward, with and without a keep mask, in f32 (the
+   scalar kernel) and bf16 (the tensor-core kernel) at every forward shape
+   of the LM and e2e paths: the LM served [8 and 16, 8, 100, 64] causal
+   and trained [64, 8, 64, 64] causal at keep 0.5, the pre-net's time rows
+   [640, 1, 134, 64], the encoder [8, 8, 134, 64] without a keep mask and
+   at keep 0.9, the decoder's causal [8, 8, 65, 64] and cross q 65 / kv
+   134 at keep 0.9, and a tiny [2, 2, 7, 32]; then in bf16 at the edges of
+   the tensor-core tiles (B 2, H 3; Tq / Tk / Dh 1 / 1 / 7, 17 / 33 / 16,
+   160 / 160 / 64 causal, 134 / 65 / 32 at keep 0.9, 65 / 134 / 64 causal,
+   1600 / 64 / 64 causal at keep 0.9) and off them on the scalar kernel
+   (Tk 161, Dh 128); each on its path (``fwd_path`` held to the C query,
+   its shared memory too), with its count of differing elements, launched
+   twice with bit-identical results; ``ctc_alpha`` + ``ctc_beta_xi`` at B
+   16, T 200, S 129; the attention backward at the LM's training shape;
+   ``topk_last`` at [1600, 1536], k 8, and ``beam_search`` at
    [8, 200, 1536], W = K = 8, L 100, with batch-1, exhausted-candidate and
    tie-heavy cases; ``dual_axis_attention`` at the e2e pre-net's frequency
    rows [1072, 80, 64] in bf16 and f32, its unmasked time rows [640, 134,
@@ -22,9 +33,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    tiles ([45, 160, 128], [45, 33, 7], [45, 17, 16], [45, 1, 1]), forward
    and backward, with the backward's shared-memory layout held to the C
    query and its refusal of the f32 time rows and of bf16 [., 160, 128];
-   ``masked_attention`` at the teacher-forced decoder's cross-attention
-   shape, q [8, 8, 65, 64] against key-masked kv [8, 8,
-   134, 64], forward, dropout forward and backward in bf16 and f32; the
+   the ``masked_attention`` backward at the teacher-forced decoder's
+   cross-attention shape, q [8, 8, 65, 64] against key-masked kv [8, 8,
+   134, 64], in bf16 and f32, with the forwards' times there; the
    masked attention backward in f32 at e2e training's T' 134, Dh 64, the
    encoder's [8, 8, 134, 64] and the pre-net's time rows [640, 1, 134,
    64], with its shared-memory layout held to the C query; the bf16
@@ -312,14 +323,12 @@ def sass_hmma_counts(lib) -> dict:
 
 def phase_kernels(results):
     import torch
-    import torch.nn.functional as F
     from asr_dfcnn_transformer_torch.audio.fbank import (mel_filterbank,
                                                          samples_for_frames,
                                                          valid_frames)
-    from asr_dfcnn_transformer_torch.kernels import (
-        cmvn, cmvn_reference, log_mel, log_mel_reference, masked_attention,
-        masked_attention_reference)
-    from asr_dfcnn_transformer_torch.timing import cuda_ms
+    from asr_dfcnn_transformer_torch.kernels import (cmvn, cmvn_reference,
+                                                     log_mel,
+                                                     log_mel_reference)
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
     empty = torch.from_numpy(np.flatnonzero(mel_filterbank().sum(0) == 0))
@@ -374,49 +383,7 @@ def phase_kernels(results):
             results["log_mel"]["library_ms"] = None
             results["cmvn"]["library_ms"] = None
 
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-    # the LM's causal shapes, then the e2e's key-masked pre-net time rows
-    # (B 8 x F' 80 rows of T' 134) and encoder
-    for shape, causal in (((16, 8, 100, 100, 64), True),
-                          ((2, 2, 7, 7, 32), True),
-                          ((MAX_BATCH, 8, 100, 100, 64), True),
-                          ((MAX_BATCH * 80, 1, 134, 134, 64), False),
-                          ((MAX_BATCH, 8, 134, 134, 64), False)):
-        b, h, tq, tk, dh = shape
-        q, k, v = (torch.from_numpy(rng.standard_normal(
-            (b, h, t, dh)).astype(np.float32)).to(dev) for t in (tq, tk, tk))
-        k_valid = torch.from_numpy(rng.uniform(size=(b, tk)) > 0.3).to(dev)
-        k_valid[:, 0] = True
-        k_valid[0] = False                      # one fully invalid row
-        for dtype in (torch.float32, torch.bfloat16):
-            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
-            got = masked_attention(qd, kd, vd, k_valid, causal=causal)
-            want = masked_attention_reference(qd, kd, vd, k_valid, causal)
-            ok, err = close_enough(got, want, tol[dtype], tol[dtype])
-            finite = bool(torch.isfinite(got.float()).all())
-            print(f"masked_attention {list(shape)} causal {causal} {dtype}: "
-                  f"max abs err "
-                  f"{err:.3g} (tol {tol[dtype]}) finite {finite} "
-                  f"{'ok' if ok else 'FAIL'}")
-            require(ok and finite, "masked_attention disagrees with its twin")
-            if shape == (MAX_BATCH, 8, 100, 100, 64) \
-                    and dtype == torch.bfloat16:
-                r = results["masked_attention"]
-                r["max_abs_err"] = err
-                k_ms, p_ms = paired_ms(
-                    lambda: masked_attention(qd, kd, vd, k_valid,
-                                             causal=True),
-                    lambda: masked_attention_reference(qd, kd, vd, k_valid,
-                                                       True))
-                r.update(ms=k_ms, plain_ms=p_ms)
-                # QK^T and PV over the causal triangle
-                set_bound(r, nbytes(qd, kd, vd, k_valid, got),
-                          {"bf16": 4 * b * h * tq * (tq + 1) // 2 * dh})
-                mask = (torch.ones(tq, tk, dtype=torch.bool, device=dev)
-                        .tril()[None, None] & k_valid[:, None, None, :])
-                r["library_ms"] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qd, kd, vd, attn_mask=mask))
+    check_attention_fwd(results, rng)
     check_ctc_kernels(results, rng)
     check_attention_training_kernels(results, rng)
     check_beam_kernels(results, rng)
@@ -543,6 +510,153 @@ def check_ctc_kernels(results, rng):
             "the CPU")
 
 
+FWD_CASES = (   # label, (B, H, Tq, Tk, Dh), causal, keep probability
+    # the forward's main-path shapes: the LM served (batch 8 and 16, and a
+    # tiny one) and trained, the e2e pre-net's time rows (B 8 x F' 80 rows
+    # of T' 134), its encoder served and trained, its teacher-forced
+    # decoder's causal self-attention and cross-attention
+    ("LM serving", (MAX_BATCH, 8, 100, 100, 64), True, 1.0),
+    ("LM serving b16", (16, 8, 100, 100, 64), True, 1.0),
+    ("LM tiny", (2, 2, 7, 7, 32), True, 1.0),
+    ("LM training", (LM_BATCH, 8, LM_LEN, LM_LEN, 64), True, 0.5),
+    ("e2e pre-net time rows", (MAX_BATCH * 80, 1, 134, 134, 64), False, 1.0),
+    ("e2e encoder", (MAX_BATCH, 8, 134, 134, 64), False, 1.0),
+    ("e2e encoder training", (E2E_BATCH, 8, 134, 134, 64), False, 0.9),
+    ("decoder causal", (E2E_BATCH, 8, 65, 65, 64), True, 0.9),
+    ("decoder cross", (E2E_BATCH, 8, 65, 134, 64), False, 0.9),
+    ("decoder cross eval", (E2E_BATCH, 8, 65, 134, 64), False, 1.0),
+)
+FWD_EDGES = (   # label, (B, H, Tq, Tk, Dh), causal, keep probability, path
+    # the tensor-core forward at the edges of its tiles: one query and one
+    # key with Dh 7 (element-wise loads), part-filled tiles at Dh 16, its
+    # limit with a fully invalid row under the causal mask, Tq above Tk at
+    # Dh 32 with an odd Tk (byte-wise keep loads), Tq below Tk causal, a
+    # long query axis (any Tq)
+    ("one row", (2, 3, 1, 1, 7), False, 1.0, "mma"),
+    ("ragged tiles", (2, 3, 17, 33, 16), False, 1.0, "mma"),
+    ("limit", (2, 3, 160, 160, 64), True, 1.0, "mma"),
+    ("Tq > Tk", (2, 3, 134, 65, 32), False, 0.9, "mma"),
+    ("Tq < Tk causal", (2, 3, 65, 134, 64), True, 1.0, "mma"),
+    ("long queries", (2, 3, 1600, 64, 64), True, 0.9, "mma"),
+    # bf16 shapes the launcher sends to the scalar kernel: keys past 160,
+    # heads wider than 64
+    ("long keys", (2, 3, 64, 161, 64), True, 0.9, "scalar"),
+    ("wide heads", (2, 3, 64, 64, 128), False, 1.0, "scalar"),
+)
+
+
+def attention_problem(rng, b, h, tq, tk, dh, keep_p):
+    """Seeded q [b, h, tq, dh], k / v [b, h, tk, dh] in f32 on the card,
+    ragged key validity with one fully invalid row, and a keep mask at
+    ``keep_p`` (None at 1.0)."""
+    import torch
+    dev = torch.device(DEVICE)
+    q = torch.from_numpy(rng.standard_normal((b, h, tq, dh)).astype(
+        np.float32)).to(dev)
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, tk, dh)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    k_valid = torch.from_numpy(rng.uniform(size=(b, tk)) > 0.3).to(dev)
+    k_valid[:, 0] = True
+    k_valid[0] = False                           # one fully invalid row
+    keep = (None if keep_p == 1.0 else torch.from_numpy(
+        rng.uniform(size=(b, h, tq, tk)) < keep_p).to(dev))
+    return q, k, v, k_valid, keep
+
+
+def fwd_case(label, q, k, v, k_valid, causal, keep, kp, path_bf16="mma"):
+    """The masked attention forward at one shape: against its twin (bf16
+    within 2e-2, f32 within 1e-5), with its count of differing elements,
+    launched twice and required bit-identical, with the path it took
+    (``fwd_path``, held to the C query ``asr_masked_attention_path``, and
+    on the tensor-core path its shared memory held to
+    ``asr_masked_attention_mma_smem``). The path must be ``path_bf16`` in
+    bf16 ("mma" at every main-path shape) and "scalar" in f32. Returns
+    (the output, the largest error)."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import _build
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    lib = _build.library()
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    code = _build.DTYPE_CODES[q.dtype]
+    path = attn.fwd_path(tq, tk, dh, q.dtype)
+    native = lib.asr_masked_attention_path(code, tq, tk, dh)
+    require((native == 1) == (path == "mma"),
+            f"masked_attention path at {label}: Python {path}, C {native}")
+    smem = ""
+    if path == "mma":
+        mirror = attn.mma_fwd_smem_bytes(tk, dh)
+        c_smem = lib.asr_masked_attention_mma_smem(tk, dh)
+        require(mirror == c_smem, f"masked_attention shared memory at "
+                f"{label}: Python {mirror}, C {c_smem}")
+        smem = f", {c_smem} bytes of shared memory"
+    want_path = path_bf16 if q.dtype == torch.bfloat16 else "scalar"
+    require(path == want_path, f"masked_attention at {label} {q.dtype} took "
+            f"the {path} path, not the {want_path} one")
+    got = attn._forward(q, k, v, k_valid, causal, keep, kp)
+    again = attn._forward(q, k, v, k_valid, causal, keep, kp)
+    twin = attn.masked_attention_reference(q, k, v, k_valid, causal, keep,
+                                           kp)
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-5
+    ok, err = close_enough(got, twin, tol, tol)
+    ok &= bool(torch.isfinite(got.float()).all())
+    same = torch.equal(got, again)
+    differ = int((got != twin).sum())
+    print(f"masked_attention {label} [{b}, {h}, {tq}/{tk}, {dh}] {q.dtype} "
+          f"causal {causal} keep {kp}: path {path}{smem}, max abs err "
+          f"{err:.3g} (tol {tol}), {differ} of {got.numel()} elements "
+          f"differ from the twin, bit-identical twice {same} "
+          f"{'ok' if ok and same else 'FAIL'}")
+    require(ok, f"masked_attention disagrees with its twin at {label}")
+    require(same, f"masked_attention at {label} differs between launches")
+    return got, err
+
+
+def check_attention_fwd(results, rng):
+    """The masked attention forward, with and without a keep mask
+    (``fwd_case``): every main-path shape of ``FWD_CASES`` in f32 (the
+    scalar kernel) and bf16 (the tensor-core kernel), then the bf16 edges
+    of ``FWD_EDGES``, each on the path named; then the bf16 LM serving
+    forward timed beside its twin, its bound and
+    ``scaled_dot_product_attention`` with the bool mask, and the bf16 LM
+    training dropout forward beside its twin and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    from asr_dfcnn_transformer_torch.timing import cuda_ms
+    timed = {"LM serving": "masked_attention",
+             "LM training": "masked_attention_drop"}
+    for label, (b, h, tq, tk, dh), causal, kp in FWD_CASES:
+        q, k, v, k_valid, keep = attention_problem(rng, b, h, tq, tk, dh, kp)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            got, err = fwd_case(label, qd, kd, vd, k_valid, causal, keep, kp)
+            if dtype != torch.bfloat16 or label not in timed:
+                continue
+            r = results[timed[label]]
+            r["max_abs_err"] = err
+            r.update(zip(("ms", "plain_ms"), paired_ms(
+                lambda: attn._forward(qd, kd, vd, k_valid, causal, keep,
+                                      kp),
+                lambda: attn.masked_attention_reference(
+                    qd, kd, vd, k_valid, causal, keep, kp))))
+            # QK^T and PV over the causal triangle
+            set_bound(r, nbytes(*(x for x in (qd, kd, vd, k_valid, keep,
+                                              got) if x is not None)),
+                      {"bf16": 4 * b * h * tq * (tq + 1) // 2 * dh})
+            r["library_ms"] = None           # no PyTorch call takes a keep
+            if keep is None:
+                mask = (torch.ones(tq, tk, dtype=torch.bool, device=q.device)
+                        .tril()[None, None] & k_valid[:, None, None, :])
+                r["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qd, kd, vd, attn_mask=mask))
+    for label, (b, h, tq, tk, dh), causal, kp, path in FWD_EDGES:
+        q, k, v, k_valid, keep = attention_problem(rng, b, h, tq, tk, dh, kp)
+        fwd_case(label, *(x.to(torch.bfloat16) for x in (q, k, v)), k_valid,
+                 causal, keep, kp, path)
+
+
 def bwd_case(label, q, k, v, k_valid, dout, causal, keep, kp,
              path_bf16="mma"):
     """The masked attention backward at one shape: against its twin (bf16
@@ -594,13 +708,13 @@ def bwd_case(label, q, k, v, k_valid, dout, causal, keep, kp,
 
 
 def check_attention_training_kernels(results, rng):
-    """The backward kernel and the dropout forward against their twins at
-    the LM's training shape [64, 8, 64, 64]: causal, ragged keys with one
-    fully invalid row, keep mask off and at 0.5 (at keep 1.0 beside the
-    library yardstick); then the bf16 backward at e2e training's encoder
-    [8, 8, 134, 64] (keep 0.9) and pre-net time rows [640, 1, 134, 64] (no
-    keep mask). Every bf16 backward here takes the tensor-core path and
-    gives the same output twice (``bwd_case``)."""
+    """The backward kernel against its twin at the LM's training shape [64,
+    8, 64, 64]: causal, ragged keys with one fully invalid row, keep mask
+    off and at 0.5 (at keep 1.0 beside the library yardstick); then the
+    bf16 backward at e2e training's encoder [8, 8, 134, 64] (keep 0.9) and
+    pre-net time rows [640, 1, 134, 64] (no keep mask). Every bf16 backward
+    here takes the tensor-core path and gives the same output twice
+    (``bwd_case``). The dropout forward is ``check_attention_fwd``'s."""
     import torch
     from asr_dfcnn_transformer_torch.kernels import attention as attn
     dev = torch.device(DEVICE)
@@ -611,56 +725,30 @@ def check_attention_training_kernels(results, rng):
     k_valid[:, 0] = True
     k_valid[0] = False                           # one fully invalid row
     keep = torch.from_numpy(rng.uniform(size=(b, h, t, t)) < 0.5).to(dev)
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     for dtype in (torch.float32, torch.bfloat16):
         qd, kd, vd, dd = (x.to(dtype) for x in (q, k, v, dout))
         for mask in (None, keep):
             kp = 1.0 if mask is None else 0.5
-            errs, ok = [], True
-            if mask is not None:
-                fwd = attn._forward(qd, kd, vd, k_valid, True, mask, kp)
-                want = attn.masked_attention_reference(qd, kd, vd, k_valid,
-                                                       True, mask, kp)
-                good, err_f = close_enough(fwd, want, tol[dtype], tol[dtype])
-                good &= bool(torch.isfinite(fwd.float()).all())
-                ok &= good
-                errs.append(f"out {err_f:.3g}")
             got, err_b = bwd_case("LM", qd, kd, vd, k_valid, dd, True, mask,
                                   kp)
-            print(f"attention training kernels [{b}, {h}, {t}, {dh}] {dtype} "
-                  f"keep {kp}: max abs err {', '.join(errs) or '-'} (tol "
-                  f"{tol[dtype]}) {'ok' if ok else 'FAIL'}")
-            require(ok, "an attention training kernel disagrees with its twin")
             if dtype == torch.bfloat16 and mask is None:
                 bwd_library_keep1(qd, kd, vd, k_valid, dd)
             if dtype != torch.bfloat16 or mask is None:
                 continue
-            results["masked_attention_drop"]["max_abs_err"] = err_f
             results["masked_attention_bwd"]["max_abs_err"] = err_b
-            results["masked_attention_drop"].update(zip(
-                ("ms", "plain_ms"), paired_ms(
-                    lambda: attn._forward(qd, kd, vd, k_valid, True, mask,
-                                          kp),
-                    lambda: attn.masked_attention_reference(
-                        qd, kd, vd, k_valid, True, mask, kp))))
             results["masked_attention_bwd"].update(zip(
                 ("ms", "plain_ms"), paired_ms(
                     lambda: attn._backward(qd, kd, vd, k_valid, dd, True,
                                            mask, kp),
                     lambda: attn.masked_attention_bwd_reference(
                         qd, kd, vd, k_valid, dd, True, mask, kp))))
-            # over the causal triangle: QK^T and PV forward; S again, dV,
-            # dP, dQ and dK backward. No PyTorch call takes a keep mask.
+            # over the causal triangle: S again, dV, dP, dQ and dK. No
+            # PyTorch call takes a keep mask (the keep 1.0 yardstick is
+            # printed above).
             pairs = b * h * t * (t + 1) // 2
-            set_bound(results["masked_attention_drop"],
-                      nbytes(qd, kd, vd, k_valid, mask, fwd),
-                      {"bf16": 4 * pairs * dh})
             set_bound(results["masked_attention_bwd"],
                       nbytes(qd, kd, vd, k_valid, dd, mask, *got),
                       {"bf16": 10 * pairs * dh})
-            results["masked_attention_drop"]["library_ms"] = None
-            # at keep 0.5 no PyTorch call takes the keep mask (the keep 1.0
-            # yardstick is printed above)
             results["masked_attention_bwd"]["library_ms"] = None
     # the e2e training shapes: the encoder's self-attention (key-masked,
     # keep 0.9) and the pre-net's time rows (no dropout)
@@ -986,12 +1074,13 @@ def check_dual_attention_bwd(results, rng, cases):
 
 
 def check_cross_attention(rng):
-    """``masked_attention`` at the teacher-forced decoder's cross-attention
-    shape, q [8, 8, 65, 64] against key-masked k / v [8, 8, 134, 64]: the
-    forward, the dropout forward (keep 0.9) and the backward against their
-    twins in bf16 and f32, with the decoder's causal self-attention
-    backward [8, 8, 65, 64] (keep 0.9; ``bwd_case``: the tensor-core path in
-    bf16, the same output twice), then the bf16 times."""
+    """The masked attention backward at the teacher-forced decoder's
+    cross-attention shape, q [8, 8, 65, 64] against key-masked k / v [8, 8,
+    134, 64], keep 0.9, against its twin in bf16 and f32, with the
+    decoder's causal self-attention backward [8, 8, 65, 64] (keep 0.9;
+    ``bwd_case``: the tensor-core path in bf16, the same output twice),
+    then the bf16 times of the forward, the dropout forward and the
+    backward there (the forwards' checks are ``check_attention_fwd``'s)."""
     import torch
     from asr_dfcnn_transformer_torch.kernels import attention as attn
     dev = torch.device(DEVICE)
@@ -1003,20 +1092,8 @@ def check_cross_attention(rng):
     k_valid = torch.arange(tk, device=dev)[None, :] < torch.from_numpy(
         rng.integers(tk // 3, tk + 1, size=b)).to(dev)[:, None]
     keep = torch.from_numpy(rng.uniform(size=(b, h, tq, tk)) < 0.9).to(dev)
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     for dtype in (torch.bfloat16, torch.float32):
         qd, kd, vd, dd = (x.to(dtype) for x in (q, k, v, dout))
-        errs, ok = [], True
-        for name, got, want in (
-                ("out", attn._forward(qd, kd, vd, k_valid, False, None, 1.0),
-                 attn.masked_attention_reference(qd, kd, vd, k_valid)),
-                ("dropped out",
-                 attn._forward(qd, kd, vd, k_valid, False, keep, 0.9),
-                 attn.masked_attention_reference(qd, kd, vd, k_valid, False,
-                                                 keep, 0.9))):
-            good, err = close_enough(got, want, tol[dtype], tol[dtype])
-            ok &= good and bool(torch.isfinite(got.float()).all())
-            errs.append(f"{name} {err:.3g}")
         bwd_case("cross", qd, kd, vd, k_valid, dd, False, keep, 0.9)
         # the decoder's causal self-attention over its 65 label positions
         qs, ks, vs = (x[:, :, :tq] for x in (qd, kd, vd))
@@ -1025,11 +1102,6 @@ def check_cross_attention(rng):
         bwd_case("decoder causal", qs.contiguous(), ks.contiguous(),
                  vs.contiguous(), dec_valid, dd, True,
                  keep[..., :tq].contiguous(), 0.9)
-        print(f"masked_attention cross q [{b}, {h}, {tq}, {dh}] kv [{b}, {h}, "
-              f"{tk}, {dh}] {dtype}: forward max abs err {', '.join(errs)} "
-              f"(tol {tol[dtype]}) {'ok' if ok else 'FAIL'}")
-        require(ok, "masked_attention disagrees with its twin at the "
-                "cross-attention shape")
         if dtype != torch.bfloat16:
             continue
         times = [paired_ms(

@@ -67,6 +67,7 @@ def _both(q, k, v, k_valid, causal, dtype):
     (2, 2, 7, 7, 32, True, True),        # tiny everything
     (3, 4, 24, 40, 64, False, True),     # rectangular (Tq != Tk)
     (3, 4, 24, 40, 64, True, True),      # rectangular causal (Tq != Tk)
+    (2, 2, 65, 134, 64, False, True),    # the decoder's cross-attention
 ])
 def test_twin_matches_masked_flash(b, h, tq, tk, dh, causal, ragged, dtype):
     got, want = _both(*_inputs(0, b, h, tq, tk, dh, ragged), causal, dtype)
@@ -166,6 +167,44 @@ def test_vjp_matches_masked_flash(dtype, causal, keep):
     for name, x, y in zip(("out", "dq", "dk", "dv"), got, want):
         assert np.all(np.isfinite(x)), name
         np.testing.assert_allclose(x, y, atol=tol, rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_keep_prob_one_ignores_the_mask(dtype, causal):
+    """A keep mask at keep_prob 1.0 means no dropout, as in
+    masked_flash_attention (``dropout_mask is not None and keep_prob <
+    1.0``): the forward and the VJP with a random mask equal JAX's and the
+    port's own unmasked call."""
+    jdt, tdt, tol = _DTYPES[dtype]
+    q, k, v, k_valid = _inputs(9, 2, 2, 8, 8, 16, ragged=True,
+                               full_invalid_row=True)
+    g = np.random.default_rng(10).standard_normal(q.shape).astype(np.float32)
+    dmask = np.random.default_rng(12).uniform(size=(2, 2, 8, 8)) < 0.5
+    kv = jnp.asarray(k_valid)
+
+    def jax_fn(q_, k_, v_):
+        return masked_flash_attention(q_, k_, v_, kv, causal=causal,
+                                      dropout_mask=jnp.asarray(dmask),
+                                      keep_prob=1.0, interpret=True)
+
+    out, vjp = jax.vjp(jax_fn, *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    want = [np.asarray(x, np.float32)
+            for x in [out] + list(vjp(jnp.asarray(g, jdt)))]
+
+    def port(mask):
+        xs = [torch.from_numpy(x).to(tdt).requires_grad_(True)
+              for x in (q, k, v)]
+        o = masked_attention(*xs, torch.from_numpy(k_valid), causal=causal,
+                             keep_mask=mask, keep_prob=1.0)
+        grads = torch.autograd.grad(o, xs, torch.from_numpy(g).to(tdt))
+        return [x.detach().float().numpy() for x in (o, *grads)]
+
+    got = port(torch.from_numpy(dmask))
+    plain = port(None)
+    for name, x, y, z in zip(("out", "dq", "dk", "dv"), got, want, plain):
+        np.testing.assert_allclose(x, y, atol=tol, rtol=tol, err_msg=name)
+        np.testing.assert_array_equal(x, z, err_msg=name)
 
 
 def test_vjp_rectangular_matches_masked_flash():
@@ -269,3 +308,116 @@ def test_backward_takes_the_tensor_cores_at_main_path_shapes(label, tq, tk,
     assert attn.bwd_path(tq, tk, 64, torch.bfloat16) == "mma"
     assert attn.bwd_path(tq, tk, 64, torch.float32) == "chunked"
     assert attn.mma_bwd_smem_bytes(tq, tk, 64) == smem
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_twin_matches_masked_flash_at_cross_shape(dtype):
+    """The dropout forward at the decoder's cross-attention shape (Tq 65
+    against Tk 134, keep 0.9) against the interpreted JAX kernel."""
+    jdt, tdt, tol = _DTYPES[dtype]
+    q, k, v, k_valid = _inputs(13, 2, 2, 65, 134, 64, ragged=True)
+    dmask = np.random.default_rng(14).uniform(size=(2, 2, 65, 134)) < 0.9
+    want = masked_flash_attention(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), jnp.asarray(k_valid),
+        dropout_mask=jnp.asarray(dmask), keep_prob=0.9, interpret=True)
+    got = masked_attention(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+        torch.from_numpy(k_valid), keep_mask=torch.from_numpy(dmask),
+        keep_prob=0.9)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+def test_forward_path_follows_the_kernel_limits():
+    """``fwd_path`` mirrors csrc/attention.cu's ``fwd_path``: bf16 at Tk <=
+    160 and Dh <= 64 takes the tensor-core forward at any Tq, everything
+    else the scalar one; the limits are the source's constants, and the
+    tensor-core forward's shared memory (``mma_fwd_smem_bytes``) grows with
+    Tk and Dh only and stays within the 48 KB a block gets without opting
+    in (chip_smoke.py holds both mirrors to the C queries on the card)."""
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    src = (attn._build.CSRC / "attention.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["kFwdMaxTk"]) == attn._FWD_MAX_TK == 160
+    assert int(consts["kFwdMaxDh"]) == attn._FWD_MAX_DH == 64
+    for tq in (1, 16, 17, 64, 65, 100, 134, 160, 161, 1600):
+        for tk in (1, 15, 16, 17, 64, 65, 100, 134, 159, 160, 161, 1600):
+            for dh in (1, 7, 16, 63, 64, 65, 128):
+                fits = tk <= 160 and dh <= 64
+                assert attn.fwd_path(tq, tk, dh, torch.bfloat16) == (
+                    "mma" if fits else "scalar"), (tq, tk, dh)
+                assert attn.fwd_path(tq, tk, dh, torch.float32) == "scalar"
+    need = [attn.mma_fwd_smem_bytes(tk, dh)
+            for tk in range(1, 161) for dh in (1, 7, 8, 16, 32, 63, 64)]
+    assert max(need) == attn.mma_fwd_smem_bytes(160, 64) == 46_736
+    assert max(need) <= 48 * 1024
+    assert attn.mma_fwd_smem_bytes(1, 7) == 112
+    assert attn.mma_fwd_smem_bytes(65, 32) == 10_736
+
+
+@pytest.mark.parametrize("label,tq,tk,smem", [
+    ("lm_serving", 100, 100, 29_264),       # [8, 8, 100, 64] causal
+    ("lm_training", 64, 64, 18_704),        # [64, 8, 64, 64] causal, keep 0.5
+    ("e2e_encoder", 134, 134, 39_184),      # [8, 8, 134, 64], keep 0.9
+    ("e2e_time_rows", 134, 134, 39_184),    # [640, 1, 134, 64]
+    ("decoder_causal", 65, 65, 19_056),     # [8, 8, 65, 64], keep 0.9
+    ("decoder_cross", 65, 134, 39_184),     # q 65 / kv 134, keep 0.9
+])
+def test_forward_takes_the_tensor_cores_at_main_path_shapes(label, tq, tk,
+                                                            smem):
+    """Every bf16 forward shape of the LM and e2e paths takes the
+    tensor-core kernel, with the shared memory its source note gives
+    (csrc/attention.cu); f32 keeps the scalar kernel."""
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    assert attn.fwd_path(tq, tk, 64, torch.bfloat16) == "mma"
+    assert attn.fwd_path(tq, tk, 64, torch.float32) == "scalar"
+    assert attn.mma_fwd_smem_bytes(tk, 64) == smem
+    src = (attn._build.CSRC / "attention.cu").read_text()
+    note = " ".join(line.strip().lstrip("/").strip()
+                    for line in src.splitlines())
+    assert f"{smem:,} at Tk {tk}" in note, smem
+
+
+def _f32_round(x):
+    """An exact rational rounded to the nearest float32 (ties to even)."""
+    from fractions import Fraction
+    c = np.float32(float(x))
+    cands = (np.nextafter(c, np.float32(-np.inf)), c,
+             np.nextafter(c, np.float32(np.inf)))
+    return min(cands, key=lambda t: (abs(Fraction(float(t)) - x),
+                                     int(t.view(np.uint32)) & 1))
+
+
+def test_reciprocal_division_is_correctly_rounded():
+    """csrc/attention.cu's tensor-core forward divides by the row sum and by
+    keep as ``div_by``: q = x r with r = 1 / y, then q + (x - q y) r with
+    each step one float32 FMA. Emulated here exactly, it equals the
+    correctly rounded x / y (what ``/`` gives) at probabilities against
+    sums of 1-160 keys and against bf16 keep probabilities, wherever the
+    quotient is above 1e-36 (below it, it may differ by one ulp of a value
+    that adds nothing to P.V)."""
+    from fractions import Fraction
+    rng = np.random.default_rng(20)
+    xs = np.concatenate([rng.uniform(0, 1, 1500),
+                         np.exp(-rng.uniform(0, 87, 1500)), [0.0, 1.0]]
+                        ).astype(np.float32)
+    sums = np.concatenate([rng.uniform(1, 160, 1500),
+                           rng.uniform(1, 2, 1500), [1.0, 3.0]]
+                          ).astype(np.float32)
+    keeps = np.float32([0.5, 0.8984375, 0.69921875])   # bf16 0.5, 0.9, 0.7
+
+    def fma(a, b, c):
+        return _f32_round(Fraction(float(a)) * Fraction(float(b))
+                          + Fraction(float(c)))
+
+    def div_by(x, y):
+        r = _f32_round(1 / Fraction(float(y)))
+        q = np.float32(x * r)
+        return fma(fma(-q, y, x), r, q)
+
+    pairs = list(zip(xs, sums)) + [(x, kp) for kp in keeps for x in xs[:500]]
+    for x, y in pairs:
+        want = _f32_round(Fraction(float(x)) / Fraction(float(y)))
+        if want > 1e-36 or want == 0:
+            assert div_by(x, y) == want, (x, y)
