@@ -1,15 +1,21 @@
 """Time this tree's kernels against another checkout's, in turns, on one card.
 
     python3 -m asr_dfcnn_transformer_torch.compare_kernels \\
-        --kernel {dual_attention,fused_ffn,masked_attention,
-                  masked_attention_bwd} \\
+        --kernel {beam_search,dual_attention,fused_ffn,log_mel,
+                  masked_attention,masked_attention_bwd} \\
         --other DIR [--out PATH]
 
 ``DIR`` is the root of another checkout of the repository (for example
 the parent commit, unpacked with ``git archive``). Both kernel libraries
 are built from their own ``csrc/`` (each by its own ``kernels/_build.py``)
 and loaded into this one process; each is called through its own C entry
-point on the same seeded bf16 inputs at the main paths' shapes:
+point on the same seeded inputs at the main paths' shapes:
+
+- ``beam_search``: the beam path's lattice, log-probs [8, 200, 1536] f32
+  with lengths [200, 0, 150, 50, 100, 173, 200, 1], W = K = 8, L 100, and
+  the same at batch 1; prefixes and lengths held equal to this tree's
+  twin, pb / pnb within 1e-5, and the two libraries' outputs compared bit
+  for bit. No library yardstick.
 
 - ``dual_attention``: the forward and the backward at the e2e pre-net's
   frequency rows [1072, 80, 64] (batch 8, bucket 1600); the forward held
@@ -21,6 +27,12 @@ point on the same seeded bf16 inputs at the main paths' shapes:
   [4096, 1024] with inner 4096; held to the twin within 2e-2 with at most
   one element in 100 differing; the yardstick ``F.linear`` -> relu ->
   ``F.linear`` on cuBLAS.
+- ``log_mel``: [8, 256,240] f32 signals with ragged lengths to 1600
+  frames, with the AM's 200 filters and the e2e front end's 80; held to
+  the twin within rtol 1e-4, atol 1e-3, with the count of elements more
+  than 1e-5 off and the largest difference. No one PyTorch call computes
+  it: the note ``rfft`` is ``torch.fft.rfft`` (cuFFT) of the [12,800, 512]
+  f64 frame matrix, the FFT stage alone.
 - ``masked_attention``: the forward at every main-path shape: the LM
   served [8, 8, 100, 64] causal and trained [64, 8, 64, 64] causal at keep
   0.5, the e2e encoder [8, 8, 134, 64] at keep 0.9 and without a keep
@@ -29,7 +41,9 @@ point on the same seeded bf16 inputs at the main paths' shapes:
   ragged keys with a fully invalid row; held to the twin within 2e-2,
   with the count of differing elements; the yardstick, where there is no
   keep mask, ``scaled_dot_product_attention`` with the float additive
-  mask.
+  mask; and on the scalar kernel, f32 at the e2e encoder's [8, 8, 134,
+  64] and bf16 at an LM input of 400 ids [8, 8, 400, 64] causal, whose
+  outputs must equal the other library's bit for bit.
 - ``masked_attention_bwd``: the LM's [64, 8, 64, 64] causal at keep 0.5
   and at keep 1.0, the e2e encoder's [8, 8, 134, 64] at keep 0.9 and the
   pre-net's time rows [640, 1, 134, 64] without a keep mask, ragged keys
@@ -39,10 +53,11 @@ point on the same seeded bf16 inputs at the main paths' shapes:
 
 Each case reports CUDA-event ms in turns (other, this, this, other), the
 profiler's device time per call, the bound (the bytes over 3.35 TB/s or the
-products over 989 TFLOP/s of bf16, whichever is larger) and the yardstick's
-CUDA-event ms and device time. Prints the card's name and power limit, then
-one JSON object, which ``--out`` also receives. Needs one CUDA device;
-exits non-zero without one.
+operations over their type's peak, 989 TFLOP/s of bf16, 67 of f32 or f64,
+whichever is larger; ``bounds.py``'s counts, which ``chip_smoke.py`` uses
+too) and the yardstick's CUDA-event ms and device time. Prints the card's
+name and power limit, then one JSON object, which ``--out`` also receives.
+Needs one CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -59,16 +74,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from asr_dfcnn_transformer_torch import bounds
+from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
+                                                     samples_for_frames)
 from asr_dfcnn_transformer_torch.kernels import _build
 from asr_dfcnn_transformer_torch.kernels import attention as attn
+from asr_dfcnn_transformer_torch.kernels import beam as kbeam
+from asr_dfcnn_transformer_torch.kernels import fbank as kfbank
+from asr_dfcnn_transformer_torch.kernels.topk import topk_last_reference
 from asr_dfcnn_transformer_torch.kernels.dual_attention import (
     _scale, dual_axis_attention_bwd_reference, dual_axis_attention_reference)
 from asr_dfcnn_transformer_torch.kernels.ffn import fused_ffn_reference
 from asr_dfcnn_transformer_torch.timing import (additive_mask, cuda_ms,
                                                 device_us)
 
-PEAK_BYTES_S = 3.35e12       # H100 SXM, data sheet
-PEAK_BF16_S = 989e12
 DUAL_SHAPE = (1072, 80, 64)  # B 8 x T' 134 rows of F' 80, C 64
 DUAL_KERNELS = {             # __global__ names by library, bf16
     "fwd": ("dual_attention_kernel", "dual_attention_mma_kernel"),
@@ -85,6 +104,13 @@ FWD_CASES = (   # label, (B, H, Tq, Tk, Dh), causal, keep probability
     ("decoder_causal", (8, 8, 65, 65, 64), True, 0.9),
     ("decoder_cross", (8, 8, 65, 134, 64), False, 0.9),
 )
+SCALAR_CASES = (   # the scalar kernel, held to the other library's bits
+    ("e2e_encoder_f32", (8, 8, 134, 134, 64), False, 1.0),
+    ("lm_long_bf16", (8, 8, 400, 400, 64), True, 1.0),
+)
+BEAM_LENS = (200, 0, 150, 50, 100, 173, 200, 1)   # chip_smoke's path case
+BEAM_W, BEAM_L, BEAM_V = 8, 100, 1536
+LOG_MEL_FRAMES, LOG_MEL_NFILT = 1600, (200, 80)
 BWD_CASES = (   # label, (B, H, T, Dh), causal, keep probability
     ("lm", (64, 8, 64, 64), True, 0.5),
     ("lm_keep1", (64, 8, 64, 64), True, 1.0),
@@ -113,12 +139,12 @@ def _in_turns(other, this):
 
 
 def _bound_ms(n_bytes: float, bf16_ops: float) -> float:
-    return max(n_bytes / PEAK_BYTES_S, bf16_ops / PEAK_BF16_S) * 1e3
+    return bounds.bound(n_bytes, {"bf16": bf16_ops})[0]
 
 
-def _bf16(rng, shape, dev, scale=1.0):
+def _bf16(rng, shape, dev, scale=1.0, dtype=torch.bfloat16):
     return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
-        np.float32)).to(dev, torch.bfloat16)
+        np.float32)).to(dev, dtype)
 
 
 def _masks(rng, b, h, tq, tk, kp, dev):
@@ -273,17 +299,21 @@ def compare_fused_ffn(libs, dev, rng) -> dict:
 
 def compare_masked_attention(libs, dev, rng) -> dict:
     stream = _build.stream_ptr(dev)
-    res = {"dtype": "bfloat16"}
-    for label, (b, h, tq, tk, dh), causal, kp in FWD_CASES:
-        q = _bf16(rng, (b, h, tq, dh), dev)
-        k, v = (_bf16(rng, (b, h, tk, dh), dev) for _ in range(2))
+    res = {"dtype": "bfloat16; f32 where the label says so"}
+    for label, (b, h, tq, tk, dh), causal, kp in FWD_CASES + SCALAR_CASES:
+        dtype = torch.float32 if label.endswith("f32") else torch.bfloat16
+        scalar = label in {case[0] for case in SCALAR_CASES}
+        q = _bf16(rng, (b, h, tq, dh), dev, dtype=dtype)
+        k, v = (_bf16(rng, (b, h, tk, dh), dev, dtype=dtype)
+                for _ in range(2))
         k_valid, keep = _masks(rng, b, h, tq, tk, kp, dev)
         out = {side: torch.empty_like(q) for side in libs}
 
         def call(side):
             def run():
                 rc = libs[side].asr_masked_attention(
-                    1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    _build.DTYPE_CODES[dtype], q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(),
                     k_valid.data_ptr(),
                     None if keep is None else keep.data_ptr(), kp,
                     out[side].data_ptr(), b, h, tq, tk, dh, attn._scale(dh),
@@ -295,21 +325,25 @@ def compare_masked_attention(libs, dev, rng) -> dict:
         want = attn.masked_attention_reference(q, k, v, k_valid, causal, keep,
                                                kp)
         key = f"fwd_{label}"
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
         for side in libs:
             call(side)()
             torch.cuda.synchronize()
             res[f"{key}_{side}_differing"] = _differing((out[side],), (want,),
-                                                        2e-2, 1.0)
+                                                        tol, 1.0)
             res[f"{key}_{side}_device_us"] = _us(call(side),
                                                  "masked_attention")
         res[f"{key}_other_ms"], res[f"{key}_this_ms"] = _in_turns(
             call("other"), call("this"))
-        # Q, K, V, the key mask, the keep mask and the output; QK^T and P.V
-        # over the causal triangle (Tq <= Tk) or the rectangle
-        pairs = b * h * (tq * (tq + 1) // 2 if causal else tq * tk)
-        n_bytes = (2 * b * h * tq * dh + 2 * b * h * tk * dh) * 2 + b * tk \
-            + (0 if keep is None else keep.numel())
-        res[f"{key}_bound_ms"] = _bound_ms(n_bytes, 4 * pairs * dh)
+        res[f"{key}_bound_ms"] = bounds.bound(*bounds.masked_attention_work(
+            q, k, v, k_valid, keep, out["this"], causal))[0]
+        if scalar:
+            same = torch.equal(out["this"], out["other"])
+            res[f"{key}_sides_bit_equal"] = same
+            if not same:
+                raise SystemExit(f"{label}: the two libraries' outputs "
+                                 "differ")
+            continue
         if keep is not None:
             continue
         mask = additive_mask(k_valid, tq, tk, causal, torch.bfloat16)
@@ -357,12 +391,9 @@ def compare_masked_attention_bwd(libs, dev, rng) -> dict:
                 call(side), "masked_attention_bwd")
         res[f"{key}_other_ms"], res[f"{key}_this_ms"] = _in_turns(
             call("other"), call("this"))
-        # Q, K, V, dO, the key mask, the keep mask and three gradients; S
-        # again, dP, dQ, dK and dV over the causal triangle or the square
-        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
-        n_bytes = 7 * b * h * t * dh * 2 + b * t + (0 if keep is None
-                                                    else keep.numel())
-        res[f"{key}_bound_ms"] = _bound_ms(n_bytes, 10 * pairs * dh)
+        res[f"{key}_bound_ms"] = bounds.bound(
+            *bounds.masked_attention_bwd_work(q, k, v, k_valid, g, keep,
+                                              grads["this"], causal))[0]
         if keep is not None:
             continue
         mask = additive_mask(k_valid, t, t, causal, torch.bfloat16)
@@ -377,7 +408,134 @@ def compare_masked_attention_bwd(libs, dev, rng) -> dict:
     return res
 
 
-COMPARE = {"dual_attention": compare_dual_attention,
+def compare_beam_search(libs, dev, rng) -> dict:
+    stream = _build.stream_ptr(dev)
+    res = {"dtype": "float32", "W": BEAM_W, "K": BEAM_W, "L": BEAM_L}
+    for label, lens in (("path", BEAM_LENS), ("batch1", BEAM_LENS[:1])):
+        b, t, v = len(lens), max(BEAM_LENS), BEAM_V
+        lp = torch.log_softmax(_bf16(rng, (b, t, v), dev, 2.0,
+                                     torch.float32), -1)
+        top_lp, top_ids = topk_last_reference(lp, BEAM_W)
+        lens_d = torch.tensor(lens, dtype=torch.int32, device=dev)
+        outs = {side: (torch.empty((b, BEAM_W, BEAM_L), dtype=torch.int32,
+                                   device=dev),
+                       torch.empty((b, BEAM_W), dtype=torch.int32,
+                                   device=dev),
+                       torch.empty((b, BEAM_W), device=dev),
+                       torch.empty((b, BEAM_W), device=dev))
+                for side in libs}
+        scratch = torch.empty((b, t, BEAM_W), dtype=torch.int32, device=dev)
+
+        def call(side):
+            lib = libs[side]
+            ptrs = [lp.data_ptr(), top_lp.data_ptr(), top_ids.data_ptr(),
+                    lens_d.data_ptr()]
+            if len(lib.asr_beam_search.argtypes) == 17:   # back-pointers
+                ptrs.append(scratch.data_ptr())
+            ptrs += [o.data_ptr() for o in outs[side]]
+
+            def run():
+                rc = lib.asr_beam_search(*ptrs, b, t, v, BEAM_W, BEAM_W,
+                                         v - 1, BEAM_L, stream)
+                if rc:
+                    raise SystemExit(f"{side} beam_search failed: {rc}")
+            return run
+
+        want = kbeam.beam_search_reference(
+            lp, top_lp, top_ids, lens_d, beam_width=BEAM_W, topk=BEAM_W,
+            blank=v - 1, max_decode_len=BEAM_L)
+        key = f"beam_{label}"
+        for side in libs:
+            call(side)()
+            torch.cuda.synchronize()
+            got = outs[side]
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise SystemExit(f"{side} beam_search: prefixes or lengths "
+                                 "differ from the twin")
+            err = max(float((g - w).abs().max())
+                      for g, w in zip(got[2:], want[2:]))
+            if err > 1e-5:
+                raise SystemExit(f"{side} beam_search: pb / pnb {err} from "
+                                 "the twin")
+            res[f"{key}_{side}_max_abs_err"] = err
+            res[f"{key}_{side}_device_us"] = _us(call(side),
+                                                 "beam_search_kernel")
+        res[f"{key}_sides_bit_equal"] = all(
+            torch.equal(a, c) for a, c in zip(outs["this"], outs["other"]))
+        res[f"{key}_other_ms"], res[f"{key}_this_ms"] = _in_turns(
+            call("other"), call("this"))
+        frames = sum(min(n, t) for n in lens)
+        res[f"{key}_bound_ms"] = bounds.bound(*bounds.beam_search_work(
+            frames, BEAM_W, BEAM_W, lens_d, outs["this"]))[0]
+    return res
+
+
+def compare_log_mel(libs, dev, rng) -> dict:
+    stream = _build.stream_ptr(dev)
+    res = {"dtype": "float32"}
+    s = samples_for_frames(LOG_MEL_FRAMES)
+    t = np.arange(s) / 16000.0
+    f0 = rng.uniform(120.0, 400.0, size=(8, 1))
+    sig = torch.from_numpy((0.3 * np.sin(2 * np.pi * f0 * t)
+                            + 0.01 * rng.standard_normal((8, s))).astype(
+        np.float32)).to(dev)
+    lens = torch.from_numpy(rng.integers(s // 4, s + 1, size=8).astype(
+        np.int32)).to(dev)
+    for nfilt in LOG_MEL_NFILT:
+        cfg = FbankConfig(nfilt=nfilt)
+        cos_b, sin_b, mel = kfbank._bases(cfg, dev)
+        tw, spans, weights = kfbank._fft_tables(cfg, dev)
+        out = {side: torch.empty((8, LOG_MEL_FRAMES, nfilt), device=dev)
+               for side in libs}
+
+        def call(side):
+            lib = libs[side]
+            tables = ((tw, spans, weights) if side == "this"
+                      else (cos_b, sin_b, mel))
+
+            def run():
+                rc = lib.asr_log_mel(
+                    sig.data_ptr(), lens.data_ptr(),
+                    *(x.data_ptr() for x in tables), out[side].data_ptr(), 8,
+                    s, LOG_MEL_FRAMES, nfilt, cfg.preemph, 1.0 / cfg.nfft,
+                    stream)
+                if rc:
+                    raise SystemExit(f"{side} log_mel failed: {rc}")
+            return run
+
+        want = kfbank.log_mel_reference(sig, lens, LOG_MEL_FRAMES, cfg)
+        key = f"log_mel_nfilt{nfilt}"
+        for side in libs:
+            call(side)()
+            torch.cuda.synchronize()
+            d = (out[side] - want).abs()
+            if not bool((d <= 1e-3 + 1e-4 * want.abs()).all()):
+                raise SystemExit(f"{side} log_mel: {float(d.max())} from "
+                                 "the twin")
+            res[f"{key}_{side}_max_abs_err"] = float(d.max())
+            res[f"{key}_{side}_over_1e-5"] = int((d > 1e-5).sum())
+            res[f"{key}_{side}_device_us"] = _us(call(side), "log_mel")
+        res[f"{key}_other_ms"], res[f"{key}_this_ms"] = _in_turns(
+            call("other"), call("this"))
+        res[f"{key}_bound_ms"] = bounds.bound(*bounds.log_mel_work(
+            sig, lens, spans, weights, out["this"]))[0]
+    need = (LOG_MEL_FRAMES - 1) * 160 + 400
+    frames = torch.nn.functional.pad(sig, (0, max(0, need - s)))[:, :need] \
+        .unfold(1, 400, 160).reshape(-1, 400).double().contiguous()
+
+    def rfft():
+        torch.fft.rfft(frames, 512)
+
+    res["rfft_f64_frames"] = list(frames.shape)
+    res["rfft_ms"] = _ms(rfft)
+    res["rfft_device_us"] = _us(rfft, None)
+    return res
+
+
+COMPARE = {"beam_search": compare_beam_search,
+           "dual_attention": compare_dual_attention,
+           "log_mel": compare_log_mel,
            "fused_ffn": compare_fused_ffn,
            "masked_attention": compare_masked_attention,
            "masked_attention_bwd": compare_masked_attention_bwd}

@@ -52,13 +52,25 @@
 //   Tk 134, at most 46,736 (Tk 160), within the 48 KB a block gets without
 //   opting in.
 //   Elsewhere (f32, Tk above 160, Dh above 64): masked_attention_kernel,
-//   one block per (b*h, 16-query tile) with K and V for that (b, h) staged
-//   in shared memory (K rows padded by one 32-bit word so lanes reading
-//   different keys hit different banks), one warp per query row: lanes own
-//   keys for the scores and the softmax (warp shuffles for max and sum),
-//   then own head dims for P.V. The TPU version's block-diagonal row packing
-//   was an MXU-shape device and is dropped. Tk is limited by shared memory
-//   (raises above it); Dh <= 128.
+//   one block per (b*h, 16-query tile), one warp per query row at a time:
+//   lanes own keys for the scores and the softmax (warp shuffles for max
+//   and sum), then own head dims for P.V. The keys are walked in chunks of
+//   64 staged in shared memory (K rows padded by one 32-bit word so lanes
+//   reading different keys hit different banks), in three walks: the row
+//   max, the sum, then P and P.V. Up to Tk 512 the first walk keeps the
+//   block's scores in shared memory for the other two; above it each walk
+//   recomputes them, so that shared memory (smem_bytes, kernels/attention.py
+//   fwd_smem_bytes) stops growing with Tk: 38,144 bytes at f32 Dh 64 and
+//   75,008 at f32 Dh 128 with no scores kept, at most 107,776 with them,
+//   and the kernel takes every Tk at Dh <= 128. Past Tk 512 the kept scores
+//   cost more in blocks per SM than recomputing them costs in arithmetic
+//   (timed both ways on an NVIDIA H100 80GB HBM3 at 700.00 W). Each key stays with lane j
+//   mod 32 and P.V sums keys in order, so it gives, bit for bit, the
+//   outputs of the earlier kernel that staged a (b, h)'s whole K and V (and
+//   refused Tk above 435 at f32 Dh 64), scores kept or not; no online
+//   softmax, which would round P otherwise. The
+//   TPU version's block-diagonal row packing was an MXU-shape device and
+//   is dropped.
 //
 // Backward (recompute VJP, as _mflash_bwd_kernel): P = exp(s - max) / sum
 // in f32 (not the forward's softmax call); dP = dO.V^T; with dropout
@@ -125,8 +137,13 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kRowsPerBlock = 16;
+constexpr int kFwdRowsPerWarp = kRowsPerBlock / kWarps;
 constexpr int kMaxSmem = 232448;  // 227 KB opt-in limit of sm_90
 constexpr float kBigNeg = -1e9f;
+constexpr int kMaxDh = 128;
+constexpr int kDSlots = kMaxDh / 32;    // head dims a lane owns
+constexpr int kKeyChunk = 64;           // keys staged at a time
+constexpr int kMaxKeptTk = 512;         // scalar forward keeps scores to here
 
 // K row stride in elements: Dh plus one 32-bit word of padding.
 template <typename T>
@@ -134,13 +151,78 @@ __host__ __device__ constexpr int k_stride(int dh) {
   return dh + static_cast<int>(4 / sizeof(T));
 }
 
-template <typename T>
-size_t smem_bytes(int tk, int dh) {
-  size_t kv = static_cast<size_t>(tk) * (k_stride<T>(dh) + dh) * sizeof(T);
-  kv = (kv + 15) / 16 * 16;
-  return kv + static_cast<size_t>(kWarps) * (dh + tk) * sizeof(float);
+// Reserves `bytes` at `off` (kept 16-byte aligned) and returns its offset.
+__host__ __device__ inline size_t take(size_t& off, size_t bytes) {
+  const size_t at = off;
+  off = (off + bytes + 15) / 16 * 16;
+  return at;
 }
 
+// The scalar forward's shared memory, in this order: a K chunk
+// [64][k_stride] and a V chunk [64][Dh] in T; the block's 16 query rows in
+// f32 [16][Dh]; per warp a P chunk [64] f32; and, where Tk <= kMaxKeptTk,
+// the block's scores [16][Tk] f32 (`kept`). Independent of Tq; at most
+// 75,008 + 32,768 bytes (f32, Dh 128, Tk 512).
+template <typename T>
+struct FwdLayout {
+  size_t k, v, rows, p, s, total;
+  bool kept;
+  __host__ __device__ FwdLayout(int dh, int tk) {
+    size_t off = 0;
+    k = take(off, static_cast<size_t>(kKeyChunk) * k_stride<T>(dh) *
+                      sizeof(T));
+    v = take(off, static_cast<size_t>(kKeyChunk) * dh * sizeof(T));
+    rows = take(off, static_cast<size_t>(kRowsPerBlock) * dh * sizeof(float));
+    p = take(off, static_cast<size_t>(kWarps) * kKeyChunk * sizeof(float));
+    kept = tk <= kMaxKeptTk;
+    s = take(off, kept ? static_cast<size_t>(kRowsPerBlock) * tk *
+                             sizeof(float)
+                       : 0);
+    total = off;
+  }
+};
+
+template <typename T>
+size_t smem_bytes(int dh, int tk) {
+  return FwdLayout<T>(dh, tk).total;
+}
+
+// The score of one (query, key) pair, as every scalar kernel here forms
+// it: an f32 dot product over d in order, times scale (rounded: no
+// contraction), plus the mask.
+template <typename Q, typename K>
+__device__ __forceinline__ float score(const Q* qr, const K* kr, int Dh,
+                                       float scale, bool ok) {
+  float acc = 0.f;
+  for (int d = 0; d < Dh; ++d) acc = fmaf(to_f32(qr[d]), to_f32(kr[d]), acc);
+  return __fadd_rn(__fmul_rn(acc, scale), ok ? 0.f : kBigNeg);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// One block per (b*h, 16 query rows), one warp per query row at a time
+// (warp w takes rows w, w + 4, ...; four a warp, all in flight at once).
+// Three walks over the keys: (0) the row max, (1) the sum of
+// expf(s - max), (2) P = expf(s - max) / sum rounded to T (then the keep
+// mask), into a per-warp chunk, and P.V. Walks over K or V stage chunks of
+// 64 keys in shared memory. Where the block's scores fit (`kept`, Tk <=
+// kMaxKeptTk) walk 0 stores them, walk 1 reads them without staging and
+// walk 2 stages V alone; above that every walk stages K and recomputes
+// each score. Key j stays with lane j mod 32 for the max and the sum, P.V
+// is summed over j = 0..Tk-1 in order, and the reductions are the same xor
+// shuffles: the arithmetic, and so every output bit, of the earlier kernel
+// that staged a (b, h)'s whole K and V, on either side of kMaxKeptTk.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -150,82 +232,136 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float keep_prob, T* __restrict__ out, int H, int Tq,
                         int Tk, int Dh, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const FwdLayout<T> lay(Dh, Tk);
+  const bool kept = lay.kept;
   const int ks_stride = k_stride<T>(Dh);
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + static_cast<size_t>(Tk) * ks_stride;
-  size_t kv_bytes =
-      static_cast<size_t>(Tk) * (ks_stride + Dh) * sizeof(T);
-  kv_bytes = (kv_bytes + 15) / 16 * 16;
+  T* kc = reinterpret_cast<T*>(smem + lay.k);
+  T* vc = reinterpret_cast<T*>(smem + lay.v);
+  float* qrows = reinterpret_cast<float*>(smem + lay.rows);
+  float* srows = reinterpret_cast<float*>(smem + lay.s);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float* qs = reinterpret_cast<float*>(smem + kv_bytes) + warp * (Dh + Tk);
-  float* ps = qs + Dh;
+  float* pc = reinterpret_cast<float*>(smem + lay.p) + warp * kKeyChunk;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
-  const size_t kv_off = static_cast<size_t>(bh) * Tk * Dh;
-  for (int i = threadIdx.x; i < Tk * Dh; i += blockDim.x) {
-    const int r = i / Dh;
-    const int c = i - r * Dh;
-    ks[r * ks_stride + c] = k[kv_off + i];
-    vs[i] = v[kv_off + i];
-  }
-  __syncthreads();
-
-  const unsigned char* valid_row =
-      k_valid + static_cast<size_t>(b) * Tk;
   const int row0 = static_cast<int>(blockIdx.y) * kRowsPerBlock;
-  const int row_end = min(Tq, row0 + kRowsPerBlock);
-  for (int row = row0 + warp; row < row_end;
-       row += kWarps) {
-    const size_t q_off = (static_cast<size_t>(bh) * Tq + row) * Dh;
-    for (int d = lane; d < Dh; d += 32) qs[d] = to_f32(q[q_off + d]);
-    __syncwarp();
+  const size_t q_off = static_cast<size_t>(bh) * Tq * Dh;
+  const size_t kv_off = static_cast<size_t>(bh) * Tk * Dh;
+  for (int i = threadIdx.x; i < kRowsPerBlock * Dh; i += blockDim.x) {
+    const int row = row0 + i / Dh;
+    qrows[i] = row < Tq ? to_f32(q[q_off + static_cast<size_t>(row0) * Dh +
+                                   i])
+                        : 0.f;
+  }  // read after the first chunk's barrier
 
-    float m = -INFINITY;
-    for (int j = lane; j < Tk; j += 32) {
-      const T* kr = ks + j * ks_stride;
-      float acc = 0.f;
-      for (int d = 0; d < Dh; ++d) acc = fmaf(qs[d], to_f32(kr[d]), acc);
-      const bool ok = valid_row[j] != 0 && (!causal || j <= row);
-      // no contraction: the score is rounded before the mask is added
-      const float s = __fadd_rn(__fmul_rn(acc, scale), ok ? 0.f : kBigNeg);
-      ps[j] = s;
-      m = fmaxf(m, s);
+  const unsigned char* valid_row = k_valid + static_cast<size_t>(b) * Tk;
+  const float kp = to_f32(from_f32<T>(keep_prob));
+  float m[kFwdRowsPerWarp], sum[kFwdRowsPerWarp];
+  float acc[kFwdRowsPerWarp][kDSlots];
+#pragma unroll
+  for (int r = 0; r < kFwdRowsPerWarp; ++r) {
+    m[r] = -INFINITY;
+    sum[r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < kDSlots; ++t) acc[r][t] = 0.f;
+  }
+
+  for (int pass = 0; pass < 3; ++pass) {
+    if (kept && pass == 1) {
+      // the sum from the kept scores, keys in the same lane order
+#pragma unroll
+      for (int r = 0; r < kFwdRowsPerWarp; ++r) {
+        const int rr = warp + r * kWarps;
+        if (row0 + rr >= Tq) break;  // warp-uniform
+        const float* sr = srows + static_cast<size_t>(rr) * Tk;
+        for (int key = lane; key < Tk; key += 32)
+          sum[r] += expf(sr[key] - m[r]);
+        sum[r] = warp_sum(sum[r]);
+      }
+      continue;
+    }
+    const bool stage_k = pass == 0 || !kept;
+    for (int c0 = 0; c0 < Tk; c0 += kKeyChunk) {
+      const int n = min(kKeyChunk, Tk - c0);
+      __syncthreads();  // the previous chunk is read by every warp
+      for (int i = threadIdx.x; i < n * Dh; i += blockDim.x) {
+        const int r = i / Dh;
+        const int c = i - r * Dh;
+        const size_t g = kv_off + static_cast<size_t>(c0) * Dh + i;
+        if (stage_k) kc[r * ks_stride + c] = k[g];
+        if (pass == 2) vc[i] = v[g];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kFwdRowsPerWarp; ++r) {
+        const int rr = warp + r * kWarps;
+        const int row = row0 + rr;
+        if (row >= Tq) break;  // warp-uniform
+        const float* qs = qrows + rr * Dh;
+        float* sr = srows + static_cast<size_t>(rr) * Tk;
+        if (pass < 2) {
+          for (int j = lane; j < n; j += 32) {
+            const int key = c0 + j;
+            const bool ok = valid_row[key] != 0 && (!causal || key <= row);
+            const float s = score(qs, kc + j * ks_stride, Dh, scale, ok);
+            if (pass == 0) {
+              m[r] = fmaxf(m[r], s);
+              if (kept) sr[key] = s;  // read back by this lane alone
+            } else {
+              sum[r] += expf(s - m[r]);
+            }
+          }
+          continue;
+        }
+        // probabilities rounded to the input type before P.V
+        const unsigned char* keep_row =
+            keep == nullptr
+                ? nullptr
+                : keep + (static_cast<size_t>(bh) * Tq + row) * Tk;
+        for (int j = lane; j < n; j += 32) {
+          const int key = c0 + j;
+          float s;
+          if (kept) {
+            s = sr[key];
+          } else {
+            const bool ok = valid_row[key] != 0 && (!causal || key <= row);
+            s = score(qs, kc + j * ks_stride, Dh, scale, ok);
+          }
+          float p = to_f32(from_f32<T>(expf(s - m[r]) / sum[r]));
+          // dropout: (p / keep_prob) * mask in the input type
+          if (keep_row != nullptr)
+            p = keep_row[key] ? to_f32(from_f32<T>(p / kp)) : 0.f;
+          pc[j] = p;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int t = 0; t < kDSlots; ++t) {
+          const int d = lane + 32 * t;
+          if (d < Dh) {
+            for (int j = 0; j < n; ++j)
+              acc[r][t] = fmaf(pc[j], to_f32(vc[j * Dh + d]), acc[r][t]);
+          }
+        }
+        __syncwarp();  // pc is rewritten by the next row
+      }
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-
-    float sum = 0.f;
-    for (int j = lane; j < Tk; j += 32) {
-      const float e = expf(ps[j] - m);
-      ps[j] = e;
-      sum += e;
+    for (int r = 0; r < kFwdRowsPerWarp; ++r) {
+      if (pass == 0) m[r] = warp_max(m[r]);
+      if (pass == 1) sum[r] = warp_sum(sum[r]);  // recomputed walk only
     }
+  }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    // probabilities rounded to the input type before P.V
-    for (int j = lane; j < Tk; j += 32)
-      ps[j] = to_f32(from_f32<T>(ps[j] / sum));
-    if (keep != nullptr) {
-      // dropout: (p / keep_prob) * mask in the input type
-      const float kp = to_f32(from_f32<T>(keep_prob));
-      const unsigned char* keep_row =
-          keep + (static_cast<size_t>(bh) * Tq + row) * Tk;
-      for (int j = lane; j < Tk; j += 32)
-        ps[j] = keep_row[j] ? to_f32(from_f32<T>(ps[j] / kp)) : 0.f;
+  for (int r = 0; r < kFwdRowsPerWarp; ++r) {
+    const int row = row0 + warp + r * kWarps;
+    if (row >= Tq) break;
+#pragma unroll
+    for (int t = 0; t < kDSlots; ++t) {
+      const int d = lane + 32 * t;
+      if (d < Dh)
+        out[q_off + static_cast<size_t>(row) * Dh + d] = from_f32<T>(acc[r][t]);
     }
-    __syncwarp();
-
-    for (int d = lane; d < Dh; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < Tk; ++j)
-        acc = fmaf(ps[j], to_f32(vs[static_cast<size_t>(j) * Dh + d]), acc);
-      out[q_off + d] = from_f32<T>(acc);
-    }
-    __syncwarp();  // qs / ps are rewritten by the next row
   }
 }
 
@@ -233,9 +369,9 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* k_valid,
            const void* keep, float keep_prob, void* out, int B, int H, int Tq,
            int Tk, int Dh, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(Tk, Dh);
-  if (smem > static_cast<size_t>(kMaxSmem))
+  if (Dh < 1 || Dh > kMaxDh || Tk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes<T>(Dh, Tk);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         masked_attention_kernel<T>,
@@ -254,21 +390,11 @@ int launch(const void* q, const void* k, const void* v, const void* k_valid,
 // ---------------------------------------------------------------- backward
 
 constexpr int kBwdWarps = 8;
-constexpr int kMaxDh = 128;
-constexpr int kDSlots = kMaxDh / 32;    // head dims a lane owns
 constexpr int kRowsPerWarp = 2;         // launch (a): query rows of a warp
 constexpr int kBwdQRows = kBwdWarps * kRowsPerWarp;
-constexpr int kKeyChunk = 64;           // launch (a): keys staged at a time
 constexpr int kKeysPerWarp = 2;         // launch (b): key rows of a warp
 constexpr int kBwdKRows = kBwdWarps * kKeysPerWarp;
 constexpr int kQueryChunk = 32;         // launch (b): queries staged, one a lane
-
-// Reserves `bytes` at `off` (kept 16-byte aligned) and returns its offset.
-__host__ __device__ inline size_t take(size_t& off, size_t bytes) {
-  const size_t at = off;
-  off = (off + bytes + 15) / 16 * 16;
-  return at;
-}
 
 // Launch (a)'s shared memory, in this order: a K and a V chunk [64][k_stride]
 // in T; each row's q and dO in f32 [16][2 * Dh]; per warp a dS chunk [64] f32.
@@ -315,34 +441,11 @@ size_t bwd_smem_bytes(int dh) {
   return a > b ? a : b;
 }
 
-// The score of one (query, key) pair, exactly as the forward kernel forms
-// it: an f32 dot product over d in order, times scale, plus the mask.
-template <typename Q, typename K>
-__device__ __forceinline__ float score(const Q* qr, const K* kr, int Dh,
-                                       float scale, bool ok) {
-  float acc = 0.f;
-  for (int d = 0; d < Dh; ++d) acc = fmaf(to_f32(qr[d]), to_f32(kr[d]), acc);
-  return __fadd_rn(__fmul_rn(acc, scale), ok ? 0.f : kBigNeg);
-}
-
 template <typename A, typename B>
 __device__ __forceinline__ float dot(const A* a, const B* b, int Dh) {
   float acc = 0.f;
   for (int d = 0; d < Dh; ++d) acc = fmaf(to_f32(a[d]), to_f32(b[d]), acc);
   return acc;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // Launch (a): dQ, and each query row's max, sum and dsum into `stats`
@@ -1243,12 +1346,13 @@ int launch_fwd_mma_for(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Shared memory one launch of the scalar forward needs; the wrapper refuses
-// shapes above the card's limit before launching.
-long long asr_masked_attention_smem(int dtype_code, int tk, int dh) {
+// Shared memory one launch of the scalar forward needs at (Dh, Tk): within
+// the card's limit for every Dh <= 128 and every Tk;
+// kernels/attention.py fwd_smem_bytes mirrors it.
+long long asr_masked_attention_smem(int dtype_code, int dh, int tk) {
   return static_cast<long long>(dtype_code == 1
-                                    ? smem_bytes<__nv_bfloat16>(tk, dh)
-                                    : smem_bytes<float>(tk, dh));
+                                    ? smem_bytes<__nv_bfloat16>(dh, tk)
+                                    : smem_bytes<float>(dh, tk));
 }
 
 // 1 where the forward at (Tq, Tk, Dh) takes the tensor-core kernel, 0

@@ -63,8 +63,8 @@ _SIGNATURES = {
     "asr_fused_ffn_plan": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
     "asr_fused_ffn": ((_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "asr_interleave_epilogue": ((_I, _P, _P, _P, _I, _I, _I, _F, _P), _I),
-    "asr_beam_search": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _P), _I),
+    "asr_beam_search": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _P), _I),
 }
 
 #: the kernels' dtype_code argument

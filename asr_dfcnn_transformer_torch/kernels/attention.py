@@ -18,8 +18,11 @@ any Tq (every forward shape of the LM and e2e paths, with and without a
 keep mask), blocks of up to 64 query rows form the scores and P.V on the
 tensor cores with each row's scores held in registers
 (``mma_fwd_smem_bytes``: K and V staged once a block); elsewhere (f32,
-longer keys, wider heads) a scalar kernel stages one (b, h)'s K and V in
-shared memory, which bounds Tk (``asr_masked_attention_smem``). The
+longer keys, wider heads) a scalar kernel walks the keys in chunks of 64,
+keeping the block's scores in shared memory up to Tk 512 and recomputing
+them above, so its shared memory stops growing with Tk
+(``fwd_smem_bytes`` mirrors ``asr_masked_attention_smem``) and it takes
+every Tk. The
 backward has two paths, chosen by shape and type alone (``bwd_path``
 mirrors ``asr_masked_attention_bwd_path``):
 in bf16 at Tq, Tk <= 160 and Dh <= 64 (every shape of the LM and e2e
@@ -32,6 +35,7 @@ forward takes.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -41,6 +45,9 @@ from asr_dfcnn_transformer_torch.kernels import _build
 BIG_NEG = -1e9
 MAX_SMEM = 232448          # bytes of shared memory a block may opt into
 MAX_DH = 128
+# csrc/attention.cu's scalar forward tiling: warps a block, query rows a
+# block, the longest Tk whose scores it keeps in shared memory
+_FWD_WARPS, _FWD_ROWS, _FWD_MAX_KEPT_TK = 4, 16, 512
 # csrc/attention.cu's backward tiling: warps a block; query rows a block and
 # keys a chunk in its first launch; key rows a block and queries a chunk in
 # its second
@@ -117,6 +124,21 @@ def _r16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
+def fwd_smem_bytes(dh: int, dtype: torch.dtype, tk: int) -> int:
+    """Shared memory of the scalar forward at head width ``dh`` and ``tk``
+    keys, as the kernel lays it out (``FwdLayout``;
+    ``asr_masked_attention_smem`` gives the same): a K chunk of 64 keys,
+    rows padded by a 32-bit word, and a V chunk in the input type, the
+    block's 16 query rows in f32, a 64-key P chunk a warp and, up to Tk
+    512, the block's scores [16][Tk] in f32. Independent of Tq."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    ks = dh + 4 // size
+    kept = _r16(_FWD_ROWS * tk * 4) if tk <= _FWD_MAX_KEPT_TK else 0
+    return (_r16(_KEY_CHUNK * ks * size) + _r16(_KEY_CHUNK * dh * size)
+            + _r16(_FWD_ROWS * dh * 4) + _r16(_FWD_WARPS * _KEY_CHUNK * 4)
+            + kept)
+
+
 def bwd_smem_bytes(dh: int, dtype: torch.dtype) -> int:
     """Shared memory of the backward's larger launch at head width ``dh``,
     as the kernel lays it out (``RowsLayout`` / ``KeysLayout``;
@@ -179,10 +201,29 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors if t is not None)
 
 
-def _check_smem(name: str, smem: int, tk: int, dh: int) -> None:
-    if smem > MAX_SMEM:
-        raise ValueError(f"{name}: Tk={tk}, Dh={dh} needs {smem} bytes of "
-                         f"shared memory, above {MAX_SMEM}")
+def _check_smem(name: str, smem: int, mirror: int, shape: str) -> None:
+    """Guard that the C query and its mirror agree and fit the card."""
+    if smem != mirror or smem > MAX_SMEM:
+        raise ValueError(f"{name}: {shape} needs {smem} bytes of shared "
+                         f"memory (the mirror says {mirror}), limit "
+                         f"{MAX_SMEM}")
+
+
+@functools.lru_cache(maxsize=1024)
+def _checked_fwd_smem(dtype: torch.dtype, dh: int, tk: int) -> None:
+    """``_check_smem`` of the scalar forward, once per (dtype, Dh, Tk)."""
+    _check_smem("masked_attention", _build.library().asr_masked_attention_smem(
+        _build.DTYPE_CODES[dtype], dh, tk), fwd_smem_bytes(dh, dtype, tk),
+        f"Dh={dh}, Tk={tk}")
+
+
+@functools.lru_cache(maxsize=8)
+def _checked_bwd_smem(dtype: torch.dtype, dh: int) -> None:
+    """``_check_smem`` of the chunked backward, once per (dtype, Dh)."""
+    _check_smem("masked_attention_bwd",
+                _build.library().asr_masked_attention_bwd_smem(
+                    _build.DTYPE_CODES[dtype], dh),
+                bwd_smem_bytes(dh, dtype), f"Dh={dh}")
 
 
 def _forward(q, k, v, k_valid, causal, keep_mask, keep_prob):
@@ -199,8 +240,7 @@ def _forward(q, k, v, k_valid, causal, keep_mask, keep_prob):
     code = _build.DTYPE_CODES[q.dtype]
     lib = _build.library()
     if fwd_path(tq, tk, dh, q.dtype) == "scalar":
-        _check_smem("masked_attention",
-                    lib.asr_masked_attention_smem(code, tk, dh), tk, dh)
+        _checked_fwd_smem(q.dtype, dh, tk)
     name = "masked_attention" if keep_mask is None else "masked_attention_drop"
     with torch.cuda.device(dev):
         rc = lib.asr_masked_attention(
@@ -230,8 +270,7 @@ def _backward(q, k, v, k_valid, dout, causal, keep_mask, keep_prob):
     lib = _build.library()
     stats = None
     if bwd_path(tq, tk, dh, q.dtype) == "chunked":
-        _check_smem("masked_attention_bwd",
-                    lib.asr_masked_attention_bwd_smem(code, dh), tk, dh)
+        _checked_bwd_smem(q.dtype, dh)
         # each query row's max, sum and dsum, from the first launch to the
         # second
         stats = torch.empty((3, b, h, tq), dtype=torch.float32, device=dev)
@@ -279,8 +318,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masks keys with col > row (jnp.tril semantics, Tq != Tk too);
     ``keep_mask`` [B, H, Tq, Tk] bool (True = keep; None = no dropout) with
     ``keep_prob``. Returns [B, H, Tq, Dh] in q's dtype; differentiable in
-    q, k and v. Dh <= 128; Tk is bounded by the forward's shared memory
-    (the backward takes every shape the forward takes).
+    q, k and v. Dh <= 128, any Tq and Tk.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("masked_attention: q, k, v must be [B, H, T, Dh]")

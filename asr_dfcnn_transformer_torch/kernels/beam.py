@@ -13,6 +13,12 @@ anything else.
 
 Hashes are uint32 in the JAX package; here they are int64 holding the
 uint32 value, multiplied in 16-bit halves so that no product overflows.
+
+The kernel keeps no prefix table: each frame records a back-pointer per
+beam and one trace-back at the end writes the prefixes.
+``beam_step_backpointers`` records them as the kernel packs them and
+``trace_back`` mirrors the kernel's walk, so the CPU tests can show that
+the back-pointers rebuild the twin's prefixes.
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ NEG_INF = -1e30
 MUL1 = 2654435761
 MUL2 = 40503
 _U32 = 0xFFFFFFFF
+# csrc/beam.cu's back-pointer bits: source beam, extension, source at the
+# cap, then the added symbol
+_SRC_MASK, _EXT_BIT, _CAP_BIT, _ADD_SHIFT = 0x7F, 0x80, 0x100, 9
 
 #: (prefixes [B, W, L] int32, plen [B, W] int32, h1 [B, W] int64,
 #: h2 [B, W] int64, pb [B, W] f32, pnb [B, W] f32)
@@ -75,6 +84,50 @@ def beam_step(state: BeamState, lp: torch.Tensor, top_lp: torch.Tensor,
     lp [B, V] f32 log-probs of the frame, top_lp / top_ids [B, K] its top-k,
     active [B] bool (None = every row): rows not active keep their state.
     """
+    return _step(state, lp, top_lp, top_ids, active, blank, False)[0]
+
+
+def beam_step_backpointers(state: BeamState, lp: torch.Tensor,
+                           top_lp: torch.Tensor, top_ids: torch.Tensor,
+                           active: Optional[torch.Tensor], *, blank: int
+                           ) -> Tuple[BeamState, torch.Tensor]:
+    """``beam_step``, and the [B, W] back-pointers the kernel records for
+    the frame, packed as ``csrc/beam.cu`` packs them: the source beam, bit
+    7 for an extension, bit 8 where its source was at the cap L, the added
+    symbol from bit 9. A row not active records each beam as its own stay.
+    """
+    return _step(state, lp, top_lp, top_ids, active, blank, True)
+
+
+def trace_back(backpointers: torch.Tensor, plen: torch.Tensor,
+               lcap: int) -> torch.Tensor:
+    """Python mirror of the kernel's trace-back: back-pointers [T, B, W]
+    (``beam_step_backpointers``, frame by frame) and the final lengths
+    [B, W] -> prefixes [B, W, L] int32. Walking a lineage from the last
+    frame, an extension writes its symbol at the child's length - 1 and
+    takes the source's length (L at the cap, else one less); positions
+    below L - 1 are written at most once along a lineage, and the latest
+    write wins at L - 1."""
+    bps = backpointers.tolist()
+    lens = plen.tolist()
+    b, w = plen.shape
+    out = torch.zeros((b, w, lcap), dtype=torch.int32)
+    for i in range(b):
+        for beam in range(w):
+            cur, n, wrote_last = beam, lens[i][beam], False
+            for frame in reversed(bps):
+                e = frame[i][cur]
+                if e & _EXT_BIT:
+                    pos = n - 1
+                    if pos >= 0 and (pos < lcap - 1 or not wrote_last):
+                        out[i, beam, pos] = e >> _ADD_SHIFT
+                        wrote_last = wrote_last or pos == lcap - 1
+                    n = lcap if e & _CAP_BIT else n - 1
+                cur = e & _SRC_MASK
+    return out
+
+
+def _step(state, lp, top_lp, top_ids, active, blank, backpointers):
     prefixes, plen, h1, h2, pb, pnb = state
     b, w, lcap = prefixes.shape
     k = top_ids.shape[1]
@@ -138,11 +191,20 @@ def beam_step(state: BeamState, lp: torch.Tensor, top_lp: torch.Tensor,
                                new_add[..., None], src_prefix)
     new = (new_prefixes, sel(cand_len), sel(cand_h1), sel(cand_h2),
            sel(merged_pb), sel(merged_pnb))
+    bp = None
+    if backpointers:
+        ext = top >= w
+        capped = torch.gather(plen, 1, new_src) >= lcap
+        bp = (new_src + torch.where(ext, _EXT_BIT, 0)
+              + torch.where(ext & capped, _CAP_BIT, 0)
+              + torch.where(ext, new_add.long() << _ADD_SHIFT, 0))
     if active is None:
-        return new
+        return new, bp
     act = active.to(dev)
+    if backpointers:
+        bp = torch.where(act[:, None], bp, beams[None, :])
     return tuple(torch.where(act.view(-1, *([1] * (n.dim() - 1))), n, o)
-                 for n, o in zip(new, state))
+                 for n, o in zip(new, state)), bp
 
 
 def _check(lp, top_lp, top_ids, lens, w, k, blank, lcap) -> None:
@@ -206,11 +268,13 @@ def beam_search(lp: torch.Tensor, top_lp: torch.Tensor,
     pnb = torch.empty((b, w), dtype=torch.float32, device=dev)
     if b == 0:
         return prefixes, plen, pb, pnb
+    # the back-pointers of each frame, read by the kernel's trace-back
+    backpointers = torch.empty((b, t, w), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _build.library().asr_beam_search(
             lp.data_ptr(), top_lp.data_ptr(), top_ids.data_ptr(),
-            lens.data_ptr(), prefixes.data_ptr(), plen.data_ptr(),
-            pb.data_ptr(), pnb.data_ptr(), b, t, v, w, k, blank, lcap,
-            _build.stream_ptr(dev))
+            lens.data_ptr(), backpointers.data_ptr(), prefixes.data_ptr(),
+            plen.data_ptr(), pb.data_ptr(), pnb.data_ptr(), b, t, v, w, k,
+            blank, lcap, _build.stream_ptr(dev))
     _build.check("beam_search", rc, f"W {w}, K {k}, L {lcap}")
     return prefixes, plen, pb, pnb

@@ -2,6 +2,9 @@
 
 ``log_mel`` replaces ``ops/pallas/fbank_kernel.py: pallas_log_mel`` and
 ``cmvn`` replaces ``pallas_cmvn``; the CUDA sources are ``csrc/fbank.cu``.
+The ``log_mel`` kernel takes a real FFT in f64 and a sparse mel
+projection, with tables built here on the host (``fft_twiddles_np``,
+``mel_spans_np``); its twin keeps the f64 matrix-product DFT.
 Each wrapper runs its plain-PyTorch twin (``*_reference``) for CPU tensors,
 launches the kernel for CUDA tensors, and raises for anything else. Neither
 has a backward: both raise when an input requires grad, rather than return
@@ -33,10 +36,51 @@ def _check_geometry(cfg: FbankConfig) -> None:
 
 @functools.lru_cache(maxsize=8)
 def _bases(cfg: FbankConfig, device: torch.device):
-    """(cos [400, 257], sin [400, 257], mel [257, nfilt]) f32 on ``device``."""
+    """The twin's tables: (cos [400, 257], sin [400, 257], mel [257,
+    nfilt]) f32 on ``device``."""
     cos_b, sin_b = _dft_bases_np(cfg.win_len, cfg.nfft)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in (cos_b, sin_b, mel_filterbank(cfg)))
+
+
+def fft_twiddles_np(nfft: int = 512) -> np.ndarray:
+    """The kernel's twiddles: exp(-2 pi i m / nfft), m = 0..nfft-1, as f64
+    [nfft, 2] (real, imaginary)."""
+    w = np.exp(-2j * np.pi * np.arange(nfft) / nfft)
+    return np.ascontiguousarray(np.stack([w.real, w.imag], axis=1))
+
+
+def mel_spans_np(mel: np.ndarray):
+    """The mel bank [bins, nfilt] in the kernel's sparse form: (spans
+    [nfilt, 3] int32, weights [nnz] f32). Filter j's span runs from its
+    first to its last non-zero bin; its row of ``spans`` holds that first
+    bin, the count and the offset of the span's weights (the dense
+    column's values, in bin order) in ``weights``. An empty filter has
+    count 0."""
+    spans = np.zeros((mel.shape[1], 3), np.int32)
+    weights = []
+    off = 0
+    for j in range(mel.shape[1]):
+        nz = np.flatnonzero(mel[:, j])
+        if nz.size:
+            first, count = int(nz[0]), int(nz[-1] - nz[0] + 1)
+            weights.append(mel[first:first + count, j])
+            spans[j] = (first, count, off)
+            off += count
+        else:
+            spans[j] = (0, 0, off)
+    flat = (np.concatenate(weights) if weights else np.zeros(0)).astype(
+        np.float32)
+    return spans, flat
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_tables(cfg: FbankConfig, device: torch.device):
+    """The kernel's tables on ``device``: (twiddles [512, 2] f64, spans
+    [nfilt, 3] int32, weights f32), uploaded once."""
+    spans, weights = mel_spans_np(mel_filterbank(cfg))
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (fft_twiddles_np(cfg.nfft), spans, weights))
 
 
 def log_mel_reference(signals: torch.Tensor, lengths: torch.Tensor,
@@ -66,8 +110,8 @@ def log_mel(signals: torch.Tensor, lengths: torch.Tensor, n_frames: int,
             cfg: FbankConfig = FbankConfig()) -> torch.Tensor:
     """[B, S] f32 raw signals + [B] int32 sample lengths -> [B, n_frames,
     nfilt] f32 log-mel. Pre-emphasis and the signal-end mask are applied
-    inside; frames past the signal read zeros. The DFT sums run in f64
-    (see csrc/fbank.cu), the rest in f32."""
+    inside; frames past the signal read zeros. The kernel's FFT runs in
+    f64 (see csrc/fbank.cu), the rest in f32."""
     _check_geometry(cfg)
     if signals.dim() != 2 or signals.dtype != torch.float32:
         raise ValueError("log_mel: signals must be [B, S] float32, got "
@@ -81,7 +125,7 @@ def log_mel(signals: torch.Tensor, lengths: torch.Tensor, n_frames: int,
         return log_mel_reference(signals, lengths, n_frames, cfg)
     dev = _build.require_cuda("log_mel", signals, lengths)
     b, s = signals.shape
-    cos_b, sin_b, mel = _bases(cfg, dev)
+    twiddles, spans, weights = _fft_tables(cfg, dev)
     out = torch.empty((b, n_frames, cfg.nfilt), device=dev,
                       dtype=torch.float32)
     if out.numel() == 0:
@@ -89,8 +133,8 @@ def log_mel(signals: torch.Tensor, lengths: torch.Tensor, n_frames: int,
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.asr_log_mel(
-            signals.data_ptr(), lengths.data_ptr(), cos_b.data_ptr(),
-            sin_b.data_ptr(), mel.data_ptr(), out.data_ptr(), b, s,
+            signals.data_ptr(), lengths.data_ptr(), twiddles.data_ptr(),
+            spans.data_ptr(), weights.data_ptr(), out.data_ptr(), b, s,
             n_frames, cfg.nfilt, cfg.preemph, 1.0 / cfg.nfft,
             _build.stream_ptr(dev))
     _build.check("log_mel", rc)

@@ -49,23 +49,27 @@ def topk_last_reference(x: torch.Tensor, k: int
 
 
 def topk_last(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of ``x`` [..., V] f32 over the last axis -> (vals [..., k] f32,
-    ids [..., k] int32), in ``lax.top_k``'s order. ``k > V`` raises."""
+    """Top-k of ``x`` [..., V] (any float type) over the last axis -> (vals
+    [..., k] in x's type, ids [..., k] int32), in ``lax.top_k``'s order.
+    The kernel runs in f32: x is cast on the way in and the values back on
+    the way out, as the JAX kernel does. ``k > V`` raises."""
     _check(x, k)
     if x.device.type == "cpu":
         return topk_last_reference(x, k)
+    if not x.is_floating_point():
+        raise ValueError(f"topk_last: x must be a float tensor, got {x.dtype}")
+    dtype = x.dtype
+    x = x.float().contiguous()
     dev = _build.require_cuda("topk_last", x)
-    if x.dtype != torch.float32:
-        raise ValueError(f"topk_last: x must be float32, got {x.dtype}")
     lead, v = x.shape[:-1], x.shape[-1]
     vals = torch.empty((*lead, k), dtype=torch.float32, device=dev)
     ids = torch.empty((*lead, k), dtype=torch.int32, device=dev)
     n = vals.numel() // k
     if n == 0:
-        return vals, ids
+        return vals.to(dtype), ids
     with torch.cuda.device(dev):
         rc = _build.library().asr_topk_last(
             x.data_ptr(), vals.data_ptr(), ids.data_ptr(), n, v, k,
             _build.stream_ptr(dev))
     _build.check("topk_last", rc, f"V {v}, k {k}")
-    return vals, ids
+    return vals.to(dtype), ids

@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (the compiler's registers and spills, and each kernel's count of
    tensor-core HMMA instructions from ``cuobjdump -sass``).
 2. Kernels against their plain-PyTorch twins on the card, on seeded inputs
-   at the main paths' shapes (``log_mel`` + ``cmvn``; the
+   at the main paths' shapes (``log_mel`` + ``cmvn``, ``log_mel`` also at
+   the e2e front end's 80 filters, with the count of elements more than
+   1e-5 off the twin; the
    ``masked_attention`` forward, with and without a keep mask, in f32 (the
    scalar kernel) and bf16 (the tensor-core kernel) at every forward shape
    of the LM and e2e paths: the LM served [8 and 16, 8, 100, 64] causal
@@ -23,10 +25,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1600 / 64 / 64 causal at keep 0.9) and off them on the scalar kernel
    (Tk 161, Dh 128); each on its path (``fwd_path`` held to the C query,
    its shared memory too), with its count of differing elements, launched
-   twice with bit-identical results; ``ctc_alpha`` + ``ctc_beta_xi`` at B
-   16, T 200, S 129; the attention backward at the LM's training shape;
-   ``topk_last`` at [1600, 1536], k 8, and ``beam_search`` at
-   [8, 200, 1536], W = K = 8, L 100, with batch-1, exhausted-candidate and
+   twice with bit-identical results; the forward and backward at long key
+   lengths, f32 [1, 4, 256, 128] (scores kept in shared memory), f32 [1,
+   8, 600, 64] at keep 0.9 and bf16 [1, 8, 1000, 64] (scores recomputed),
+   causal with ragged keys and a query row without a valid key, with the
+   scalar forward's shared memory (``fwd_smem_bytes``) held to the C query;
+   ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129; the attention
+   backward at the LM's training shape; ``topk_last`` at [1600, 1536], k
+   8, in f32 and bf16, and ``beam_search`` at [8, 200, 1536], W = K = 8, L
+   100, with batch-1, exhausted-candidate and
    tie-heavy cases; ``dual_axis_attention`` at the e2e pre-net's frequency
    rows [1072, 80, 64] in bf16 and f32, its unmasked time rows [640, 134,
    64], a ragged [13, 7, 32] and, in bf16, the edges of the tensor-core
@@ -216,14 +223,6 @@ E2E_BATCH, E2E_BUCKET, E2E_LABELS = 8, 1600, (48, 64)  # E2EConfig.batch_size
 E2E_LR = 1e-3         # 3.3x E2EConfig.lr: ten steps show the fit, dropout on
 MARGIN = 1e-3
 NOISE_BATCH, NOISE_N = 128, 262144    # irfft_matmul's docstring shape
-# Peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): memory, and
-# the best rate for each type of operation (f64 on the tensor cores, f32
-# outside them, bf16 on them).
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"f64": 67e12, "f32": 67e12, "bf16": 989e12}
-# operations of one 512-point real FFT: the usual 5 N log2 N of a complex
-# FFT, halved for a real input
-RFFT_512_OPS = 5 * 512 * 9 // 2
 
 
 class PhaseError(RuntimeError):
@@ -259,16 +258,16 @@ def paired_ms(kernel_fn, plain_fn, plain_iters: int = 20):
 
 
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    from asr_dfcnn_transformer_torch.bounds import nbytes
+    return nbytes(*tensors)
 
 
 def set_bound(result, n_bytes: float, ops: dict) -> None:
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations ({type: count}) over each type's peak."""
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items()) * 1e3
-    result["bound_ms"] = max(t_bytes, t_ops)
-    result["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    """The least time the card could take (``bounds.bound``): the larger of
+    the bytes over the memory rate and the operations ({type: count}) over
+    each type's peak."""
+    from asr_dfcnn_transformer_torch.bounds import bound
+    result["bound_ms"], result["bound_by"] = bound(n_bytes, ops)
 
 
 def close_enough(got, want, rtol: float, atol: float):
@@ -322,15 +321,45 @@ def sass_hmma_counts(lib) -> dict:
 
 
 def phase_kernels(results):
+    rng = np.random.default_rng(SEED)
+    check_front_end(results, rng)
+    check_attention_fwd(results, rng)
+    check_attention_long(rng)
+    check_ctc_kernels(results, rng)
+    check_attention_training_kernels(results, rng)
+    check_beam_kernels(results, rng)
+    check_dual_attention(results, rng)
+    check_cross_attention(rng)
+    check_attention_bwd_f32(rng)
+    check_attention_bwd_edges(rng)
+    check_fused_ffn(results, rng)
+    check_interleave_epilogue(results, rng)
+    for name, r in results.items():
+        lib = ("—" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"time {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), library {lib}")
+
+
+def check_front_end(results, rng):
+    """``log_mel`` and ``cmvn`` against their twins on tone utterances with
+    noise past each length, at 400 and 1600 frames (``log_mel`` at 1600
+    also with the e2e front end's 80 filters): ``log_mel`` within rtol
+    1e-4, atol 1e-3, ``cmvn`` within 2e-3 with the empty filters' columns
+    exactly 0; then both timed at 1600 frames beside their twins and
+    their bounds."""
     import torch
-    from asr_dfcnn_transformer_torch.audio.fbank import (mel_filterbank,
+    from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
+                                                         mel_filterbank,
                                                          samples_for_frames,
                                                          valid_frames)
+    from asr_dfcnn_transformer_torch.bounds import log_mel_work
+    from asr_dfcnn_transformer_torch.kernels import fbank as kfbank
     from asr_dfcnn_transformer_torch.kernels import (cmvn, cmvn_reference,
                                                      log_mel,
                                                      log_mel_reference)
     dev = torch.device(DEVICE)
-    rng = np.random.default_rng(SEED)
     empty = torch.from_numpy(np.flatnonzero(mel_filterbank().sum(0) == 0))
 
     for out_frames in (400, 1600):
@@ -346,8 +375,23 @@ def phase_kernels(results):
         feat_ref = log_mel_reference(sig_d, lens_d, out_frames)
         ok, err = close_enough(feat, feat_ref, 1e-4, 1e-3)
         print(f"log_mel [8, {s}] -> {out_frames} frames: max abs err "
-              f"{err:.3g} (rtol 1e-4, atol 1e-3) {'ok' if ok else 'FAIL'}")
+              f"{err:.3g} (rtol 1e-4, atol 1e-3), "
+              f"{int(((feat - feat_ref).abs() > 1e-5).sum())} of "
+              f"{feat.numel()} elements more than 1e-5 off "
+              f"{'ok' if ok else 'FAIL'}")
         require(ok, "log_mel disagrees with its twin")
+        if out_frames == BUCKETS[-1]:
+            # the e2e front end's 80 filters, at its 1600-frame bucket
+            cfg80 = FbankConfig(nfilt=E2E_NFILT)
+            feat80 = log_mel(sig_d, lens_d, out_frames, cfg80)
+            ref80 = log_mel_reference(sig_d, lens_d, out_frames, cfg80)
+            ok80, err80 = close_enough(feat80, ref80, 1e-4, 1e-3)
+            print(f"log_mel [8, {s}] -> {out_frames} frames, nfilt "
+                  f"{E2E_NFILT}: max abs err {err80:.3g} (rtol 1e-4, atol "
+                  f"1e-3), {int(((feat80 - ref80).abs() > 1e-5).sum())} of "
+                  f"{feat80.numel()} elements more than 1e-5 off "
+                  f"{'ok' if ok80 else 'FAIL'}")
+            require(ok80, "log_mel disagrees with its twin at nfilt 80")
         valid = valid_frames(lens_d)
         norm = cmvn(feat, valid)
         norm_ref = cmvn_reference(feat, valid)
@@ -366,39 +410,16 @@ def phase_kernels(results):
             k_ms, p_ms = paired_ms(lambda: cmvn(feat, valid),
                                    lambda: cmvn_reference(feat, valid))
             results["cmvn"].update(ms=k_ms, plain_ms=p_ms)
-            # the function's work, not the kernel's direct DFT: per frame
-            # pre-emphasis and mask (3 x 400), a real FFT and the power
-            # (3 x 257) in f64; a multiply-add for each non-zero of the
-            # sparse mel bank and a log per filter in f32. Bytes: signal,
-            # lengths, mel bank and features. No one PyTorch call computes
+            # the function's work (bounds.log_mel_work), with the sparse
+            # mel bank the kernel reads. No one PyTorch call computes
             # either function.
-            frames = sig.shape[0] * out_frames
-            mel = torch.from_numpy(mel_filterbank()).float()
-            set_bound(results["log_mel"], nbytes(sig_d, lens_d, mel, feat),
-                      {"f64": frames * (3 * 400 + RFFT_512_OPS + 3 * 257),
-                       "f32": frames * (2 * int((mel != 0).sum())
-                                        + mel.shape[1])})
+            _, spans, weights = kfbank._fft_tables(FbankConfig(), dev)
+            set_bound(results["log_mel"], *log_mel_work(
+                sig_d, lens_d, spans, weights, feat))
             set_bound(results["cmvn"], nbytes(feat, valid, norm),
                       {"f32": 6 * feat.numel()})
             results["log_mel"]["library_ms"] = None
             results["cmvn"]["library_ms"] = None
-
-    check_attention_fwd(results, rng)
-    check_ctc_kernels(results, rng)
-    check_attention_training_kernels(results, rng)
-    check_beam_kernels(results, rng)
-    check_dual_attention(results, rng)
-    check_cross_attention(rng)
-    check_attention_bwd_f32(rng)
-    check_attention_bwd_edges(rng)
-    check_fused_ffn(results, rng)
-    check_interleave_epilogue(results, rng)
-    for name, r in results.items():
-        lib = ("—" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
-        print(f"time {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}), library {lib}")
 
 
 def ctc_problem(rng, b=AM_BATCH, t=200, lmax=64, v=1536):
@@ -622,6 +643,7 @@ def check_attention_fwd(results, rng):
     training dropout forward beside its twin and its bound."""
     import torch
     import torch.nn.functional as F
+    from asr_dfcnn_transformer_torch.bounds import masked_attention_work
     from asr_dfcnn_transformer_torch.kernels import attention as attn
     from asr_dfcnn_transformer_torch.timing import cuda_ms
     timed = {"LM serving": "masked_attention",
@@ -641,9 +663,8 @@ def check_attention_fwd(results, rng):
                 lambda: attn.masked_attention_reference(
                     qd, kd, vd, k_valid, causal, keep, kp))))
             # QK^T and PV over the causal triangle
-            set_bound(r, nbytes(*(x for x in (qd, kd, vd, k_valid, keep,
-                                              got) if x is not None)),
-                      {"bf16": 4 * b * h * tq * (tq + 1) // 2 * dh})
+            set_bound(r, *masked_attention_work(qd, kd, vd, k_valid, keep,
+                                                got, causal))
             r["library_ms"] = None           # no PyTorch call takes a keep
             if keep is None:
                 mask = (torch.ones(tq, tk, dtype=torch.bool, device=q.device)
@@ -655,6 +676,51 @@ def check_attention_fwd(results, rng):
         q, k, v, k_valid, keep = attention_problem(rng, b, h, tq, tk, dh, kp)
         fwd_case(label, *(x.to(torch.bfloat16) for x in (q, k, v)), k_valid,
                  causal, keep, kp, path)
+
+
+LONG_CASES = (   # label, (B, H, T, Dh), dtype, keep probability
+    # key lengths the scalar forward refused for shared memory before it
+    # walked the keys in chunks (Tk above 435 in f32 at Dh 64, above 220
+    # at Dh 128): causal, ragged keys, key 0 invalid, so that query row 0
+    # has no valid key at all; up to Tk 512 the block's scores are kept
+    # in shared memory (the first case), above it recomputed in each walk
+    ("f32 Dh 128", (1, 4, 256, 128), "float32", 1.0),
+    ("f32 Tk 600", (1, 8, 600, 64), "float32", 0.9),
+    ("bf16 Tk 1000", (1, 8, 1000, 64), "bfloat16", 1.0),
+)
+
+
+def check_attention_long(rng):
+    """The masked attention forward and backward at long key lengths
+    (``LONG_CASES``) against their twins, with ``fwd_case`` and
+    ``bwd_case``' tolerances (bf16 2e-2, f32 1e-5), on the scalar forward
+    and the chunked backward; and the Python mirror of the scalar
+    forward's shared memory (``fwd_smem_bytes``) against the C query at
+    each of these shapes, within the card's limit."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import _build
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    dev = torch.device(DEVICE)
+    lib = _build.library()
+    for label, (b, h, t, dh), dtype, kp in LONG_CASES:
+        dtype = getattr(torch, dtype)
+        mirror = attn.fwd_smem_bytes(dh, dtype, t)
+        native = lib.asr_masked_attention_smem(_build.DTYPE_CODES[dtype], dh,
+                                               t)
+        require(mirror == native and native <= attn.MAX_SMEM,
+                f"masked_attention shared memory at {label}: Python "
+                f"{mirror}, C {native}")
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+            (b, h, t, dh)).astype(np.float32)).to(dev, dtype)
+            for _ in range(4))
+        k_valid = torch.from_numpy(rng.uniform(size=(b, t)) > 0.2).to(dev)
+        k_valid[:, 0] = False                    # row 0: no valid key
+        keep = (None if kp == 1.0 else torch.from_numpy(
+            rng.uniform(size=(b, h, t, t)) < kp).to(dev))
+        print(f"masked_attention {label}: {native} bytes of shared memory "
+              "(the mirror's)")
+        fwd_case(label, q, k, v, k_valid, True, keep, kp, "scalar")
+        bwd_case(label, q, k, v, k_valid, dout, True, keep, kp, "chunked")
 
 
 def bwd_case(label, q, k, v, k_valid, dout, causal, keep, kp,
@@ -716,6 +782,7 @@ def check_attention_training_kernels(results, rng):
     here takes the tensor-core path and gives the same output twice
     (``bwd_case``). The dropout forward is ``check_attention_fwd``'s."""
     import torch
+    from asr_dfcnn_transformer_torch.bounds import masked_attention_bwd_work
     from asr_dfcnn_transformer_torch.kernels import attention as attn
     dev = torch.device(DEVICE)
     b, h, t, dh = LM_BATCH, 8, LM_LEN, 64
@@ -745,10 +812,9 @@ def check_attention_training_kernels(results, rng):
             # over the causal triangle: S again, dV, dP, dQ and dK. No
             # PyTorch call takes a keep mask (the keep 1.0 yardstick is
             # printed above).
-            pairs = b * h * t * (t + 1) // 2
             set_bound(results["masked_attention_bwd"],
-                      nbytes(qd, kd, vd, k_valid, dd, mask, *got),
-                      {"bf16": 10 * pairs * dh})
+                      *masked_attention_bwd_work(qd, kd, vd, k_valid, dd,
+                                                 mask, got, True))
             results["masked_attention_bwd"]["library_ms"] = None
     # the e2e training shapes: the encoder's self-attention (key-masked,
     # keep 0.9) and the pre-net's time rows (no dropout)
@@ -839,10 +905,12 @@ def check_beam_kernels(results, rng):
     """``topk_last`` and ``beam_search`` against their twins: at the beam
     path's shapes ([8, 200, 1536] log-probs with ragged lengths and a 0,
     W = K = 8, L 100), at batch 1, with W > K + 1 (live candidates run out,
-    as in tests/test_pallas_beam.py, and a 1-frame row keeps dead beams)
-    and on quantised, tie-heavy values.
-    Ids, lengths and prefixes must be equal; pb / pnb within 1e-5."""
+    as in tests/test_pallas_beam.py, and a 1-frame row keeps dead beams),
+    ``topk_last`` also on the path's rows in bf16 and on quantised,
+    tie-heavy values. Ids, values, lengths and prefixes must be equal;
+    pb / pnb within 1e-5."""
     import torch
+    from asr_dfcnn_transformer_torch.bounds import beam_search_work
     from asr_dfcnn_transformer_torch.kernels import (beam_search,
                                                      beam_search_reference,
                                                      topk_last,
@@ -900,6 +968,7 @@ def check_beam_kernels(results, rng):
               6)
     x2d = args[0].view(-1, v)
     _, _, err_t = topk_case("path", x2d, w)
+    topk_case("bf16", x2d.to(torch.bfloat16), w)
     ties = torch.round(torch.from_numpy(rng.standard_normal((b * t, v))
                                         .astype(np.float32)).to(dev) * 2) / 2
     topk_case("quantised ties", ties, w)
@@ -919,17 +988,10 @@ def check_beam_kernels(results, rng):
     r.update(zip(("ms", "plain_ms"), paired_ms(
         lambda: beam_search(*args, **kw),
         lambda: beam_search_reference(*args, **kw), plain_iters=2)))
-    # what this run's data needs, per valid frame: W + 1 log-probs and the
-    # K top-k pairs read; over the M = W (K + 1) candidates, 7 f32
-    # operations per ordered pair (3 for the (h1, h2) equality, 1 for the
-    # first-occurrence test, 3 for the rank), 16 per candidate (the two
-    # hash updates, 4; its score, 2; the two readouts' add and log, 4; a
-    # logaddexp, 6); the outputs written once. Nominal: the frames are a
-    # chain of dependent steps, which no such count sees.
+    # what this run's data needs (bounds.beam_search_work): its valid
+    # frames. Nominal: the frames are a chain of dependent steps.
     frames = int(lens.clamp(max=t).sum())
-    m = w * (w + 1)
-    set_bound(r, frames * (w + 1 + 2 * w) * 4 + nbytes(lens, *got),
-              {"f32": frames * (7 * m * m + 16 * m)})
+    set_bound(r, *beam_search_work(frames, w, w, lens, got))
     r["library_ms"] = None          # no PyTorch call does a beam search
     print(f"beam_search: a chain of up to {t} dependent frames "
           f"({frames} valid frames in all)")

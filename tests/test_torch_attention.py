@@ -421,3 +421,56 @@ def test_reciprocal_division_is_correctly_rounded():
         want = _f32_round(Fraction(float(x)) / Fraction(float(y)))
         if want > 1e-36 or want == 0:
             assert div_by(x, y) == want, (x, y)
+
+
+def test_forward_shared_memory_fits_every_key_length():
+    """The scalar forward walks the keys in chunks of 64 and keeps the
+    block's scores in shared memory only up to Tk 512, so its shared
+    memory (``fwd_smem_bytes``, the mirror of csrc/attention.cu's
+    ``FwdLayout``) fits the card's 232,448 bytes at every Tk up to 4096 and
+    every Dh <= 128 in both types, and stops growing with Tk above 512:
+    no key length is refused (the earlier layout, a (b, h)'s whole K and
+    V, stopped at Tk 435 in f32 at Dh 64 and at Tk 220 at Dh 128)."""
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in range(1, attn.MAX_DH + 1):
+            need = [attn.fwd_smem_bytes(dh, dtype, tk)
+                    for tk in range(1, 4097)]
+            assert max(need) <= attn.MAX_SMEM, (dtype, dh, max(need))
+            assert need[:512] == sorted(need[:512])  # scores kept
+            assert len(set(need[512:])) == 1         # recomputed
+            assert need[512] < need[0]
+        for tk in (1, 64, 65, 160, 161, 220, 221, 435, 436, 512, 513, 600,
+                   1000, 4096):
+            for dh in (1, 64, 65, 128):
+                assert attn.fwd_path(1, tk, dh, dtype) == (
+                    "mma" if dtype == torch.bfloat16 and tk <= 160
+                    and dh <= 64 else "scalar")
+    assert attn.fwd_smem_bytes(64, torch.float32, 513) == 38_144
+    assert attn.fwd_smem_bytes(128, torch.float32, 4096) == 75_008
+    assert attn.fwd_smem_bytes(64, torch.bfloat16, 513) == 21_760
+    assert attn.fwd_smem_bytes(128, torch.bfloat16, 4096) == 42_240
+    assert attn.fwd_smem_bytes(64, torch.float32, 134) == 38_144 + 8_576
+    assert attn.fwd_smem_bytes(128, torch.float32, 512) == 107_776
+    # the mirror's tiling is the kernel's (chip_smoke.py holds the mirror
+    # to the C query on the card)
+    src = (attn._build.CSRC / "attention.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["kWarps"]) == attn._FWD_WARPS
+    assert int(consts["kRowsPerBlock"]) == attn._FWD_ROWS
+    assert int(consts["kKeyChunk"]) == attn._KEY_CHUNK
+    assert int(consts["kMaxKeptTk"]) == attn._FWD_MAX_KEPT_TK
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_twin_matches_masked_flash_at_long_keys(dtype, causal):
+    """Key lengths past the earlier scalar forward's limit (Tk 600, ragged
+    keys with key 0 invalid, so that causal query row 0 has no valid key):
+    the twin that chip_smoke.py holds the card's kernel to agrees with the
+    JAX kernel."""
+    q, k, v, k_valid = _inputs(5, 1, 2, 40, 600, 64, True)
+    k_valid[:, 0] = False
+    got, want = _both(q, k, v, k_valid, causal, dtype)
+    tol = _DTYPES[dtype][2]
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)

@@ -19,6 +19,7 @@ from asr_dfcnn_transformer_tpu.ops.pallas import beam_kernel
 from asr_dfcnn_transformer_torch.kernels import (beam_search,
                                                  beam_search_reference,
                                                  topk_last_reference)
+from asr_dfcnn_transformer_torch.kernels import beam as kbeam
 from asr_dfcnn_transformer_torch.ops import (ctc_beam_search_decode,
                                              ctc_beam_search_stream_best,
                                              ctc_beam_search_stream_init,
@@ -214,3 +215,55 @@ def test_beam_search_checks_its_inputs():
     out = beam_search_reference(lp, top_lp, top_ids, lens, **kw)
     assert [tuple(o.shape) for o in out] == [(2, 2, 3), (2, 2), (2, 2),
                                              (2, 2)]
+
+
+# (lp shape [B, T, V], lens, W, K, L): the served path's W = K = 8 and L 100
+# with its frozen rows (lens 0 and 1); L 6 on a lattice long enough that
+# lengths reach the cap, so that L - 1 is written again and again; W > K + 1
+BACKPOINTER_CASES = {
+    "path": ((8, 200, 1536), [200, 0, 150, 50, 100, 173, 200, 1], 8, 8, 100),
+    "cap": ((3, 40, 12), [40, 1, 0], 4, 4, 6),
+    "exhausted": ((3, 10, 12), [10, 7, 1], 6, 2, 6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BACKPOINTER_CASES))
+def test_backpointers_rebuild_the_twin_prefixes(name):
+    """The kernel records a back-pointer per frame and beam and writes the
+    prefixes by one trace-back: recorded frame by frame through
+    ``beam_step_backpointers`` and walked by ``trace_back`` (the kernel's
+    walk in Python), they rebuild the twin's prefixes exactly."""
+    shape, lens, w, k, lcap = BACKPOINTER_CASES[name]
+    rng = np.random.default_rng(sum(shape))
+    lp = torch.log_softmax(torch.from_numpy(
+        (3.0 * rng.standard_normal(shape)).astype(np.float32)), -1)
+    top_lp, top_ids = topk_last_reference(lp, k)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    blank = shape[-1] - 1
+    want = beam_search_reference(lp, top_lp, top_ids, lens, beam_width=w,
+                                 topk=k, blank=blank, max_decode_len=lcap)
+    state = kbeam.beam_state_init(shape[0], w, lcap, lp.device)
+    bps = []
+    for t in range(shape[1]):
+        state, bp = kbeam.beam_step_backpointers(
+            state, lp[:, t], top_lp[:, t], top_ids[:, t], t < lens,
+            blank=blank)
+        bps.append(bp)
+    bps = torch.stack(bps)
+    assert torch.equal(state[0], want[0]) and torch.equal(state[1], want[1])
+    got = kbeam.trace_back(bps, state[1], lcap)
+    assert torch.equal(got, want[0])
+    # frozen rows record only stays; the tables hold each kind of entry
+    for row in np.flatnonzero(lens.numpy() <= 1):
+        assert not (bps[int(lens[row]):, row] & 0x80).any()
+    assert (bps & 0x80).any() and not (bps & 0x80).all()
+    if name == "cap":
+        assert int(want[1].max()) == lcap           # lengths reach the cap
+        # an extension of a prefix at the cap scores NEG_INF, and a stay
+        # always outranks it, so here L - 1 is written once per lineage;
+        # the walk's latest-wins rule, on a hand-built lineage at L 2:
+        # 5 at 0, 7 at 1, then 9 at 1 again from the cap
+        hand = torch.tensor([0x80 | 5 << 9, 0x80 | 7 << 9,
+                             0x80 | 0x100 | 9 << 9]).view(3, 1, 1)
+        assert kbeam.trace_back(hand, torch.tensor([[2]]), 2).tolist() \
+            == [[[5, 9]]]

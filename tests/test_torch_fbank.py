@@ -148,3 +148,147 @@ def test_wrappers_reject_bad_inputs():
         cmvn(torch.zeros((2, 4, 8)), torch.ones(2))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         log_mel(sig.to("meta"), lens.to("meta"), 4)
+
+
+def test_fft_twiddles_within_one_ulp():
+    """The ``log_mel`` kernel's f64 twiddles: exp(-2 pi i m / 512) for
+    m = 0..511 as (real, imaginary) pairs, each within one ulp."""
+    from asr_dfcnn_transformer_torch.kernels import fbank as kf
+    tw = kf.fft_twiddles_np()
+    assert tw.shape == (512, 2) and tw.dtype == np.float64
+    assert tw.flags.c_contiguous
+    want = np.exp(-2j * np.pi * np.arange(512) / 512)
+    for got, exact in ((tw[:, 0], want.real), (tw[:, 1], want.imag)):
+        assert np.all(np.abs(got - exact) <= np.spacing(np.abs(exact)))
+
+
+@pytest.mark.parametrize("nfilt,nnz,empty,widest", [
+    (200, 353, 43, 6),     # the AM's front end
+    (80, 425, 1, 16),      # the e2e front end's
+])
+def test_mel_spans_cover_the_bank(nfilt, nnz, empty, widest):
+    """The kernel's sparse mel bank: each filter's span runs from its first
+    to its last non-zero bin, so the spans cover every non-zero of
+    ``mel_filterbank`` and nothing outside; here every span is contiguous
+    (no zero inside), and the counts are the bank's."""
+    from asr_dfcnn_transformer_torch.kernels import fbank as kf
+    mel = tf.mel_filterbank(tf.FbankConfig(nfilt=nfilt))
+    spans, weights = kf.mel_spans_np(mel)
+    assert spans.shape == (nfilt, 3) and spans.dtype == np.int32
+    assert weights.dtype == np.float32
+    dense = np.zeros_like(mel)
+    for j, (first, count, off) in enumerate(spans):
+        dense[first:first + count, j] = weights[off:off + count]
+        if count:
+            assert mel[first, j] != 0 and mel[first + count - 1, j] != 0
+    np.testing.assert_array_equal(dense, mel)      # bit for bit
+    assert int(np.count_nonzero(weights)) == weights.size == nnz
+    assert int((spans[:, 1] == 0).sum()) == empty
+    assert int(spans[:, 1].max()) == widest
+    assert list(spans[:, 2]) == list(np.cumsum(spans[:, 1]) - spans[:, 1])
+
+
+def _fmaf(a, b, c):
+    """f32 fmaf through f64: the product of two f32 is exact in f64."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+@pytest.mark.parametrize("nfilt", [200, 80])
+def test_sparse_projection_equals_dense_bit_for_bit(nfilt):
+    """The kernel's mel projection, a chain of fmaf over each span's bins in
+    order, gives the dense chain's bits over all 257 bins: a zero weight
+    leaves the sum as it is (fmaf(p, 0, acc) == acc for a finite p).
+    Power rows of real frames, of silence and of tiny values."""
+    from asr_dfcnn_transformer_torch.kernels import fbank as kf
+    mel = tf.mel_filterbank(tf.FbankConfig(nfilt=nfilt)).astype(np.float32)
+    spans, weights = kf.mel_spans_np(mel)
+    rng = np.random.default_rng(nfilt)
+    power = np.concatenate([
+        (rng.standard_normal((40, 257)) ** 2 * 10.0 ** rng.uniform(
+            -6, 3, (40, 1))).astype(np.float32),
+        np.zeros((2, 257), np.float32),
+        np.full((2, 257), 1e-30, np.float32)])
+    dense = np.zeros((power.shape[0], nfilt), np.float32)
+    for k in range(257):
+        dense = _fmaf(power[:, k:k + 1], mel[k][None, :], dense)
+    sparse = np.zeros_like(dense)
+    for j, (first, count, off) in enumerate(spans):
+        for i in range(count):
+            sparse[:, j] = _fmaf(power[:, first + i], weights[off + i],
+                                 sparse[:, j])
+    np.testing.assert_array_equal(sparse.view(np.int32), dense.view(np.int32))
+
+
+def _kernel_fft_mirror(frames):
+    """The ``log_mel`` kernel's FFT in numpy, step by step: a real 512-point
+    FFT of frames [F, 400] (zero-padded) as the 256-point complex FFT of
+    z[n] = x[2n] + i x[2n + 1] in two radix-16 passes (each two radix-4
+    passes with the W16 twiddles between), the W256^(n1 k2) twiddles and
+    the exchange between them, then the post-processing to bins 0..256.
+    Every twiddle comes from the kernel's table."""
+    from asr_dfcnn_transformer_torch.kernels import fbank as kf
+    tw = kf.fft_twiddles_np()
+    w512 = tw[:, 0] + 1j * tw[:, 1]
+    w16 = w512[32 * np.arange(10)]
+
+    def dft4(a):
+        t0, t1, t2 = a[0] + a[2], a[0] - a[2], a[1] + a[3]
+        t3 = -1j * (a[1] - a[3])
+        return [t0 + t2, t1 + t3, t0 - t2, t1 - t3]
+
+    def dft16(y):           # y: 16 arrays, natural order in and out
+        y = list(y)
+        for nb in range(4):
+            y[nb], y[4 + nb], y[8 + nb], y[12 + nb] = dft4(
+                [y[nb], y[4 + nb], y[8 + nb], y[12 + nb]])
+        for nb in range(1, 4):
+            for ka in range(1, 4):
+                m = nb * ka
+                y[4 * ka + nb] = (-1j * y[4 * ka + nb] if m == 4
+                                  else y[4 * ka + nb] * w16[m])
+        for ka in range(4):
+            y[4 * ka:4 * ka + 4] = dft4(y[4 * ka:4 * ka + 4])
+        return [y[4 * (k % 4) + k // 4] for k in range(16)]
+
+    x = np.zeros((frames.shape[0], 512))
+    x[:, :400] = frames
+    z = x[:, 0::2] + 1j * x[:, 1::2]                       # [F, 256]
+    first = np.zeros((frames.shape[0], 16, 16), complex)  # [F, n1, k2]
+    for n1 in range(16):
+        y = dft16([z[:, n1 + 16 * n2] for n2 in range(16)])
+        for k2 in range(16):
+            first[:, n1, k2] = y[k2] * (w512[2 * n1 * k2] if k2 else 1)
+    big_z = np.zeros((frames.shape[0], 256), complex)
+    for k2 in range(16):
+        y = dft16([first[:, n1, k2] for n1 in range(16)])
+        for k1 in range(16):
+            big_z[:, 16 * k1 + k2] = y[k1]
+    k = np.arange(256)
+    a, c = big_z, big_z[:, (256 - k) % 256]
+    even = 0.5 * (a + np.conj(c))
+    odd = 0.5 * (a.imag + c.imag) + 0.5j * (c.real - a.real)
+    nyquist = (big_z[:, 0].real - big_z[:, 0].imag)[:, None]
+    return np.concatenate([even + w512[k] * odd, nyquist], axis=1)
+
+
+def test_kernel_fft_steps_give_the_real_fft(signals):
+    """The index arithmetic of the kernel's FFT, mirrored in numpy, against
+    ``np.fft.rfft`` in f64 (to 1e-12 of each frame's largest bin), and the
+    log-mel it gives within phase 2's tolerance of the twin (rtol 1e-4,
+    atol 1e-3)."""
+    sigs, lens = signals
+    n = 100
+    x = sigs[0]
+    pe = np.concatenate([x[:1], x[1:] - np.float32(0.97) * x[:-1]])
+    frames = np.stack([pe[f * 160:f * 160 + 400] for f in range(n)]).astype(
+        np.float64)
+    got = _kernel_fft_mirror(frames)
+    want = np.fft.rfft(frames, 512)
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert np.all(np.abs(got - want) <= 1e-12 * scale)
+    power = ((got.real ** 2 + got.imag ** 2) / 512).astype(np.float32)
+    mel = tf.mel_filterbank().astype(np.float32)
+    feat = np.log(np.maximum(power @ mel, np.float32(np.finfo(np.float64).eps)))
+    twin = log_mel(torch.from_numpy(sigs[:1]), torch.from_numpy(lens[:1]),
+                   n)[0].numpy()
+    np.testing.assert_allclose(feat, twin, rtol=1e-4, atol=1e-3)
