@@ -85,3 +85,51 @@ def masked_attention_bwd_work(q, k, v, k_valid, dout, keep, grads,
     pairs."""
     return (nbytes(q, k, v, k_valid, dout, keep, *grads),
             {_kind(q): 10 * _pairs(q, k, causal) * q.shape[3]})
+
+
+def cmvn_work(feat, valid, out):
+    """``cmvn``: the rows each utterance counts (min(valid, T) of its T;
+    the rest are written as 0 whatever they hold) read once, ``valid``
+    read, the whole output written; three statistics and the normalising
+    (6 f32 operations) per element read."""
+    b, t, f = feat.shape
+    rows = int(valid.long().clamp(0, t).sum())
+    return (rows * f * feat.element_size() + nbytes(valid, out),
+            {"f32": 6 * rows * f})
+
+
+def _ctc_cells(valid, lens, t: int, first: int, rows=None):
+    """Cells (frame, state) of the CTC DP that the data needs: the valid
+    states of frames ``first`` .. min(len, T) - 1 of each utterance whose
+    ``rows`` mask (None: every utterance) holds."""
+    frames = (lens.long().clamp(0, t) - first).clamp(min=0)
+    if rows is not None:
+        frames = frames * rows.long()
+    return int((frames * valid.long().sum(1)).sum())
+
+
+def ctc_alpha_work(emit, init, can_skip, valid, lens, alphas):
+    """``ctc_alpha``: the emissions of frames 1 .. len - 1 at each
+    utterance's valid states (frame 0 is ``init``; past len alpha is
+    frozen), ``init``, the masks and lengths read; the whole alpha stack
+    written; ~14 f32 operations a needed cell."""
+    cells = _ctc_cells(valid, lens, emit.shape[0], 1)
+    return (cells * emit.element_size()
+            + nbytes(init, can_skip, valid, lens, alphas),
+            {"f32": 14 * cells})
+
+
+def ctc_beta_xi_work(emit, alphas, binit, skip_from, valid, lens, total, xi):
+    """``ctc_beta_xi``: for each utterance with a finite log P (the others'
+    xi is 0 whatever they hold), the emissions of frames 1 .. len - 1 and
+    the alphas of frames 0 .. len - 1 at its valid states; beta's end rows,
+    the masks, lengths and log P read; the whole xi written; ~20 f32
+    operations (beta, then xi) a needed cell."""
+    from asr_dfcnn_transformer_torch.kernels.ctc import NEG_INF
+    t = emit.shape[0]
+    finite = total.float() > NEG_INF / 2
+    e_cells = _ctc_cells(valid, lens, t, 1, finite)
+    a_cells = _ctc_cells(valid, lens, t, 0, finite)
+    return ((e_cells + a_cells) * emit.element_size()
+            + nbytes(binit, skip_from, valid, lens, total, xi),
+            {"f32": 20 * a_cells})

@@ -1,8 +1,8 @@
 """Time this tree's kernels against another checkout's, in turns, on one card.
 
     python3 -m asr_dfcnn_transformer_torch.compare_kernels \\
-        --kernel {beam_search,dual_attention,fused_ffn,log_mel,
-                  masked_attention,masked_attention_bwd} \\
+        --kernel {beam_search,cmvn,ctc_beta_xi,dual_attention,fused_ffn,
+                  log_mel,masked_attention,masked_attention_bwd} \\
         --other DIR [--out PATH]
 
 ``DIR`` is the root of another checkout of the repository (for example
@@ -17,6 +17,22 @@ point on the same seeded inputs at the main paths' shapes:
   twin, pb / pnb within 1e-5, and the two libraries' outputs compared bit
   for bit. No library yardstick.
 
+- ``cmvn``: [16, 1600, 200] with every valid count T (AM training, as
+  its batch has them), then with ragged valid counts [8, 1600, 200] (the
+  served batch), [16, 1600, 200], [8, 1600, 80] (the e2e front end), [8,
+  400, 200], [1, 1600, 200] and [2, 6400, 200] (long enough that this
+  tree's kernel streams its rows); ragged counts include 0 and one above
+  T (``check_inputs.cmvn_inputs``), and each case has a constant column
+  (an empty mel filter's log eps). Held to this tree's twin within atol
+  1e-5, the constant column exactly 0 where valid <= T, and this tree's
+  kernel launched twice with the same bits. No one PyTorch call computes
+  it.
+- ``ctc_beta_xi``: ``chip_smoke.py``'s CTC problem, [T 200, B 16, S 129]
+  with an empty label and an unsatisfiable row; both libraries' xi equal to
+  this tree's twin and to each other bit for bit, the unsatisfiable row
+  all zero; the yardstick is ``F.ctc_loss``'s backward (the profiler's
+  device time of its forward and backward less its forward), with its
+  forward and this tree's ``ctc_alpha`` (and its bound) beside it.
 - ``dual_attention``: the forward and the backward at the e2e pre-net's
   frequency rows [1072, 80, 64] (batch 8, bucket 1600); the forward held
   to this tree's twin within one bf16 ulp, the backward within 2e-2 with
@@ -75,6 +91,10 @@ import torch
 import torch.nn.functional as F
 
 from asr_dfcnn_transformer_torch import bounds
+from asr_dfcnn_transformer_torch.check_inputs import (cmvn_inputs,
+                                                      ctc_dp_inputs,
+                                                      ctc_loss_device_us,
+                                                      ctc_problem)
 from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
                                                      samples_for_frames)
 from asr_dfcnn_transformer_torch.kernels import _build
@@ -111,6 +131,10 @@ SCALAR_CASES = (   # the scalar kernel, held to the other library's bits
 BEAM_LENS = (200, 0, 150, 50, 100, 173, 200, 1)   # chip_smoke's path case
 BEAM_W, BEAM_L, BEAM_V = 8, 100, 1536
 LOG_MEL_FRAMES, LOG_MEL_NFILT = 1600, (200, 80)
+CMVN_CASES = (   # (B, T, F), valid counts ragged (else all T)
+    ((16, 1600, 200), False), ((8, 1600, 200), True), ((16, 1600, 200), True),
+    ((8, 1600, 80), True), ((8, 400, 200), True), ((1, 1600, 200), True),
+    ((2, 6400, 200), True))
 BWD_CASES = (   # label, (B, H, T, Dh), causal, keep probability
     ("lm", (64, 8, 64, 64), True, 0.5),
     ("lm_keep1", (64, 8, 64, 64), True, 1.0),
@@ -533,7 +557,115 @@ def compare_log_mel(libs, dev, rng) -> dict:
     return res
 
 
+def compare_cmvn(libs, dev, rng) -> dict:
+    stream = _build.stream_ptr(dev)
+    res = {"dtype": "float32"}
+    for (b, t, f), ragged in CMVN_CASES:
+        feat, valid = (torch.from_numpy(a).to(dev) for a in cmvn_inputs(
+            rng, b, t, f, const_cols=(5,), ragged=ragged))
+        out = {side: torch.empty_like(feat) for side in libs}
+
+        def call(side, dst=None):
+            target = out[side] if dst is None else dst
+
+            def run():
+                rc = libs[side].asr_cmvn(feat.data_ptr(), valid.data_ptr(),
+                                         target.data_ptr(), b, t, f, stream)
+                if rc:
+                    raise SystemExit(f"{side} cmvn failed: {rc}")
+            return run
+
+        want = kfbank.cmvn_reference(feat, valid)
+        key = f"cmvn_{b}x{t}x{f}_{'ragged' if ragged else 'full'}"
+        again = torch.empty_like(feat)
+        for side in libs:
+            call(side)()
+            torch.cuda.synchronize()
+            err = float((out[side] - want).abs().max())
+            if err > 1e-5:
+                raise SystemExit(f"{side} cmvn {key}: {err} from the twin")
+            res[f"{key}_{side}_max_abs_err"] = err
+            res[f"{key}_{side}_device_us"] = _us(call(side), "cmvn_kernel")
+        call("this", again)()
+        torch.cuda.synchronize()
+        if not torch.equal(again, out["this"]):
+            raise SystemExit(f"cmvn {key}: two launches differ")
+        short = (valid <= t).nonzero()[:, 0]
+        if not bool((out["this"][short][:, :, 5] == 0).all()):
+            raise SystemExit(f"cmvn {key}: the constant column is not 0")
+        res[f"{key}_plan"] = {
+            k: int(libs["this"].asr_cmvn_plan(b, t, f, i)) for i, k in
+            enumerate(("cluster", "rows", "chunk", "groups", "stream",
+                       "smem", "clusters_at_once"))}
+        res[f"{key}_other_ms"], res[f"{key}_this_ms"] = _in_turns(
+            call("other"), call("this"))
+        res[f"{key}_bound_ms"] = bounds.bound(
+            *bounds.cmvn_work(feat, valid, out["this"]))[0]
+        res[f"{key}_this_share_of_bound"] = (
+            res[f"{key}_bound_ms"] / (res[f"{key}_this_device_us"] / 1e3))
+    return res
+
+
+def compare_ctc_beta_xi(libs, dev, rng) -> dict:
+    from asr_dfcnn_transformer_torch.kernels import ctc as kctc
+    stream = _build.stream_ptr(dev)
+    logits, logit_len, labels, label_len = ctc_problem(rng)
+    d = ctc_dp_inputs(logits, logit_len, labels, label_len, dev)
+    emit, init, valid, can_skip, lens = (
+        d[k] for k in ("emit", "init", "valid", "can_skip", "lens"))
+    args = d["xi_args"]
+    t, b, s = emit.shape
+    out = {side: torch.empty_like(emit) for side in libs}
+
+    def call(side):
+        def run():
+            rc = libs[side].asr_ctc_beta_xi(
+                *(x.data_ptr() for x in args), out[side].data_ptr(), t, b, s,
+                stream)
+            if rc:
+                raise SystemExit(f"{side} ctc_beta_xi failed: {rc}")
+        return run
+
+    want = kctc.beta_xi_reference(*args)
+    res = {"dtype": "float32", "shape": [t, b, s]}
+    for side in libs:
+        call(side)()
+        torch.cuda.synchronize()
+        if not torch.equal(out[side], want):
+            raise SystemExit(f"{side} ctc_beta_xi is not its twin's bits")
+        res[f"{side}_device_us"] = _us(call(side), "ctc_beta_xi_kernel")
+    res["sides_bit_equal"] = torch.equal(out["this"], out["other"])
+    if not res["sides_bit_equal"]:
+        raise SystemExit("ctc_beta_xi: the two libraries' outputs differ")
+    res["unsatisfiable_row_zero"] = bool((out["this"][:, 2] == 0).all())
+    if not res["unsatisfiable_row_zero"]:
+        raise SystemExit("ctc_beta_xi: the unsatisfiable row is not 0")
+    res["other_ms"], res["this_ms"] = _in_turns(call("other"), call("this"))
+    res["bound_ms"] = bounds.bound(
+        *bounds.ctc_beta_xi_work(*args, out["this"]))[0]
+    res["this_share_of_bound"] = res["bound_ms"] / (res["this_device_us"]
+                                                    / 1e3)
+    alphas_out = torch.empty_like(emit)
+
+    def alpha():
+        rc = libs["this"].asr_ctc_alpha(
+            emit.data_ptr(), init.data_ptr(), can_skip.data_ptr(),
+            valid.data_ptr(), lens.data_ptr(), alphas_out.data_ptr(), t, b, s,
+            stream)
+        if rc:
+            raise SystemExit(f"ctc_alpha failed: {rc}")
+
+    res["ctc_alpha_this_device_us"] = _us(alpha, "ctc_alpha_kernel")
+    res["ctc_alpha_bound_ms"] = bounds.bound(*bounds.ctc_alpha_work(
+        emit, init, can_skip, valid, lens, alphas_out))[0]
+    res["ctc_loss_fwd_device_us"], res["ctc_loss_bwd_device_us"] = (
+        ctc_loss_device_us(d, labels, iters=20))
+    return res
+
+
 COMPARE = {"beam_search": compare_beam_search,
+           "cmvn": compare_cmvn,
+           "ctc_beta_xi": compare_ctc_beta_xi,
            "dual_attention": compare_dual_attention,
            "log_mel": compare_log_mel,
            "fused_ffn": compare_fused_ffn,

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "asr_error_string": ((_I,), ctypes.c_char_p),
     "asr_log_mel": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
                     _I),
+    "asr_cmvn_plan": ((_I, _I, _I, _I), ctypes.c_longlong),
     "asr_cmvn": ((_P, _P, _P, _I, _I, _I, _P), _I),
     "asr_masked_attention_smem": ((_I, _I, _I), ctypes.c_longlong),
     "asr_masked_attention_path": ((_I, _I, _I, _I), _I),
@@ -57,6 +58,7 @@ _SIGNATURES = {
                                 _F, _P), _I),
     "asr_ctc_max_states": ((), _I),
     "asr_ctc_alpha": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "asr_ctc_beta_xi_plan": ((_I, _I), ctypes.c_longlong),
     "asr_ctc_beta_xi": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
                         _I),
     "asr_topk_last": ((_P, _P, _P, _I, _I, _I, _P), _I),

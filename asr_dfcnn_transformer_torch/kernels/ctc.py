@@ -10,6 +10,10 @@ launches the kernel for CUDA tensors, and raises for anything else.
 The recurrence's numerics (``NEG_INF``, ``logaddexp3``) are shared with
 ``ops/ctc.py`` and the CUDA source, as the JAX package shares them between
 its scan and Pallas backends: a change to one must be made to all.
+
+The ``ctc_beta_xi`` kernel stages each step's emission and alpha rows in a
+shared-memory ring ahead of its chain; ``beta_xi_plan`` mirrors its launch
+and ``beta_ring_schedule`` its slot and phase arithmetic.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ import torch.nn.functional as F
 from asr_dfcnn_transformer_torch.kernels import _build
 
 NEG_INF = -1e30
+# csrc/ctc.cu's beta_xi constants: steps staged ahead (the ring's slots),
+# the chain's threads at most, the producer, watcher and writer warps'
+# threads
+BETA_RING, BETA_CHAIN_MAX, BETA_HELPERS = 8, 512, 192
 
 
 def logaddexp3(a: torch.Tensor, b: torch.Tensor,
@@ -89,6 +97,42 @@ def beta_xi_reference(emit: torch.Tensor, alphas: torch.Tensor,
         beta = torch.where(t < lens - 1, new, init)    # pinned to end states
         write_xi(t, beta)
     return xi
+
+
+def beta_xi_plan(s: int) -> dict:
+    """``ctc_beta_xi``'s launch at S states (``asr_ctc_beta_xi_plan``): the
+    ring's slots, states a chain thread, threads a block (the chain's warps,
+    then a producer, a watcher and four writer warps) and shared bytes (two
+    mbarriers a slot; a slot holds the emission, alpha and beta rows, each
+    with room for a row copied from the 16-byte boundary below it)."""
+    per = 1 if s <= BETA_CHAIN_MAX else 2
+    chain = -(-(-(-s // per)) // 32) * 32
+    return {"ring": BETA_RING, "states": per, "threads": chain + BETA_HELPERS,
+            "smem": 2 * BETA_RING * 8 + BETA_RING * 3 * ((s + 6) // 4 * 4) * 4}
+
+
+def beta_ring_schedule(t_total: int, ring: int = BETA_RING) -> list:
+    """The kernel's ring arithmetic for T steps, step k being frame t = T -
+    1 - k: step k lives in slot k % ring and its ``full`` mbarrier's
+    (k // ring)-th phase, parity (k // ring) & 1, says its rows landed; the
+    producer fills the slot once the ``empty`` phase of step k - ring, which
+    the watcher completes after step k - ring + 1, has completed. Returns
+    per step: the slot, the ``full`` parity, the ``empty`` parity the
+    producer waits on (None for the first ``ring`` steps), the emission
+    frame copied there (None at k = 0), the alpha frame, the slot of the
+    beta row the chain reads (step k - 1's; None at k = 0) and the step
+    after whose barrier the watcher frees the slot (None for the last
+    step, whose slot is never freed)."""
+    steps = []
+    for k in range(t_total):
+        t = t_total - 1 - k
+        steps.append({
+            "slot": k % ring, "parity": (k // ring) & 1,
+            "empty_parity": None if k < ring else ((k - ring) // ring) & 1,
+            "emit_frame": t + 1 if k else None, "alpha_frame": t,
+            "prev_slot": (k - 1) % ring if k else None,
+            "freed_after": k + 1 if k + 1 < t_total else None})
+    return steps
 
 
 def _check(name: str, emit: torch.Tensor, rows: dict, lens: torch.Tensor,

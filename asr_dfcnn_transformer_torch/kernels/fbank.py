@@ -4,7 +4,9 @@
 ``cmvn`` replaces ``pallas_cmvn``; the CUDA sources are ``csrc/fbank.cu``.
 The ``log_mel`` kernel takes a real FFT in f64 and a sparse mel
 projection, with tables built here on the host (``fft_twiddles_np``,
-``mel_spans_np``); its twin keeps the f64 matrix-product DFT.
+``mel_spans_np``); its twin keeps the f64 matrix-product DFT. The ``cmvn``
+kernel runs one thread-block cluster per utterance; ``cmvn_plan`` mirrors
+its tiling and ``cmvn_blocked_np`` its order of sums.
 Each wrapper runs its plain-PyTorch twin (``*_reference``) for CPU tensors,
 launches the kernel for CUDA tensors, and raises for anything else. Neither
 has a backward: both raise when an input requires grad, rather than return
@@ -158,6 +160,75 @@ def cmvn_reference(feat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     # empty mel filter) does not keep a spurious mean from round-off
     mean2 = torch.sum(out * mask, dim=1, keepdim=True) / count
     return (out - mean2) * mask
+
+
+# csrc/fbank.cu's constants: threads a block, bins a pass, the shared
+# memory a block may use
+CMVN_THREADS, CMVN_CHUNK, SMEM_LIMIT = 512, 256, 232448
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def cmvn_plan(t: int, f: int, cluster: int) -> dict:
+    """The ``cmvn`` kernel's tiling for T frames of F bins on clusters of
+    ``cluster`` blocks (``asr_cmvn_plan`` fields 1-5; the launcher picks 16,
+    or 8 where the card cannot place 16): rows a block, bins a pass, row
+    groups a bin, whether the rows stream from device memory (else one
+    block's rows sit in its shared memory) and the shared bytes a block."""
+    rows = -(-t // cluster)
+    chunk = min(f, CMVN_CHUNK)
+    groups = max(1, CMVN_THREADS // chunk)
+    pad = -(-chunk // 4) * 4
+    fixed = 32 + _round16(4 * ((3 + 2 * cluster) * pad + (groups + 3) * chunk))
+    tile = _round16(4 * (rows * f + 3))
+    stream = fixed + tile > SMEM_LIMIT
+    return {"rows": rows, "chunk": chunk, "groups": groups,
+            "stream": int(stream), "smem": fixed if stream else fixed + tile}
+
+
+def cmvn_blocked_np(feat: np.ndarray, valid: np.ndarray,
+                    cluster: int) -> np.ndarray:
+    """The ``cmvn`` kernel's arithmetic in numpy f32, in its order of sums:
+    block r of an utterance's cluster owns frames r * rows .. (``cmvn_plan``);
+    thread (g, j) sums a statistic over the block's valid rows g, g + G, ..
+    in four interleaved accumulators (the m-th of its rows into accumulator
+    m % 4, each in order; then (a0 + a1) + (a2 + a3)), the block adds its G
+    group sums in order, and the cluster adds the blocks' partials in rank
+    order. Products and quotients are rounded on their own, as the
+    kernel's (no FMA)."""
+    b_total, t, f = feat.shape
+    plan = cmvn_plan(t, f, cluster)
+    rows, groups = plan["rows"], plan["groups"]
+    out = np.zeros_like(feat, dtype=np.float32)
+    for b in range(b_total):
+        nv = int(valid[b])
+        n_rows = max(0, min(nv, t))
+        cnt = np.float32(max(nv, 1))
+        x = feat[b].astype(np.float32)
+
+        def total(term):
+            tot = None
+            for rank in range(cluster):
+                r0 = min(rank * rows, t)
+                n = max(0, min(r0 + rows, t, n_rows) - r0)
+                part = None
+                for g in range(groups):
+                    acc = [np.zeros(f, np.float32) for _ in range(4)]
+                    for m, r in enumerate(range(g, n, groups)):
+                        acc[m % 4] = acc[m % 4] + term(x[r0 + r])
+                    s = (acc[0] + acc[1]) + (acc[2] + acc[3])
+                    part = s if part is None else part + s
+                tot = part if tot is None else tot + part
+            return tot
+
+        mean = total(lambda v: v) / cnt
+        sd = np.sqrt(total(lambda v: (v - mean) * (v - mean)) / cnt)
+        sd = np.where(sd == 0, np.float32(1), sd).astype(np.float32)
+        mean2 = total(lambda v: (v - mean) / sd) / cnt
+        out[b, :n_rows] = (x[:n_rows] - mean) / sd - mean2
+    return out
 
 
 def cmvn(feat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

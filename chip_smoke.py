@@ -12,7 +12,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. Kernels against their plain-PyTorch twins on the card, on seeded inputs
    at the main paths' shapes (``log_mel`` + ``cmvn``, ``log_mel`` also at
    the e2e front end's 80 filters, with the count of elements more than
-   1e-5 off the twin; the
+   1e-5 off the twin; ``cmvn`` within atol 1e-5 of its twin, launched twice
+   with the same bits, padding rows and (where valid <= T) an empty
+   filter's column exactly 0, its tiling held to ``kernels/fbank.py``
+   ``cmvn_plan``, at [8, 400 and 1600, 200], [16, 1600, 200], [8, 1600,
+   80], [8, 400, 200], [1, 1600, 200], a streamed [2, 6400, 200] and [3,
+   37, 1030] (bins in passes), with valid counts of 0 and above T; the
    ``masked_attention`` forward, with and without a keep mask, in f32 (the
    scalar kernel) and bf16 (the tensor-core kernel) at every forward shape
    of the LM and e2e paths: the LM served [8 and 16, 8, 100, 64] causal
@@ -30,7 +35,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    8, 600, 64] at keep 0.9 and bf16 [1, 8, 1000, 64] (scores recomputed),
    causal with ragged keys and a query row without a valid key, with the
    scalar forward's shared memory (``fwd_smem_bytes``) held to the C query;
-   ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129; the attention
+   ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129 (``ctc_beta_xi``
+   equal to its twin bit for bit and launched twice with the same bits,
+   its launch held to ``kernels/ctc.py`` ``beta_xi_plan``, also at T 1, T
+   below and past the ring's 8 slots and S 601 and 1023); the attention
    backward at the LM's training shape; ``topk_last`` at [1600, 1536], k
    8, in f32 and bf16, and ``beam_search`` at [8, 200, 1536], W = K = 8, L
    100, with batch-1, exhausted-candidate and
@@ -346,15 +354,16 @@ def check_front_end(results, rng):
     """``log_mel`` and ``cmvn`` against their twins on tone utterances with
     noise past each length, at 400 and 1600 frames (``log_mel`` at 1600
     also with the e2e front end's 80 filters): ``log_mel`` within rtol
-    1e-4, atol 1e-3, ``cmvn`` within 2e-3 with the empty filters' columns
-    exactly 0; then both timed at 1600 frames beside their twins and
-    their bounds."""
+    1e-4, atol 1e-3, ``cmvn`` as ``cmvn_case`` holds it (atol 1e-5, equal
+    to the numpy mirror of its order of sums, the empty filters' columns
+    exactly 0); then both timed at 1600 frames beside their twins and
+    their bounds, and ``cmvn`` at ``CMVN_CASES``."""
     import torch
     from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
                                                          mel_filterbank,
                                                          samples_for_frames,
                                                          valid_frames)
-    from asr_dfcnn_transformer_torch.bounds import log_mel_work
+    from asr_dfcnn_transformer_torch.bounds import cmvn_work, log_mel_work
     from asr_dfcnn_transformer_torch.kernels import fbank as kfbank
     from asr_dfcnn_transformer_torch.kernels import (cmvn, cmvn_reference,
                                                      log_mel,
@@ -393,13 +402,8 @@ def check_front_end(results, rng):
                   f"{'ok' if ok80 else 'FAIL'}")
             require(ok80, "log_mel disagrees with its twin at nfilt 80")
         valid = valid_frames(lens_d)
-        norm = cmvn(feat, valid)
-        norm_ref = cmvn_reference(feat, valid)
-        ok, err_c = close_enough(norm, norm_ref, 0.0, 2e-3)
-        zero = bool((norm[:, :, empty.to(dev)] == 0).all())
-        print(f"cmvn [8, {out_frames}, 200]: max abs err {err_c:.3g} "
-              f"(atol 2e-3), empty-filter columns exactly 0: {zero}")
-        require(ok and zero, "cmvn disagrees with its twin")
+        norm, err_c = cmvn_case(f"[8, {out_frames}, 200], tone features",
+                                feat, valid, empty)
         if out_frames == BUCKETS[-1]:
             results["log_mel"]["max_abs_err"] = err
             results["cmvn"]["max_abs_err"] = err_c
@@ -416,59 +420,117 @@ def check_front_end(results, rng):
             _, spans, weights = kfbank._fft_tables(FbankConfig(), dev)
             set_bound(results["log_mel"], *log_mel_work(
                 sig_d, lens_d, spans, weights, feat))
-            set_bound(results["cmvn"], nbytes(feat, valid, norm),
-                      {"f32": 6 * feat.numel()})
+            set_bound(results["cmvn"], *cmvn_work(feat, valid, norm))
             results["log_mel"]["library_ms"] = None
             results["cmvn"]["library_ms"] = None
+    # a generator of their own: the later checks keep their draws
+    check_cmvn_cases(np.random.default_rng(SEED + 2), empty)
 
 
-def ctc_problem(rng, b=AM_BATCH, t=200, lmax=64, v=1536):
-    """Seeded CTC inputs at the AM's training shape: ragged logit lengths,
-    label lengths up to ``lmax`` with an empty label and one unsatisfiable
-    row (more labels than frames)."""
-    logits = (2.0 * rng.standard_normal((b, t, v))).astype(np.float32)
-    logit_len = rng.integers(t // 2, t + 1, size=b).astype(np.int32)
-    label_len = rng.integers(1, lmax + 1, size=b).astype(np.int32)
-    logit_len[0], label_len[0] = t, lmax
-    label_len[1] = 0                                  # empty label
-    logit_len[2], label_len[2] = lmax // 2, lmax      # unsatisfiable
-    labels = rng.integers(0, v - 1, size=(b, lmax)).astype(np.int32)
-    return logits, logit_len, labels, label_len
+def cmvn_case(label, feat, valid, empty):
+    """``cmvn`` on the card against its twin within atol 1e-5 (its sums
+    run in another order: per block and per cluster), equal bit for bit to
+    ``cmvn_blocked_np``, the numpy mirror of that order (which the CPU tests
+    hold to JAX's ``pallas_cmvn``), launched twice with the same bits, rows
+    at and past ``valid`` exactly 0, and, where ``valid`` <= T, the columns
+    of ``empty`` too. Returns (output, max abs error)."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import (_build, cmvn,
+                                                     cmvn_reference)
+    from asr_dfcnn_transformer_torch.kernels import fbank as kfbank
+    b, t, f = feat.shape
+    lib = _build.library()
+    cluster = int(lib.asr_cmvn_plan(b, t, f, 0))
+    active = int(lib.asr_cmvn_plan(b, t, f, 6))
+    plan = {k: int(lib.asr_cmvn_plan(b, t, f, i))
+            for i, k in enumerate(("rows", "chunk", "groups", "stream",
+                                   "smem"), start=1)}
+    require(plan == kfbank.cmvn_plan(t, f, cluster),
+            f"cmvn {label}: the launcher's plan {plan} (cluster {cluster}) "
+            f"is not kernels/fbank.py's {kfbank.cmvn_plan(t, f, cluster)}")
+    norm = cmvn(feat, valid)
+    again = cmvn(feat, valid)
+    torch.cuda.synchronize()
+    norm_ref = cmvn_reference(feat, valid)
+    ok, err = close_enough(norm, norm_ref, 0.0, 1e-5)
+    same = torch.equal(norm, again)
+    rows = torch.arange(t, device=feat.device)[None, :]
+    pad_zero = bool((norm[rows >= valid[:, None].long()] == 0).all())
+    cols = norm[(valid <= t).nonzero()[:, 0]][:, :, empty.to(feat.device)]
+    zero = bool((cols == 0).all()) if empty.numel() else True
+    mirror = kfbank.cmvn_blocked_np(feat.cpu().numpy(), valid.cpu().numpy(),
+                                    cluster)
+    off = int((norm.cpu() != torch.from_numpy(mirror)).sum())
+    print(f"cmvn {label} {list(feat.shape)}: cluster {cluster} ({active} "
+          f"at once), {plan['rows']} rows a block, "
+          f"{'streams' if plan['stream'] else 'in shared memory'} "
+          f"({plan['smem']} bytes); max abs err {err:.3g} (atol 1e-5), "
+          f"bit-identical twice: {same}, padding rows 0: {pad_zero}, "
+          f"empty-filter columns 0: {zero}; {off} of {norm.numel()} "
+          f"elements differ from the numpy mirror "
+          f"{'ok' if ok and same and pad_zero and zero and not off
+             else 'FAIL'}")
+    require(ok and same and pad_zero and zero,
+            f"cmvn {label} disagrees with its twin")
+    require(off == 0, f"cmvn {label}: {off} elements differ from "
+            f"cmvn_blocked_np, the mirror of its order of sums")
+    return norm, err
+
+
+CMVN_CASES = (   # label, (B, T, F): the main paths' shapes and the edges
+    ("AM training batch", (16, 1600, 200)),
+    ("e2e front end", (8, 1600, 80)),
+    ("bucket 400", (8, 400, 200)),
+    ("batch 1", (1, 1600, 200)),
+    ("streamed", (2, 6400, 200)),
+    ("ragged F", (3, 37, 1030)),
+)
+
+
+def check_cmvn_cases(rng, empty):
+    """``cmvn`` at the other main-path shapes and at the edges (an
+    utterance that streams, bins past one pass), each on seeded features
+    with a constant column where F is 200 (an empty mel filter's log eps)
+    and ragged ``valid`` that includes 0 and a count above T."""
+    import torch
+    from asr_dfcnn_transformer_torch.check_inputs import cmvn_inputs
+    dev = torch.device(DEVICE)
+    for label, (b, t, f) in CMVN_CASES:
+        cols = empty if f == 200 else torch.zeros(0, dtype=torch.long)
+        feat, valid = (torch.from_numpy(a).to(dev) for a in cmvn_inputs(
+            rng, b, t, f, const_cols=cols.numpy()))
+        cmvn_case(label, feat, valid, cols)
 
 
 def check_ctc_kernels(results, rng):
     import torch
+    from asr_dfcnn_transformer_torch.bounds import (ctc_alpha_work,
+                                                    ctc_beta_xi_work)
+    from asr_dfcnn_transformer_torch.check_inputs import (ctc_dp_inputs,
+                                                          ctc_loss_device_us,
+                                                          ctc_problem)
     from asr_dfcnn_transformer_torch.kernels import (alpha_stack_reference,
                                                      beta_xi_reference,
                                                      ctc_alpha, ctc_beta_xi)
     from asr_dfcnn_transformer_torch.ops import ctc as ctc_ops
-    from asr_dfcnn_transformer_torch.timing import cuda_ms
+    from asr_dfcnn_transformer_torch.timing import device_us
     dev = torch.device(DEVICE)
     logits, logit_len, labels, label_len = ctc_problem(rng)
-    v = logits.shape[-1]
-    lp = torch.log_softmax(torch.from_numpy(logits).to(dev), -1)
-    lens = torch.from_numpy(logit_len).to(dev)
-    lab_len = torch.from_numpy(label_len).to(dev)
-    ext, valid, can_skip = ctc_ops._extended_labels(
-        torch.from_numpy(labels).long().to(dev), lab_len, v - 1)
-    emit = ctc_ops._emissions(lp, ext)
-    init = ctc_ops._alpha0(lp, emit, lab_len, valid, v - 1)
+    d = ctc_dp_inputs(logits, logit_len, labels, label_len, dev)
+    emit, init, valid, can_skip, lens = (
+        d[k] for k in ("emit", "init", "valid", "can_skip", "lens"))
     alphas = ctc_alpha(emit, init, can_skip, valid, lens)
-    alphas_ref = alpha_stack_reference(emit, init, can_skip, valid, lens)
-    ok_a, err_a = close_enough(alphas, alphas_ref, 1e-5, 1e-5)
-    total = ctc_ops._total_from_alpha(alphas_ref[-1], lab_len, lens)
-    binit = ctc_ops._beta_init(valid, lab_len)
-    skip_from = torch.nn.functional.pad(can_skip, (0, 2))[:, 2:].contiguous()
-    xi_args = (emit, alphas_ref, binit, skip_from, valid, lens, total)
+    ok_a, err_a = close_enough(alphas, d["alphas"], 1e-5, 1e-5)
+    xi_args = d["xi_args"]
+    err_x = beta_xi_case("main", xi_args)
     xi = ctc_beta_xi(*xi_args)
-    xi_ref = beta_xi_reference(*xi_args)
-    ok_x, err_x = close_enough(xi, xi_ref, 0.0, 1e-6)
     dead = bool((xi[:, 2] == 0).all())
     print(f"ctc_alpha {list(emit.shape)}: max abs err {err_a:.3g} (rtol "
-          f"1e-5, atol 1e-5) {'ok' if ok_a else 'FAIL'}; ctc_beta_xi: max "
-          f"abs err {err_x:.3g} (atol 1e-6) {'ok' if ok_x else 'FAIL'}, "
+          f"1e-5, atol 1e-5) {'ok' if ok_a else 'FAIL'}; ctc_beta_xi: "
           f"unsatisfiable row all zero: {dead}")
-    require(ok_a and ok_x and dead, "a CTC DP kernel disagrees with its twin")
+    require(ok_a and dead, "a CTC DP kernel disagrees with its twin")
+    # a generator of their own: the later checks keep their draws
+    check_beta_xi_edges(np.random.default_rng(SEED + 1))
     results["ctc_alpha"]["max_abs_err"] = err_a
     results["ctc_beta_xi"]["max_abs_err"] = err_x
     results["ctc_alpha"].update(zip(("ms", "plain_ms"), paired_ms(
@@ -476,29 +538,24 @@ def check_ctc_kernels(results, rng):
         lambda: alpha_stack_reference(emit, init, can_skip, valid, lens))))
     results["ctc_beta_xi"].update(zip(("ms", "plain_ms"), paired_ms(
         lambda: ctc_beta_xi(*xi_args), lambda: beta_xi_reference(*xi_args))))
-    # a chain of T dependent steps; ~14 (alpha) and ~20 (beta + xi) f32
-    # operations per state and step
+    # a chain of T dependent steps; what this run's lengths and labels
+    # need (bounds.ctc_alpha_work, bounds.ctc_beta_xi_work)
     set_bound(results["ctc_alpha"],
-              nbytes(emit, init, can_skip, valid, lens, alphas),
-              {"f32": 14 * emit.numel()})
-    set_bound(results["ctc_beta_xi"], nbytes(*xi_args, xi),
-              {"f32": 20 * emit.numel()})
+              *ctc_alpha_work(emit, init, can_skip, valid, lens, alphas))
+    set_bound(results["ctc_beta_xi"], *ctc_beta_xi_work(*xi_args, xi))
     print(f"ctc DPs: a chain of {emit.shape[0]} dependent steps each")
-    # the library yardstick: F.ctc_loss's forward, and its backward (the
-    # forward + backward time less the forward's)
-    x = lp.transpose(0, 1).contiguous().requires_grad_(True)
-    tgt = torch.from_numpy(labels).long().to(dev)
-
-    def lib_loss():
-        return torch.nn.functional.ctc_loss(
-            x, tgt, lens.long(), lab_len.long(), blank=v - 1,
-            reduction="sum", zero_infinity=True)
-
-    with torch.no_grad():
-        fwd = cuda_ms(lib_loss)
-    both = cuda_ms(lambda: torch.autograd.grad(lib_loss(), x))
-    results["ctc_alpha"]["library_ms"] = fwd
-    results["ctc_beta_xi"]["library_ms"] = both - fwd
+    # the library yardstick in device time (the profiler's, as the
+    # kernels' own device us): F.ctc_loss's forward, and its backward (the
+    # forward + backward less the forward)
+    fwd, bwd = ctc_loss_device_us(d, labels)
+    results["ctc_alpha"]["library_ms"] = fwd / 1e3
+    results["ctc_beta_xi"]["library_ms"] = bwd / 1e3
+    alpha_us = device_us(lambda: ctc_alpha(emit, init, can_skip, valid, lens),
+                         "ctc_alpha_kernel")
+    beta_us = device_us(lambda: ctc_beta_xi(*xi_args), "ctc_beta_xi_kernel")
+    print(f"F.ctc_loss device us: forward {fwd:.1f}, backward "
+          f"{bwd:.1f}; ctc_alpha {alpha_us:.1f}, ctc_beta_xi "
+          f"{beta_us:.1f}")
 
     # the loss and its gradient on the card against the CPU's twins
     loss_grad = {}
@@ -529,6 +586,60 @@ def check_ctc_kernels(results, rng):
           f"{'ok' if ok_l and ok_g else 'FAIL'}")
     require(ok_l and ok_g and finite, "ctc_loss on the card disagrees with "
             "the CPU")
+
+
+def beta_xi_case(label, xi_args):
+    """``ctc_beta_xi`` on the card equal to its twin bit for bit, launched
+    twice with the same bits, its launch held to ``beta_xi_plan``. Returns
+    the max abs error (0)."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import (_build,
+                                                     beta_xi_reference,
+                                                     ctc_beta_xi)
+    from asr_dfcnn_transformer_torch.kernels import ctc as kctc
+    t, b, s = xi_args[0].shape
+    lib = _build.library()
+    plan = {k: int(lib.asr_ctc_beta_xi_plan(s, i))
+            for i, k in enumerate(("ring", "states", "threads", "smem"))}
+    require(plan == kctc.beta_xi_plan(s), f"ctc_beta_xi {label}: the "
+            f"launcher's plan {plan} is not kernels/ctc.py's "
+            f"{kctc.beta_xi_plan(s)}")
+    xi = ctc_beta_xi(*xi_args)
+    again = ctc_beta_xi(*xi_args)
+    torch.cuda.synchronize()
+    want = beta_xi_reference(*xi_args)
+    equal = torch.equal(xi, want) and torch.equal(xi, again)
+    err = float((xi - want).abs().max())
+    print(f"ctc_beta_xi {label} [{t}, {b}, {s}]: {plan['states']} state(s) a "
+          f"chain thread, {plan['threads']} threads, {plan['smem']} bytes; "
+          f"equal to the twin and to a second launch: {equal} (max abs err "
+          f"{err:.3g}) {'ok' if equal else 'FAIL'}")
+    require(equal, f"ctc_beta_xi {label} is not its twin's bits")
+    return err
+
+
+BETA_XI_EDGES = (   # (T, B, lmax): T 1, T below the ring's 8 slots, T mod 8
+    # of 1 and 7, S above the 512 states of one a chain thread, S at 1023
+    (1, 3, 2), (5, 2, 4), (17, 3, 16), (31, 2, 40), (40, 2, 300),
+    (24, 2, 511))
+
+
+def check_beta_xi_edges(rng):
+    """``ctc_beta_xi`` bit for bit at the ring's edges (``BETA_XI_EDGES``),
+    on ``ctc_problem``'s kind of inputs at a small vocabulary."""
+    import torch
+    from asr_dfcnn_transformer_torch.check_inputs import ctc_dp_inputs
+    for t, b, lmax in BETA_XI_EDGES:
+        v = 64
+        logits = (2.0 * rng.standard_normal((b, t, v))).astype(np.float32)
+        logit_len = rng.integers(1, t + 1, size=b).astype(np.int32)
+        logit_len[0] = t
+        label_len = rng.integers(0, lmax + 1, size=b).astype(np.int32)
+        label_len[0] = lmax
+        labels = rng.integers(0, v - 1, size=(b, lmax)).astype(np.int32)
+        beta_xi_case("edge", ctc_dp_inputs(
+            logits, logit_len, labels, label_len,
+            torch.device(DEVICE))["xi_args"])
 
 
 FWD_CASES = (   # label, (B, H, Tq, Tk, Dh), causal, keep probability

@@ -215,3 +215,169 @@ def test_wrappers_reject_bad_inputs():
                   lens.to("meta"))
     with pytest.raises(ValueError, match="labels"):
         ctc_loss(torch.zeros((2, 3, 4)), lens, torch.zeros(2), lens)
+
+
+class _Barrier:
+    """An mbarrier of one expected arrival: its count of completed phases.
+    A wait on parity p passes while the current (open) phase's parity is
+    not p, as ``mbarrier.try_wait.parity`` does."""
+
+    def __init__(self):
+        self.done = 0
+
+    def passes(self, parity, phase):
+        ok = (self.done & 1) != parity
+        # the wait means phase `phase`; it must never see a later one
+        assert not ok or self.done == phase + 1, (self.done, phase)
+        return ok
+
+
+def _run_ring(t_total, ring, seed):
+    """The ``ctc_beta_xi`` kernel's roles on ``beta_ring_schedule``'s
+    arithmetic, interleaved at random: the producer fills step k's slot
+    once the ``empty`` phase of step k - ring has passed, the watcher waits
+    on step k + 1's ``full`` before barrier k and frees step k - 1's slot
+    after it, the chain reads step k's emissions and step k - 1's beta
+    after barrier k - 1 and writes beta before barrier k, the writers read
+    step k's alpha and beta after barrier k. Returns the frames each read
+    saw."""
+    from asr_dfcnn_transformer_torch.kernels import ctc as kctc
+    steps = kctc.beta_ring_schedule(t_total, ring)
+    full = [_Barrier() for _ in range(ring)]
+    empty = [_Barrier() for _ in range(ring)]
+    emit = [None] * ring            # frame held by each slot's sections
+    alpha = [None] * ring
+    beta = [None] * ring            # the step whose beta the slot holds
+    seen = {"emit": [], "alpha": [], "prev": [], "beta": []}
+    arrived = {}                    # barrier k -> roles arrived
+
+    def wait(bar, parity, phase):
+        while not bar.passes(parity, phase):
+            yield
+
+    def barrier(k, role):
+        arrived.setdefault(k, set()).add(role)
+        while len(arrived[k]) < 3:
+            yield
+
+    def producer():
+        for k, st in enumerate(steps):
+            i = st["slot"]
+            if st["empty_parity"] is not None:
+                yield from wait(empty[i], st["empty_parity"], k // ring - 1)
+            yield
+            emit[i], alpha[i] = st["emit_frame"], st["alpha_frame"]
+            full[i].done += 1
+
+    def watcher():
+        yield from wait(full[0], steps[0]["parity"], 0)
+        if t_total > 1:
+            yield from wait(full[1 % ring], steps[1]["parity"], 1 // ring)
+        yield from barrier(0, "watcher")
+        for k in range(1, t_total):
+            if k + 1 < t_total:
+                st = steps[k + 1]
+                yield from wait(full[st["slot"]], st["parity"],
+                                (k + 1) // ring)
+            yield from barrier(k, "watcher")
+            done = steps[k - 1]
+            assert done["freed_after"] == k
+            empty[done["slot"]].done += 1
+
+    def chain():
+        beta[0] = 0
+        yield from barrier(0, "chain")
+        for k in range(1, t_total):
+            st = steps[k]
+            seen["emit"].append((k, emit[st["slot"]]))
+            seen["prev"].append((k, beta[st["prev_slot"]]))
+            yield
+            beta[st["slot"]] = k
+            yield from barrier(k, "chain")
+
+    def writers():
+        for k, st in enumerate(steps):
+            yield from barrier(k, "writers")
+            yield
+            seen["alpha"].append((k, alpha[st["slot"]]))
+            seen["beta"].append((k, beta[st["slot"]]))
+
+    rng = np.random.default_rng(seed)
+    roles = [producer(), watcher(), chain(), writers()]
+    while roles:
+        role = roles[rng.integers(len(roles))]
+        try:
+            next(role)
+        except StopIteration:
+            roles.remove(role)
+    return seen
+
+
+@pytest.mark.parametrize("t_total", [1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 200])
+def test_beta_ring_reads_frame_t_plus_1(t_total):
+    """``beta_ring_schedule``'s slot and phase arithmetic (ring of 8): under
+    random interleavings of the kernel's four roles, every wait on a parity
+    means the phase it should, step k's chain reads frame t + 1's emissions
+    and step k - 1's beta, and its writers frame t's alpha and step k's
+    beta, for T below, at and past the ring's multiples and T = 1."""
+    for seed in range(4):
+        seen = _run_ring(t_total, 8, seed)
+        assert seen["emit"] == [(k, t_total - k) for k in range(1, t_total)]
+        assert seen["prev"] == [(k, k - 1) for k in range(1, t_total)]
+        assert seen["alpha"] == [(k, t_total - 1 - k)
+                                 for k in range(t_total)]
+        assert seen["beta"] == [(k, k) for k in range(t_total)]
+
+
+@pytest.mark.parametrize("s", [1, 5, 129, 512, 513, 1023, 1024])
+def test_beta_xi_plan(s):
+    """``beta_xi_plan``, the mirror of the launcher: one state a chain
+    thread up to 512 states, two above, the chain a warp multiple, the
+    producer, watcher and writer warps after it, at most 1024 threads, and
+    the ring's shared memory within the card's 232,448 bytes."""
+    from asr_dfcnn_transformer_torch.kernels import ctc as kctc
+    p = kctc.beta_xi_plan(s)
+    chain = p["threads"] - kctc.BETA_HELPERS
+    assert p["states"] == (1 if s <= 512 else 2)
+    assert chain % 32 == 0 and chain * p["states"] >= s
+    assert chain - 32 < -(-s // p["states"]) <= chain
+    assert p["threads"] <= 1024 and p["smem"] <= 232448
+
+
+def test_work_counts_only_the_cells_the_output_needs():
+    """``bounds.ctc_alpha_work`` and ``ctc_beta_xi_work`` count emissions of
+    frames 1 .. len - 1 (and, for xi, alphas of frames 0 .. len - 1) at
+    valid states of utterances whose log P is finite: every other cell may
+    hold any log-probability without changing the twins' outputs."""
+    from asr_dfcnn_transformer_torch import bounds
+    from asr_dfcnn_transformer_torch.check_inputs import (ctc_dp_inputs,
+                                                          ctc_problem)
+    from asr_dfcnn_transformer_torch.kernels import ctc as kctc
+    rng = np.random.default_rng(5)
+    d = ctc_dp_inputs(*ctc_problem(rng, b=5, t=14, lmax=5, v=9),
+                      torch.device("cpu"))
+    emit, alphas, init, can_skip, valid, lens, total = (
+        d[k] for k in ("emit", "alphas", "init", "can_skip", "valid", "lens",
+                       "total"))
+    xi = kctc.beta_xi_reference(*d["xi_args"])
+    frame = torch.arange(emit.shape[0])[:, None, None]
+    cells = valid[None] & (frame < lens[None, :, None].long())
+    e_need = cells & (frame >= 1)
+    finite = (total > kctc.NEG_INF / 2)[None, :, None]
+    other = -20 * torch.rand(emit.shape)
+    a_emit = torch.where(e_need, emit, other)
+    assert torch.equal(kctc.alpha_stack_reference(a_emit, init, can_skip,
+                                                  valid, lens), alphas)
+    args = list(d["xi_args"])
+    args[0] = torch.where(e_need & finite, emit, other)
+    args[1] = torch.where(cells & finite, alphas, other)
+    assert torch.equal(kctc.beta_xi_reference(*args), xi)
+    rest = bounds.nbytes(init, can_skip, valid, lens, alphas)
+    assert bounds.ctc_alpha_work(emit, init, can_skip, valid, lens,
+                                 alphas) == (
+        4 * int(e_need.sum()) + rest, {"f32": 14 * int(e_need.sum())})
+    e_cells = int((e_need & finite).sum())
+    a_cells = int((cells & finite).sum())
+    rest = bounds.nbytes(*d["xi_args"][2:], xi)
+    assert bounds.ctc_beta_xi_work(*d["xi_args"], xi) == (
+        4 * (e_cells + a_cells) + rest, {"f32": 20 * a_cells})

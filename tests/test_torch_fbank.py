@@ -292,3 +292,75 @@ def test_kernel_fft_steps_give_the_real_fft(signals):
     twin = log_mel(torch.from_numpy(sigs[:1]), torch.from_numpy(lens[:1]),
                    n)[0].numpy()
     np.testing.assert_allclose(feat, twin, rtol=1e-4, atol=1e-3)
+
+
+_PLAN_CASES = [(b, t, f) for b in (1, 8, 16) for t in (400, 800, 1200, 1600)
+               for f in (200, 80)] + [(2, 6400, 200), (3, 37, 1030)]
+
+
+@pytest.mark.parametrize("cluster", [16, 8])
+@pytest.mark.parametrize("b, t, f", _PLAN_CASES)
+def test_cmvn_plan_covers_every_frame_once(b, t, f, cluster):
+    """``cmvn_plan``, the mirror of the kernel's tiling: the cluster's blocks
+    own contiguous runs of frames that cover [0, T) exactly once, a block's
+    shared memory stays within the card's 232,448 bytes, and the rows
+    stream from device memory exactly when they do not fit beside the
+    statistics' buffers: never at the served and trained buckets, always
+    past them (6400 frames)."""
+    from asr_dfcnn_transformer_torch.kernels import fbank as kf
+    p = kf.cmvn_plan(t, f, cluster)
+    owned = np.zeros(t, np.int64)
+    for rank in range(cluster):
+        r0 = min(rank * p["rows"], t)
+        owned[r0:min(r0 + p["rows"], t)] += 1
+    assert np.all(owned == 1)
+    assert p["smem"] <= kf.SMEM_LIMIT
+    assert p["chunk"] == min(f, kf.CMVN_CHUNK)
+    assert p["groups"] * p["chunk"] <= max(kf.CMVN_THREADS, p["chunk"])
+    tile = -(-4 * (p["rows"] * f + 3) // 16) * 16   # rows and lead
+    fixed = p["smem"] - (0 if p["stream"] else tile)
+    assert p["stream"] == int(fixed + tile > kf.SMEM_LIMIT)
+    assert p["stream"] == (t == 6400)
+
+
+def _pallas_cmvn(feat, valid):
+    from asr_dfcnn_transformer_tpu.ops.pallas.fbank_kernel import pallas_cmvn
+    return np.asarray(pallas_cmvn(feat, valid, interpret=True))
+
+
+@pytest.mark.parametrize("cluster", [16, 8])
+def test_cmvn_blocked_order_matches_pallas_cmvn(cluster):
+    """The kernel's order of sums (``cmvn_blocked_np``: per block, per row
+    group in four accumulators, the blocks in rank order) against the JAX
+    package's ``pallas_cmvn`` in interpret mode, within atol 1e-5, with a
+    constant column (an empty filter's log eps) exactly 0 wherever valid <=
+    T, rows at and past valid exactly 0, and valid of 0 and above T."""
+    from asr_dfcnn_transformer_torch.kernels import fbank as kf
+    rng = np.random.default_rng(cluster)
+    feat = (3 * rng.standard_normal((4, 61, 24)) - 10).astype(np.float32)
+    feat[:, :, 5] = np.float32(np.log(np.finfo(np.float64).eps))
+    valid = np.array([61, 17, 0, 80], np.int32)
+    got = kf.cmvn_blocked_np(feat, valid, cluster)
+    want = _pallas_cmvn(feat, valid)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert np.all(got[:3, :, 5] == 0.0)
+    assert np.all(got[1, 17:] == 0.0) and np.all(got[2] == 0.0)
+    twin = cmvn(torch.from_numpy(feat), torch.from_numpy(valid)).numpy()
+    np.testing.assert_allclose(got, twin, rtol=0, atol=1e-5)
+
+
+def test_cmvn_work_counts_only_the_rows_the_output_needs():
+    """``bounds.cmvn_work`` reads min(valid, T) rows an utterance: rows at
+    and past valid may hold anything without changing ``cmvn``'s output,
+    so they are not counted; the output is written whole."""
+    from asr_dfcnn_transformer_torch import bounds
+    from asr_dfcnn_transformer_torch.check_inputs import cmvn_inputs
+    feat, valid = (torch.from_numpy(a) for a in cmvn_inputs(
+        np.random.default_rng(3), 4, 23, 6, const_cols=(5,)))
+    out = cmvn(feat, valid)
+    needed = torch.arange(23)[None, :] < valid[:, None].long()
+    noisy = torch.where(needed[..., None], feat, 1e4 * torch.rand(feat.shape))
+    assert torch.equal(cmvn(noisy, valid), out)
+    n_bytes, ops = bounds.cmvn_work(feat, valid, out)
+    assert n_bytes == 4 * (int(needed.sum()) * 6 + 4 + out.numel())
+    assert ops == {"f32": 6 * int(needed.sum()) * 6}
