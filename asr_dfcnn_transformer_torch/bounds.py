@@ -133,3 +133,11 @@ def ctc_beta_xi_work(emit, alphas, binit, skip_from, valid, lens, total, xi):
     return ((e_cells + a_cells) * emit.element_size()
             + nbytes(binit, skip_from, valid, lens, total, xi),
             {"f32": 20 * a_cells})
+
+
+def topk_last_work(x, k: int):
+    """``topk_last`` over x [..., V] (f32 on the card): each row read once
+    and k values and k int32 ids written; k rounds of V compares a row."""
+    v = x.shape[-1]
+    n = x.numel() // v if v else 0
+    return nbytes(x) + n * k * 8, {"f32": n * k * v}

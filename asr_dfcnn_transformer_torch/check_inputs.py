@@ -4,8 +4,11 @@ and ``compare_kernels``.
 ``cmvn_inputs`` draws features and valid counts for ``cmvn``;
 ``ctc_problem`` draws CTC inputs at the AM's training shape and
 ``ctc_dp_inputs`` forms the DP kernels' inputs from them, as ``ops/ctc.py``
-forms them; ``ctc_loss_device_us`` times ``F.ctc_loss``'s forward and
-backward in device time (needs a CUDA device).
+forms them; ``alpha_inputs`` draws ``ctc_alpha``'s inputs directly at any
+(T, B, S), and ``ALPHA_EDGES`` lists the shapes past the main one that the
+card's checks hold it to; ``topk_cases`` draws ``topk_last``'s cases on
+the card; ``ctc_loss_device_us`` times ``F.ctc_loss``'s
+forward and backward in device time (needs a CUDA device).
 """
 
 from __future__ import annotations
@@ -50,6 +53,42 @@ def ctc_problem(rng, b=16, t=200, lmax=64, v=1536):
     logit_len[2], label_len[2] = lmax // 2, lmax      # unsatisfiable
     labels = rng.integers(0, v - 1, size=(b, lmax)).astype(np.int32)
     return logits, logit_len, labels, label_len
+
+
+# (label, T, B, S): T 1 and 2, S 1, 33 (one state past a warp) and 1024
+# (32 warps: one block of them), B 1, and B 64 at S 129 (more blocks than
+# one an SM: one block an utterance); every case with B > 2 has rows of
+# length 0 and past T
+ALPHA_EDGES = (("T1", 1, 16, 129), ("T2", 2, 16, 129), ("S1", 200, 16, 1),
+               ("S33", 200, 16, 33), ("S1024", 200, 4, 1024),
+               ("B1", 200, 1, 129), ("ragged", 37, 5, 65),
+               ("B64", 40, 64, 129))
+
+
+def alpha_inputs(rng, t: int, b: int, s: int):
+    """``ctc_alpha``'s inputs in numpy at any (T, B, S), S states not tied
+    to labels: emissions -Exp(2), alpha_0 finite at the first two valid
+    states, ragged valid state counts (the first row all S), skips allowed
+    at random odd states from 3 on, and lengths in 1 .. T with the second
+    row's 0 and the third's past T. Returns (emit [T, B, S] f32, init
+    [B, S] f32, can_skip [B, S] bool, valid [B, S] bool, lens [B] int32)."""
+    from asr_dfcnn_transformer_torch.kernels.ctc import NEG_INF
+    emit = (-rng.exponential(2.0, (t, b, s))).astype(np.float32)
+    states = rng.integers(1, s + 1, size=b)
+    states[0] = s
+    col = np.arange(s)
+    valid = col[None] < states[:, None]
+    can_skip = ((rng.uniform(size=(b, s)) < 0.7) & (col >= 3)
+                & (col % 2 == 1) & valid)
+    init = np.where(valid & (col < 2), -rng.exponential(1.0, (b, s)),
+                    NEG_INF).astype(np.float32)
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[0] = t
+    if b > 1:
+        lens[1] = 0
+    if b > 2:
+        lens[2] = t + 3
+    return emit, init, can_skip, valid, lens
 
 
 def ctc_dp_inputs(logits, logit_len, labels, label_len, dev) -> dict:
@@ -102,3 +141,31 @@ def ctc_loss_device_us(d: dict, labels, iters: int = 10):
     fwd = device_us(forward, None, iters)
     both = device_us(lambda: torch.autograd.grad(loss(), x), None, iters)
     return fwd, both - fwd
+
+
+def topk_cases(rng, dev):
+    """(label, x [N, V] f32 on ``dev``, k) at which the card's checks hold
+    ``topk_last``: the beam path's log-softmax rows [1600, 1536] at k 8, 1
+    and 32, a streamed chunk [8 x 16, 1536], N 1, V 1, 33 (ragged: 4-byte
+    loads) and 2048, quantised ties with -0.0 and 0.0, and rows with -inf
+    entries, with entries at -1e30 and with fewer than k above -1e30."""
+    from asr_dfcnn_transformer_torch.kernels.topk import NEG_INF
+    v = 1536                                 # the AM's vocabulary
+
+    def log_probs(n, width):
+        x = torch.from_numpy((2.0 * rng.standard_normal((n, width))).astype(
+            np.float32)).to(dev)
+        return torch.log_softmax(x, -1)
+
+    path = log_probs(1600, v)
+    ties = torch.round(torch.from_numpy(rng.standard_normal(
+        (1600, v)).astype(np.float32)).to(dev) * 2) / 2
+    sparse = log_probs(64, v)
+    sparse[:32, 5:] = -float("inf")       # 5 finite entries, k 32
+    sparse[32:, ::2] = NEG_INF            # entries already at the mask
+    sparse[40:48] = -float("inf")         # rows of only -inf
+    return (("path", path, 8), ("k1", path, 1), ("k32", path, 32),
+            ("stream", log_probs(8 * 16, v), 8), ("n1", log_probs(1, v), 8),
+            ("v1", log_probs(64, 1), 1), ("v33", log_probs(256, 33), 8),
+            ("v2048", log_probs(256, 2048), 8), ("ties", ties, 8),
+            ("sparse", sparse, 32))

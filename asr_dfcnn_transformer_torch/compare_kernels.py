@@ -1,8 +1,9 @@
 """Time this tree's kernels against another checkout's, in turns, on one card.
 
     python3 -m asr_dfcnn_transformer_torch.compare_kernels \\
-        --kernel {beam_search,cmvn,ctc_beta_xi,dual_attention,fused_ffn,
-                  log_mel,masked_attention,masked_attention_bwd} \\
+        --kernel {beam_search,cmvn,ctc_alpha,ctc_beta_xi,dual_attention,
+                  fused_ffn,log_mel,masked_attention,
+                  masked_attention_bwd,topk_last} \\
         --other DIR [--out PATH]
 
 ``DIR`` is the root of another checkout of the repository (for example
@@ -27,12 +28,17 @@ point on the same seeded inputs at the main paths' shapes:
   1e-5, the constant column exactly 0 where valid <= T, and this tree's
   kernel launched twice with the same bits. No one PyTorch call computes
   it.
-- ``ctc_beta_xi``: ``chip_smoke.py``'s CTC problem, [T 200, B 16, S 129]
-  with an empty label and an unsatisfiable row; both libraries' xi equal to
-  this tree's twin and to each other bit for bit, the unsatisfiable row
-  all zero; the yardstick is ``F.ctc_loss``'s backward (the profiler's
-  device time of its forward and backward less its forward), with its
-  forward and this tree's ``ctc_alpha`` (and its bound) beside it.
+- ``ctc_alpha``: ``chip_smoke.py``'s CTC problem, [T 200, B 16, S 129]
+  with an empty label and an unsatisfiable row, then
+  ``check_inputs.ALPHA_EDGES`` (T 1 and 2, S 1, 33 and 1024, B 1 and 64,
+  lengths of 0 and past T); both libraries' alphas equal to this tree's
+  twin and to each other bit for bit; the yardstick is ``F.ctc_loss``'s
+  forward in device time.
+- ``ctc_beta_xi``: the same CTC problem; both libraries' xi equal to this
+  tree's twin and to each other bit for bit, the unsatisfiable row all
+  zero; the yardstick is ``F.ctc_loss``'s backward (the profiler's device
+  time of its forward and backward less its forward), its forward beside
+  it.
 - ``dual_attention``: the forward and the backward at the e2e pre-net's
   frequency rows [1072, 80, 64] (batch 8, bucket 1600); the forward held
   to this tree's twin within one bf16 ulp, the backward within 2e-2 with
@@ -66,6 +72,12 @@ point on the same seeded inputs at the main paths' shapes:
   with a fully invalid row; held to the twin within 2e-2; the yardstick,
   at keep 1.0 only (no PyTorch call takes a keep mask), the backward of
   ``scaled_dot_product_attention`` with the float additive mask.
+- ``topk_last``: ``check_inputs.topk_cases``: the beam path's log-softmax
+  rows [1600, 1536] at k 8, 1 and 32, a streamed chunk [128, 1536], N 1,
+  V 1, 33 and 2048, quantised ties with -0.0, rows with -inf entries and
+  with fewer than k entries above -1e30; both libraries' ids and values
+  equal to this tree's twin; the yardstick is ``torch.topk``'s device
+  time (all its kernels).
 
 Each case reports CUDA-event ms in turns (other, this, this, other), the
 profiler's device time per call, the bound (the bytes over 3.35 TB/s or the
@@ -91,10 +103,12 @@ import torch
 import torch.nn.functional as F
 
 from asr_dfcnn_transformer_torch import bounds
-from asr_dfcnn_transformer_torch.check_inputs import (cmvn_inputs,
+from asr_dfcnn_transformer_torch.check_inputs import (ALPHA_EDGES,
+                                                      alpha_inputs,
+                                                      cmvn_inputs,
                                                       ctc_dp_inputs,
                                                       ctc_loss_device_us,
-                                                      ctc_problem)
+                                                      ctc_problem, topk_cases)
 from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
                                                      samples_for_frames)
 from asr_dfcnn_transformer_torch.kernels import _build
@@ -164,6 +178,12 @@ def _in_turns(other, this):
 
 def _bound_ms(n_bytes: float, bf16_ops: float) -> float:
     return bounds.bound(n_bytes, {"bf16": bf16_ops})[0]
+
+
+def _share(bound_ms: float, device_us):
+    """The bound's share of the kernel's device time (None where the trace
+    showed none)."""
+    return None if device_us is None else bound_ms / (device_us / 1e3)
 
 
 def _bf16(rng, shape, dev, scale=1.0, dtype=torch.bfloat16):
@@ -611,8 +631,7 @@ def compare_ctc_beta_xi(libs, dev, rng) -> dict:
     stream = _build.stream_ptr(dev)
     logits, logit_len, labels, label_len = ctc_problem(rng)
     d = ctc_dp_inputs(logits, logit_len, labels, label_len, dev)
-    emit, init, valid, can_skip, lens = (
-        d[k] for k in ("emit", "init", "valid", "can_skip", "lens"))
+    emit = d["emit"]
     args = d["xi_args"]
     t, b, s = emit.shape
     out = {side: torch.empty_like(emit) for side in libs}
@@ -645,32 +664,111 @@ def compare_ctc_beta_xi(libs, dev, rng) -> dict:
         *bounds.ctc_beta_xi_work(*args, out["this"]))[0]
     res["this_share_of_bound"] = res["bound_ms"] / (res["this_device_us"]
                                                     / 1e3)
-    alphas_out = torch.empty_like(emit)
-
-    def alpha():
-        rc = libs["this"].asr_ctc_alpha(
-            emit.data_ptr(), init.data_ptr(), can_skip.data_ptr(),
-            valid.data_ptr(), lens.data_ptr(), alphas_out.data_ptr(), t, b, s,
-            stream)
-        if rc:
-            raise SystemExit(f"ctc_alpha failed: {rc}")
-
-    res["ctc_alpha_this_device_us"] = _us(alpha, "ctc_alpha_kernel")
-    res["ctc_alpha_bound_ms"] = bounds.bound(*bounds.ctc_alpha_work(
-        emit, init, can_skip, valid, lens, alphas_out))[0]
     res["ctc_loss_fwd_device_us"], res["ctc_loss_bwd_device_us"] = (
         ctc_loss_device_us(d, labels, iters=20))
     return res
 
 
+def compare_ctc_alpha(libs, dev, rng) -> dict:
+    from asr_dfcnn_transformer_torch.kernels import ctc as kctc
+    stream = _build.stream_ptr(dev)
+    logits, logit_len, labels, label_len = ctc_problem(rng)
+    d = ctc_dp_inputs(logits, logit_len, labels, label_len, dev)
+    cases = [("main", tuple(d[k] for k in ("emit", "init", "can_skip",
+                                           "valid", "lens")))]
+    for label, t, b, s in ALPHA_EDGES:
+        cases.append((label, tuple(torch.from_numpy(a).to(dev)
+                                   for a in alpha_inputs(rng, t, b, s))))
+    res = {"dtype": "float32"}
+    for label, args in cases:
+        t, b, s = args[0].shape
+        out = {side: torch.empty_like(args[0]) for side in libs}
+
+        def call(side):
+            def run():
+                rc = libs[side].asr_ctc_alpha(
+                    *(x.data_ptr() for x in args), out[side].data_ptr(), t,
+                    b, s, stream)
+                if rc:
+                    raise SystemExit(f"{side} ctc_alpha failed: {rc}")
+            return run
+
+        want = kctc.alpha_stack_reference(*args)
+        key = f"alpha_{label}"
+        res[f"{key}_shape"] = [t, b, s]
+        for side in libs:
+            call(side)()
+            torch.cuda.synchronize()
+            if not torch.equal(out[side], want):
+                raise SystemExit(f"{side} ctc_alpha {label} is not its "
+                                 "twin's bits")
+            res[f"{key}_{side}_device_us"] = _us(call(side),
+                                                 "ctc_alpha_kernel")
+        if not torch.equal(out["this"], out["other"]):
+            raise SystemExit(f"ctc_alpha {label}: the two libraries differ")
+        res[f"{key}_other_ms"], res[f"{key}_this_ms"] = _in_turns(
+            call("other"), call("this"))
+        res[f"{key}_bound_ms"] = bounds.bound(
+            *bounds.ctc_alpha_work(*args, out["this"]))[0]
+        res[f"{key}_this_share_of_bound"] = _share(
+            res[f"{key}_bound_ms"], res[f"{key}_this_device_us"])
+    res["ctc_loss_fwd_device_us"], _ = ctc_loss_device_us(d, labels,
+                                                          iters=20)
+    return res
+
+
+def compare_topk_last(libs, dev, rng) -> dict:
+    stream = _build.stream_ptr(dev)
+    res = {"dtype": "float32"}
+    for label, x, k in topk_cases(rng, dev):
+        n, v = x.shape
+        out = {side: (torch.empty((n, k), device=dev),
+                      torch.empty((n, k), dtype=torch.int32, device=dev))
+               for side in libs}
+
+        def call(side):
+            def run():
+                rc = libs[side].asr_topk_last(
+                    x.data_ptr(), out[side][0].data_ptr(),
+                    out[side][1].data_ptr(), n, v, k, stream)
+                if rc:
+                    raise SystemExit(f"{side} topk_last failed: {rc}")
+            return run
+
+        want_v, want_i = topk_last_reference(x, k)
+        key = f"topk_{label}"
+        res[f"{key}_shape"] = [n, v, k]
+        for side in libs:
+            call(side)()
+            torch.cuda.synchronize()
+            got_v, got_i = out[side]
+            if not (torch.equal(got_i, want_i) and torch.equal(got_v,
+                                                               want_v)):
+                raise SystemExit(f"{side} topk_last {label}: ids or values "
+                                 "differ from the twin")
+            res[f"{key}_{side}_device_us"] = _us(call(side),
+                                                 "topk_last_kernel")
+        res[f"{key}_other_ms"], res[f"{key}_this_ms"] = _in_turns(
+            call("other"), call("this"))
+        res[f"{key}_bound_ms"] = bounds.bound(
+            *bounds.topk_last_work(x, k))[0]
+        res[f"{key}_this_share_of_bound"] = _share(
+            res[f"{key}_bound_ms"], res[f"{key}_this_device_us"])
+        res[f"{key}_torch_topk_device_us"] = _us(
+            lambda: torch.topk(x, k, dim=-1), None)
+    return res
+
+
 COMPARE = {"beam_search": compare_beam_search,
            "cmvn": compare_cmvn,
+           "ctc_alpha": compare_ctc_alpha,
            "ctc_beta_xi": compare_ctc_beta_xi,
            "dual_attention": compare_dual_attention,
            "log_mel": compare_log_mel,
            "fused_ffn": compare_fused_ffn,
            "masked_attention": compare_masked_attention,
-           "masked_attention_bwd": compare_masked_attention_bwd}
+           "masked_attention_bwd": compare_masked_attention_bwd,
+           "topk_last": compare_topk_last}
 
 
 def main() -> int:

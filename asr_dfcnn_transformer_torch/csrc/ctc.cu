@@ -52,8 +52,8 @@
 // and that barrier: no wait and no device-memory access of its own.
 // At [200, 16, 129] it takes 44.7 us against the earlier kernel's 85.3 on
 // an NVIDIA H100 80GB HBM3 at 700 W; with the writers on the step's
-// barrier their global stores still cost a few us (stage_split.py), and
-// forming every element's expf before any store was the fastest order.
+// barrier their global stores still cost a few us, and forming every
+// element's expf before any store was the fastest order.
 // The step's arithmetic is the earlier kernel's, in the same order, so xi
 // is the same bits. kernels/ctc.py beta_xi_plan mirrors the launch's
 // shape (asr_ctc_beta_xi_plan), and beta_ring_schedule its slot and phase

@@ -35,17 +35,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    8, 600, 64] at keep 0.9 and bf16 [1, 8, 1000, 64] (scores recomputed),
    causal with ragged keys and a query row without a valid key, with the
    scalar forward's shared memory (``fwd_smem_bytes``) held to the C query;
-   ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129 (``ctc_beta_xi``
-   equal to its twin bit for bit and launched twice with the same bits,
-   its launch held to ``kernels/ctc.py`` ``beta_xi_plan``, also at T 1, T
-   below and past the ring's 8 slots and S 601 and 1023); the attention
-   backward at the LM's training shape; ``topk_last`` at [1600, 1536], k
-   8, in f32 and bf16, and ``beam_search`` at [8, 200, 1536], W = K = 8, L
-   100, with batch-1, exhausted-candidate and
-   tie-heavy cases; ``dual_axis_attention`` at the e2e pre-net's frequency
-   rows [1072, 80, 64] in bf16 and f32, its unmasked time rows [640, 134,
-   64], a ragged [13, 7, 32] and, in bf16, the edges of the tensor-core
-   tiles ([45, 160, 128], [45, 33, 7], [45, 17, 16], [45, 1, 1]), forward
+   ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129, both equal to
+   their twins bit for bit (``ctc_alpha`` launched 20 more times with the
+   same bits, also at ``check_inputs.ALPHA_EDGES``: T 1 and 2, S 1, 33 and
+   1024, B 1 and 64, lengths of 0 and past T; ``ctc_beta_xi`` launched
+   twice with the same bits, its launch held to ``beta_xi_plan``, also at T
+   1, T below and past the ring's 8 slots and S 601 and 1023); the
+   attention backward at the LM's training shape; ``topk_last`` at [1600,
+   1536], k 8, in f32 and bf16, and at ``check_inputs.topk_cases`` (k 1 and
+   32, a streamed chunk, N 1, V 1, 33 and 2048, ties with -0.0, -inf rows
+   and rows with fewer than k entries above -1e30), timed beside
+   ``torch.topk``'s device time, and ``beam_search`` at [8, 200, 1536], W =
+   K = 8, L 100, with batch-1,
+   exhausted-candidate and tie-heavy cases; ``dual_axis_attention`` at
+   the e2e pre-net's frequency rows [1072, 80, 64] in bf16 and f32, its
+   unmasked time rows [640, 134, 64], a ragged [13, 7, 32] and, in bf16,
+   the edges of the tensor-core tiles ([45, 160, 128], [45, 33, 7], [45,
+   17, 16], [45, 1, 1]), forward
    and backward, with the backward's shared-memory layout held to the C
    query and its refusal of the f32 time rows and of bf16 [., 160, 128];
    the ``masked_attention`` backward at the teacher-forced decoder's
@@ -519,18 +525,18 @@ def check_ctc_kernels(results, rng):
     d = ctc_dp_inputs(logits, logit_len, labels, label_len, dev)
     emit, init, valid, can_skip, lens = (
         d[k] for k in ("emit", "init", "valid", "can_skip", "lens"))
-    alphas = ctc_alpha(emit, init, can_skip, valid, lens)
-    ok_a, err_a = close_enough(alphas, d["alphas"], 1e-5, 1e-5)
+    alphas = alpha_case("main", (emit, init, can_skip, valid, lens),
+                        repeats=20)
+    err_a = float((alphas - d["alphas"]).abs().max())
     xi_args = d["xi_args"]
     err_x = beta_xi_case("main", xi_args)
     xi = ctc_beta_xi(*xi_args)
     dead = bool((xi[:, 2] == 0).all())
-    print(f"ctc_alpha {list(emit.shape)}: max abs err {err_a:.3g} (rtol "
-          f"1e-5, atol 1e-5) {'ok' if ok_a else 'FAIL'}; ctc_beta_xi: "
-          f"unsatisfiable row all zero: {dead}")
-    require(ok_a and dead, "a CTC DP kernel disagrees with its twin")
-    # a generator of their own: the later checks keep their draws
+    print(f"ctc_beta_xi: unsatisfiable row all zero: {dead}")
+    require(dead, "ctc_beta_xi: the unsatisfiable row is not 0")
+    # generators of their own: the later checks keep their draws
     check_beta_xi_edges(np.random.default_rng(SEED + 1))
+    check_alpha_edges(np.random.default_rng(SEED + 2))
     results["ctc_alpha"]["max_abs_err"] = err_a
     results["ctc_beta_xi"]["max_abs_err"] = err_x
     results["ctc_alpha"].update(zip(("ms", "plain_ms"), paired_ms(
@@ -586,6 +592,36 @@ def check_ctc_kernels(results, rng):
           f"{'ok' if ok_l and ok_g else 'FAIL'}")
     require(ok_l and ok_g and finite, "ctc_loss on the card disagrees with "
             "the CPU")
+
+
+def alpha_case(label, args, repeats: int = 1):
+    """``ctc_alpha`` on the card equal to its twin bit for bit and launched
+    ``repeats`` more times with the same bits. Returns the alphas."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import (alpha_stack_reference,
+                                                     ctc_alpha)
+    t, b, s = args[0].shape
+    alphas = ctc_alpha(*args)
+    same = all(torch.equal(ctc_alpha(*args), alphas) for _ in range(repeats))
+    torch.cuda.synchronize()
+    equal = torch.equal(alphas, alpha_stack_reference(*args))
+    print(f"ctc_alpha {label} [{t}, {b}, {s}] lens "
+          f"{args[4].min().item()}..{args[4].max().item()}: equal to the "
+          f"twin {equal}, {repeats} more launches the same bits {same} "
+          f"{'ok' if equal and same else 'FAIL'}")
+    require(equal and same, f"ctc_alpha {label} is not its twin's bits")
+    return alphas
+
+
+def check_alpha_edges(rng):
+    """``ctc_alpha`` bit for bit at ``check_inputs.ALPHA_EDGES``: T 1 and 2,
+    S 1, 33 and 1024, B 1, lengths of 0 and past T."""
+    import torch
+    from asr_dfcnn_transformer_torch.check_inputs import (ALPHA_EDGES,
+                                                          alpha_inputs)
+    for label, t, b, s in ALPHA_EDGES:
+        alpha_case(label, tuple(torch.from_numpy(a).to(DEVICE)
+                                for a in alpha_inputs(rng, t, b, s)))
 
 
 def beta_xi_case(label, xi_args):
@@ -1021,12 +1057,14 @@ def check_beam_kernels(results, rng):
     tie-heavy values. Ids, values, lengths and prefixes must be equal;
     pb / pnb within 1e-5."""
     import torch
-    from asr_dfcnn_transformer_torch.bounds import beam_search_work
+    from asr_dfcnn_transformer_torch.bounds import (beam_search_work,
+                                                    topk_last_work)
+    from asr_dfcnn_transformer_torch.check_inputs import topk_cases
     from asr_dfcnn_transformer_torch.kernels import (beam_search,
                                                      beam_search_reference,
                                                      topk_last,
                                                      topk_last_reference)
-    from asr_dfcnn_transformer_torch.timing import cuda_ms
+    from asr_dfcnn_transformer_torch.timing import device_us
     dev = torch.device(DEVICE)
     b, t, v, w = MAX_BATCH, 200, 1536, BEAM_WIDTH
 
@@ -1083,15 +1121,22 @@ def check_beam_kernels(results, rng):
     ties = torch.round(torch.from_numpy(rng.standard_normal((b * t, v))
                                         .astype(np.float32)).to(dev) * 2) / 2
     topk_case("quantised ties", ties, w)
+    # the edges (a generator of their own: the later checks keep their
+    # draws)
+    for name, x, k in topk_cases(np.random.default_rng(SEED + 3), dev):
+        topk_case(name, x, k)
 
     r = results["topk_last"]
     r["max_abs_err"] = err_t
     r.update(zip(("ms", "plain_ms"), paired_ms(
         lambda: topk_last(x2d, w), lambda: topk_last_reference(x2d, w))))
     # each row read once, k picks of V compares each
-    set_bound(r, nbytes(x2d) + x2d.shape[0] * w * 8,
-              {"f32": x2d.shape[0] * w * v})
-    r["library_ms"] = cuda_ms(lambda: torch.topk(x2d, w, dim=-1))
+    set_bound(r, *topk_last_work(x2d, w))
+    # torch.topk's device time (all its kernels), as the kernel's
+    r["library_ms"] = device_us(lambda: torch.topk(x2d, w, dim=-1),
+                                None) / 1e3
+    print(f"torch.topk device us {r['library_ms'] * 1e3:.2f}; topk_last "
+          f"{device_us(lambda: topk_last(x2d, w), 'topk_last_kernel'):.2f}")
 
     r = results["beam_search"]
     r["max_abs_err"] = err

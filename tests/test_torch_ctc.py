@@ -381,3 +381,29 @@ def test_work_counts_only_the_cells_the_output_needs():
     rest = bounds.nbytes(*d["xi_args"][2:], xi)
     assert bounds.ctc_beta_xi_work(*d["xi_args"], xi) == (
         4 * (e_cells + a_cells) + rest, {"f32": 20 * a_cells})
+
+
+@pytest.mark.parametrize("t,b,s", [(1, 3, 129), (2, 3, 129), (12, 3, 1),
+                                   (9, 3, 33), (9, 4, 65), (5, 1, 129)])
+def test_alpha_twin_matches_pallas_interpret_at_edges(t, b, s):
+    """The twin, and the wrapper on CPU tensors, against ``alpha_stack`` in
+    interpret mode on ``check_inputs.alpha_inputs`` at the card's edge
+    shapes cut to a few frames: T 1 and 2, S 1 and one past a warp, B 1,
+    ragged valid states and lengths of 0 and past T. The Pallas kernel
+    takes S padded to 128 lanes with invalid states, which no lower state
+    reads."""
+    from asr_dfcnn_transformer_torch.check_inputs import alpha_inputs
+    emit, init, can_skip, valid, lens = alpha_inputs(
+        np.random.default_rng(t * 1000 + s), t, b, s)
+    pad = (-s) % 128
+    f32 = lambda m: np.pad(m.astype(np.float32),
+                           [(0, 0)] * (m.ndim - 1) + [(0, pad)])
+    want = np.asarray(ctc_kernel.alpha_stack(
+        f32(emit), np.pad(init, ((0, 0), (0, pad)),
+                          constant_values=np.float32(-1e30)),
+        f32(can_skip), f32(valid), jnp.asarray(lens),
+        interpret=True))[:, :, :s]
+    args = [torch.from_numpy(a) for a in (emit, init, can_skip, valid, lens)]
+    got = alpha_stack_reference(*args).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(ctc_alpha(*args).numpy(), got)
