@@ -7,7 +7,8 @@ and ``compare_kernels``.
 forms them; ``alpha_inputs`` draws ``ctc_alpha``'s inputs directly at any
 (T, B, S), and ``ALPHA_EDGES`` lists the shapes past the main one that the
 card's checks hold it to; ``topk_cases`` draws ``topk_last``'s cases on
-the card; ``ctc_loss_device_us`` times ``F.ctc_loss``'s
+the card; ``EPILOGUE_CASES`` and ``epilogue_z`` give
+``interleave_epilogue``'s; ``ctc_loss_device_us`` times ``F.ctc_loss``'s
 forward and backward in device time (needs a CUDA device).
 """
 
@@ -55,14 +56,43 @@ def ctc_problem(rng, b=16, t=200, lmax=64, v=1536):
     return logits, logit_len, labels, label_len
 
 
-# (label, T, B, S): T 1 and 2, S 1, 33 (one state past a warp) and 1024
-# (32 warps: one block of them), B 1, and B 64 at S 129 (more blocks than
-# one an SM: one block an utterance); every case with B > 2 has rows of
-# length 0 and past T
+# (label, T, B, S): T 1 and 2; S 1, on both sides of the warp multiples
+# 32, 64 and 160 (the block's last warp full or one state in it) and 1024
+# (32 warps: one block of them); B 1, and B 64 and 200 at S 129 (more
+# blocks than one an SM, 200 more than the card's 132 SMs: one block an
+# utterance); every case with B > 2 has rows of length 0 and past T
 ALPHA_EDGES = (("T1", 1, 16, 129), ("T2", 2, 16, 129), ("S1", 200, 16, 1),
-               ("S33", 200, 16, 33), ("S1024", 200, 4, 1024),
-               ("B1", 200, 1, 129), ("ragged", 37, 5, 65),
-               ("B64", 40, 64, 129))
+               ("S32", 200, 16, 32), ("S33", 200, 16, 33),
+               ("S64", 200, 16, 64), ("S65", 200, 16, 65),
+               ("S160", 200, 16, 160), ("S161", 200, 16, 161),
+               ("S1024", 200, 4, 1024), ("B1", 200, 1, 129),
+               ("ragged", 37, 5, 65), ("B64", 40, 64, 129),
+               ("B200", 200, 200, 129))
+
+# (label, [B, n2, n1], z's type, z's storage offset in elements) at which
+# the card's checks hold ``interleave_epilogue``: the noise transform's z
+# at n 262,144 in bf16 and f32, the AM step's batch of 16, n 16, n1 not a
+# multiple of a 16-byte load's elements with rows off 16-byte boundaries
+# ([5, 33, 36]: every odd row), n1 n2 odd, and z a view one element into
+# its storage
+EPILOGUE_CASES = (
+    ("noise_bf16", (128, 256, 512), torch.bfloat16, 0),
+    ("noise_f32", (128, 256, 512), torch.float32, 0),
+    ("am_step_bf16", (16, 256, 512), torch.bfloat16, 0),
+    ("n16_bf16", (3, 2, 4), torch.bfloat16, 0),
+    ("n16_f32", (3, 2, 4), torch.float32, 0),
+    ("ragged_bf16", (5, 33, 36), torch.bfloat16, 0),
+    ("misaligned_bf16", (5, 33, 35), torch.bfloat16, 1),
+    ("misaligned_f32", (3, 7, 5), torch.float32, 1),
+)
+
+
+def epilogue_z(rng, shape, dtype, offset: int, dev) -> torch.Tensor:
+    """A seeded normal z of ``shape`` in ``dtype`` on ``dev``: a contiguous
+    view ``offset`` elements into its storage."""
+    flat = rng.standard_normal(int(np.prod(shape)) + offset)
+    return torch.from_numpy(flat.astype(np.float32)).to(dev, dtype)[
+        offset:].view(shape)
 
 
 def alpha_inputs(rng, t: int, b: int, s: int):
@@ -122,9 +152,10 @@ def ctc_dp_inputs(logits, logit_len, labels, label_len, dev) -> dict:
 def ctc_loss_device_us(d: dict, labels, iters: int = 10):
     """(forward, backward) device us a call of ``F.ctc_loss`` (sum, zero
     infinity, blank V - 1) on ``ctc_dp_inputs``' log-probs and the numpy
-    ``labels``, from the profiler: the forward alone, and the forward and
-    backward less the forward."""
-    from asr_dfcnn_transformer_torch.timing import device_us
+    ``labels``, from the profiler (``timing.library_us``: CUDA events where
+    the trace shows no device time): the forward alone, and the forward
+    and backward less the forward."""
+    from asr_dfcnn_transformer_torch.timing import library_us
     lp = d["lp"]
     x = lp.transpose(0, 1).contiguous().requires_grad_(True)
     tgt = torch.from_numpy(labels).long().to(lp.device)
@@ -138,8 +169,8 @@ def ctc_loss_device_us(d: dict, labels, iters: int = 10):
         with torch.no_grad():
             loss()
 
-    fwd = device_us(forward, None, iters)
-    both = device_us(lambda: torch.autograd.grad(loss(), x), None, iters)
+    fwd, _ = library_us(forward, iters)
+    both, _ = library_us(lambda: torch.autograd.grad(loss(), x), iters)
     return fwd, both - fwd
 
 

@@ -2,7 +2,7 @@
 
     python3 -m asr_dfcnn_transformer_torch.compare_kernels \\
         --kernel {beam_search,cmvn,ctc_alpha,ctc_beta_xi,dual_attention,
-                  fused_ffn,log_mel,masked_attention,
+                  fused_ffn,interleave_epilogue,log_mel,masked_attention,
                   masked_attention_bwd,topk_last} \\
         --other DIR [--out PATH]
 
@@ -30,10 +30,10 @@ point on the same seeded inputs at the main paths' shapes:
   it.
 - ``ctc_alpha``: ``chip_smoke.py``'s CTC problem, [T 200, B 16, S 129]
   with an empty label and an unsatisfiable row, then
-  ``check_inputs.ALPHA_EDGES`` (T 1 and 2, S 1, 33 and 1024, B 1 and 64,
-  lengths of 0 and past T); both libraries' alphas equal to this tree's
-  twin and to each other bit for bit; the yardstick is ``F.ctc_loss``'s
-  forward in device time.
+  ``check_inputs.ALPHA_EDGES`` (T 1 and 2, S 1 to 1024 on both sides of
+  the warp multiples, B 1, 64 and 200, lengths of 0 and past T); both
+  libraries' alphas equal to this tree's twin and to each other bit for
+  bit; the yardstick is ``F.ctc_loss``'s forward in device time.
 - ``ctc_beta_xi``: the same CTC problem; both libraries' xi equal to this
   tree's twin and to each other bit for bit, the unsatisfiable row all
   zero; the yardstick is ``F.ctc_loss``'s backward (the profiler's device
@@ -49,6 +49,14 @@ point on the same seeded inputs at the main paths' shapes:
   [4096, 1024] with inner 4096; held to the twin within 2e-2 with at most
   one element in 100 differing; the yardstick ``F.linear`` -> relu ->
   ``F.linear`` on cuBLAS.
+- ``interleave_epilogue``: z [128, 256, 512] in bf16 and f32 (the noise
+  transform at n 262,144), [16, 256, 512] bf16, [3, 2, 4] (n 16), and
+  ragged shapes with rows off 16-byte boundaries ([5, 33, 36] bf16, [5,
+  33, 35] bf16 and [3, 7, 5] f32, the last two a view one element into
+  its storage); both libraries equal to this tree's twin and to each
+  other bit for bit. No one PyTorch call computes it: the note is the
+  device time and rate (bytes read and written) of ``copy_`` on a
+  contiguous [128, 512, 512] f32 tensor, what a plain copy reaches.
 - ``log_mel``: [8, 256,240] f32 signals with ragged lengths to 1600
   frames, with the AM's 200 filters and the e2e front end's 80; held to
   the twin within rtol 1e-4, atol 1e-3, with the count of elements more
@@ -104,11 +112,13 @@ import torch.nn.functional as F
 
 from asr_dfcnn_transformer_torch import bounds
 from asr_dfcnn_transformer_torch.check_inputs import (ALPHA_EDGES,
+                                                      EPILOGUE_CASES,
                                                       alpha_inputs,
                                                       cmvn_inputs,
                                                       ctc_dp_inputs,
                                                       ctc_loss_device_us,
-                                                      ctc_problem, topk_cases)
+                                                      ctc_problem,
+                                                      epilogue_z, topk_cases)
 from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
                                                      samples_for_frames)
 from asr_dfcnn_transformer_torch.kernels import _build
@@ -149,6 +159,7 @@ CMVN_CASES = (   # (B, T, F), valid counts ragged (else all T)
     ((16, 1600, 200), False), ((8, 1600, 200), True), ((16, 1600, 200), True),
     ((8, 1600, 80), True), ((8, 400, 200), True), ((1, 1600, 200), True),
     ((2, 6400, 200), True))
+COPY_SHAPE = (128, 512, 512)   # f32, the noise case's output bytes
 BWD_CASES = (   # label, (B, H, T, Dh), causal, keep probability
     ("lm", (64, 8, 64, 64), True, 0.5),
     ("lm_keep1", (64, 8, 64, 64), True, 1.0),
@@ -759,6 +770,58 @@ def compare_topk_last(libs, dev, rng) -> dict:
     return res
 
 
+def compare_interleave_epilogue(libs, dev, rng) -> dict:
+    from asr_dfcnn_transformer_torch.kernels.fft_epilogue import (
+        interleave_epilogue_reference)
+    stream = _build.stream_ptr(dev)
+    res = {}
+    for label, shape, dtype, offset in EPILOGUE_CASES:
+        b, n2, n1 = shape
+        n = 2 * n1 * n2
+        zr, zi = (epilogue_z(rng, shape, dtype, offset, dev)
+                  for _ in range(2))
+        out = {side: torch.empty((b, n), device=dev) for side in libs}
+
+        def call(side):
+            def run():
+                rc = libs[side].asr_interleave_epilogue(
+                    _build.DTYPE_CODES[dtype], zr.data_ptr(), zi.data_ptr(),
+                    out[side].data_ptr(), b, n2, n1, 1.0 / n, stream)
+                if rc:
+                    raise SystemExit(f"{side} interleave_epilogue failed: "
+                                     f"{rc}")
+            return run
+
+        want = interleave_epilogue_reference(zr, zi, n)
+        key = f"epilogue_{label}"
+        res[f"{key}_shape"] = [b, n2, n1, str(dtype), offset]
+        for side in libs:
+            call(side)()
+            torch.cuda.synchronize()
+            if not torch.equal(out[side], want):
+                raise SystemExit(f"{side} interleave_epilogue {label} is "
+                                 "not its twin's bits")
+            res[f"{key}_{side}_device_us"] = _us(
+                call(side), "interleave_epilogue_kernel")
+        if not torch.equal(out["this"], out["other"]):
+            raise SystemExit(f"interleave_epilogue {label}: the two "
+                             "libraries differ")
+        res[f"{key}_other_ms"], res[f"{key}_this_ms"] = _in_turns(
+            call("other"), call("this"))
+        res[f"{key}_bound_ms"] = bounds.bound(
+            bounds.nbytes(zr, zi, out["this"]), {})[0]
+        res[f"{key}_this_share_of_bound"] = _share(
+            res[f"{key}_bound_ms"], res[f"{key}_this_device_us"])
+    # a note, not a yardstick (no one call computes the relayout): what a
+    # plain contiguous copy reaches, bytes read and written over its time
+    x = torch.empty(COPY_SHAPE, device=dev)
+    y = torch.empty_like(x)
+    us = _us(lambda: y.copy_(x), None)
+    res["copy_f32_device_us"] = us
+    res["copy_f32_tb_s"] = 2 * bounds.nbytes(x) / (us * 1e-6) / 1e12
+    return res
+
+
 COMPARE = {"beam_search": compare_beam_search,
            "cmvn": compare_cmvn,
            "ctc_alpha": compare_ctc_alpha,
@@ -766,6 +829,7 @@ COMPARE = {"beam_search": compare_beam_search,
            "dual_attention": compare_dual_attention,
            "log_mel": compare_log_mel,
            "fused_ffn": compare_fused_ffn,
+           "interleave_epilogue": compare_interleave_epilogue,
            "masked_attention": compare_masked_attention,
            "masked_attention_bwd": compare_masked_attention_bwd,
            "topk_last": compare_topk_last}

@@ -28,7 +28,12 @@
 // blocks of 8 utterances are not carried over.
 //
 // ctc_alpha_kernel double-buffers the DP row in shared memory (one barrier
-// a step) and reads each step's emissions from device memory.
+// a step) and reads each step's emissions from device memory. Two designs
+// without the barrier measured slower on an H100 at [200, 16, 129]
+// (PERF.md): a wavefront of warps handing boundary states on, and one warp
+// an utterance with ceil(S / 32) states a lane in registers, whose one
+// sub-partition issues every state's logaddexp3 (about 66 instructions a
+// state, at ~0.36 a cycle) where this kernel spreads them over four.
 //
 // ctc_beta_xi_kernel keeps the chain on shared memory alone. The earlier
 // kernel's step (~1070 cycles, a clock64 split on an H100) waited on the

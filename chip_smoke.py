@@ -37,10 +37,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    scalar forward's shared memory (``fwd_smem_bytes``) held to the C query;
    ``ctc_alpha`` + ``ctc_beta_xi`` at B 16, T 200, S 129, both equal to
    their twins bit for bit (``ctc_alpha`` launched 20 more times with the
-   same bits, also at ``check_inputs.ALPHA_EDGES``: T 1 and 2, S 1, 33 and
-   1024, B 1 and 64, lengths of 0 and past T; ``ctc_beta_xi`` launched
-   twice with the same bits, its launch held to ``beta_xi_plan``, also at T
-   1, T below and past the ring's 8 slots and S 601 and 1023); the
+   same bits, also at ``check_inputs.ALPHA_EDGES``: T 1 and 2, S 1 to
+   1024 on both sides of the warp multiples, B 1, 64 and 200, lengths of
+   0 and past T; ``ctc_beta_xi`` launched twice with the same bits, its
+   launch held to ``beta_xi_plan``, also at T 1, T below and past the
+   ring's 8 slots and S 601 and 1023); the
    attention backward at the LM's training shape; ``topk_last`` at [1600,
    1536], k 8, in f32 and bf16, and at ``check_inputs.topk_cases`` (k 1 and
    32, a streamed chunk, N 1, V 1, 33 and 2048, ties with -0.0, -inf rows
@@ -77,8 +78,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    [4096, 1024] in bf16 and [800, 1024] in f32, inner 4096, and at
    ragged widths, each launched twice with the same output and with its
    tiling (``kernels/ffn.py`` plan) held to the launcher's;
-   ``interleave_epilogue`` bit for bit at [128, 256, 512] in bf16 and f32,
-   [16, 256, 512] and a ragged [3, 2, 4]), each
+   ``interleave_epilogue`` bit for bit at ``check_inputs.EPILOGUE_CASES``:
+   [128, 256, 512] in bf16 and f32, [16, 256, 512], [3, 2, 4], and ragged
+   shapes with rows off 16-byte boundaries), each
    with its tolerance; then each kernel's time beside its twin's (CUDA
    events after warm-up, in turns), its bound computed from the inputs, and
    the time of the one PyTorch call that computes the same function, where
@@ -519,7 +521,7 @@ def check_ctc_kernels(results, rng):
                                                      beta_xi_reference,
                                                      ctc_alpha, ctc_beta_xi)
     from asr_dfcnn_transformer_torch.ops import ctc as ctc_ops
-    from asr_dfcnn_transformer_torch.timing import device_us
+    from asr_dfcnn_transformer_torch.timing import device_us, us_text
     dev = torch.device(DEVICE)
     logits, logit_len, labels, label_len = ctc_problem(rng)
     d = ctc_dp_inputs(logits, logit_len, labels, label_len, dev)
@@ -560,8 +562,8 @@ def check_ctc_kernels(results, rng):
                          "ctc_alpha_kernel")
     beta_us = device_us(lambda: ctc_beta_xi(*xi_args), "ctc_beta_xi_kernel")
     print(f"F.ctc_loss device us: forward {fwd:.1f}, backward "
-          f"{bwd:.1f}; ctc_alpha {alpha_us:.1f}, ctc_beta_xi "
-          f"{beta_us:.1f}")
+          f"{bwd:.1f}; ctc_alpha {us_text(alpha_us)}, ctc_beta_xi "
+          f"{us_text(beta_us)}")
 
     # the loss and its gradient on the card against the CPU's twins
     loss_grad = {}
@@ -615,7 +617,8 @@ def alpha_case(label, args, repeats: int = 1):
 
 def check_alpha_edges(rng):
     """``ctc_alpha`` bit for bit at ``check_inputs.ALPHA_EDGES``: T 1 and 2,
-    S 1, 33 and 1024, B 1, lengths of 0 and past T."""
+    S 1 to 1024 on both sides of the warp multiples, B 1, 64 and 200,
+    lengths of 0 and past T."""
     import torch
     from asr_dfcnn_transformer_torch.check_inputs import (ALPHA_EDGES,
                                                           alpha_inputs)
@@ -990,7 +993,7 @@ def bwd_library_keep1(q, k, v, k_valid, dout):
     import torch.nn.functional as F
     from asr_dfcnn_transformer_torch.kernels import attention as attn
     from asr_dfcnn_transformer_torch.timing import (additive_mask, cuda_ms,
-                                                     device_us)
+                                                     device_us, us_text)
     mask = additive_mask(k_valid, q.shape[2], k.shape[2], True, q.dtype)
     q4, k4, v4 = (x.detach().requires_grad_(True) for x in (q, k, v))
     out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
@@ -1005,9 +1008,9 @@ def bwd_library_keep1(q, k, v, k_valid, dout):
     k_us = device_us(kernel, "masked_attention_bwd")
     lib_us = device_us(sdpa_bwd, None)
     print(f"time masked_attention_bwd keep 1.0 {list(q.shape)} bf16: kernel "
-          f"{k_ms:.4f} ms ({k_us:.1f} us of device time); library "
+          f"{k_ms:.4f} ms ({us_text(k_us)} of device time); library "
           f"(scaled_dot_product_attention backward, float mask) {lib_ms:.4f} "
-          f"ms ({lib_us:.1f} us of device time)")
+          f"ms ({us_text(lib_us)} of device time)")
 
 
 BWD_EDGES = (   # label, (B, H, Tq, Tk, Dh), causal, keep probability, path
@@ -1064,7 +1067,8 @@ def check_beam_kernels(results, rng):
                                                      beam_search_reference,
                                                      topk_last,
                                                      topk_last_reference)
-    from asr_dfcnn_transformer_torch.timing import device_us
+    from asr_dfcnn_transformer_torch.timing import (device_us, library_us,
+                                                     us_text)
     dev = torch.device(DEVICE)
     b, t, v, w = MAX_BATCH, 200, 1536, BEAM_WIDTH
 
@@ -1133,10 +1137,11 @@ def check_beam_kernels(results, rng):
     # each row read once, k picks of V compares each
     set_bound(r, *topk_last_work(x2d, w))
     # torch.topk's device time (all its kernels), as the kernel's
-    r["library_ms"] = device_us(lambda: torch.topk(x2d, w, dim=-1),
-                                None) / 1e3
-    print(f"torch.topk device us {r['library_ms'] * 1e3:.2f}; topk_last "
-          f"{device_us(lambda: topk_last(x2d, w), 'topk_last_kernel'):.2f}")
+    lib_us, how = library_us(lambda: torch.topk(x2d, w, dim=-1))
+    r["library_ms"] = lib_us / 1e3
+    k_us = device_us(lambda: topk_last(x2d, w), "topk_last_kernel")
+    print(f"torch.topk {lib_us:.2f} us ({how}); topk_last {us_text(k_us)} "
+          "of device time")
 
     r = results["beam_search"]
     r["max_abs_err"] = err
@@ -1496,32 +1501,32 @@ def check_fused_ffn(results, rng):
 
 
 def check_interleave_epilogue(results, rng):
-    """``interleave_epilogue`` against its twin, bit for bit, at its
-    docstring's shape [128, 256, 512] (batch 128, n 262,144) in bf16 and
-    f32, at the AM step's [16, 256, 512] in bf16 and at a ragged [3, 2, 4]
-    (n 16) in both types; each timed beside its twin (CUDA events, in
-    turns) with its device time per launch (profiler) and its bound: the
-    bytes of z read once and of x written once. No one PyTorch call
-    computes this relayout."""
+    """``interleave_epilogue`` against its twin, bit for bit, at
+    ``check_inputs.EPILOGUE_CASES``: its docstring's shape [128, 256, 512]
+    (batch 128, n 262,144) in bf16 and f32, the AM step's [16, 256, 512] in
+    bf16, [3, 2, 4] (n 16) in both types, and ragged shapes whose rows
+    start off 16-byte boundaries ([5, 33, 36], [5, 33, 35] and [3, 7, 5],
+    the last two a view one element into its storage); each timed beside
+    its twin (CUDA events, in turns) with its device time per launch
+    (profiler) and its bound: the bytes of z read once and of x written
+    once. No one PyTorch call computes this relayout."""
     import torch
+    from asr_dfcnn_transformer_torch.check_inputs import (EPILOGUE_CASES,
+                                                          epilogue_z)
     from asr_dfcnn_transformer_torch.kernels import (
         interleave_epilogue, interleave_epilogue_reference)
-    from asr_dfcnn_transformer_torch.timing import device_us
+    from asr_dfcnn_transformer_torch.timing import device_us, us_text
     r = results["interleave_epilogue"]
-    for shape, dtype in (((128, 256, 512), torch.bfloat16),
-                         ((128, 256, 512), torch.float32),
-                         ((16, 256, 512), torch.bfloat16),
-                         ((3, 2, 4), torch.bfloat16),
-                         ((3, 2, 4), torch.float32)):
+    for label, shape, dtype, offset in EPILOGUE_CASES:
         n = 2 * shape[1] * shape[2]
-        zr, zi = (torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(DEVICE, dtype) for _ in range(2))
+        zr, zi = (epilogue_z(rng, shape, dtype, offset, DEVICE)
+                  for _ in range(2))
         got = interleave_epilogue(zr, zi, n)
         want = interleave_epilogue_reference(zr, zi, n)
         same = torch.equal(got, want)
         err = float((got - want).abs().max())
-        line = (f"interleave_epilogue {list(shape)} {dtype}: bit-equal "
-                f"{same} (max abs err {err:.3g})")
+        line = (f"interleave_epilogue {label} {list(shape)} {dtype} offset "
+                f"{offset}: bit-equal {same} (max abs err {err:.3g})")
         print(line)
         require(same and got.shape == (shape[0], n),
                 f"interleave_epilogue disagrees with its twin at "
@@ -1533,11 +1538,10 @@ def check_interleave_epilogue(results, rng):
                        "interleave_epilogue_kernel")
         bound = {}
         set_bound(bound, nbytes(zr, zi, got), {})
-        us_text = "not measured" if us is None else f"{us:.1f} us"
         print(f"time interleave_epilogue {list(shape)} {dtype}: kernel "
-              f"{k_ms:.4f} ms, device {us_text} a launch, plain {p_ms:.4f} "
-              f"ms, bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}), "
-              "library — no one call")
+              f"{k_ms:.4f} ms, device {us_text(us)} a launch, plain "
+              f"{p_ms:.4f} ms, bound {bound['bound_ms']:.5f} ms "
+              f"({bound['bound_by']}), library — no one call")
         if shape == (128, 256, 512) and dtype == torch.bfloat16:
             r.update(bound, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                      library_ms=None)

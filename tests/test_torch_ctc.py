@@ -384,11 +384,14 @@ def test_work_counts_only_the_cells_the_output_needs():
 
 
 @pytest.mark.parametrize("t,b,s", [(1, 3, 129), (2, 3, 129), (12, 3, 1),
-                                   (9, 3, 33), (9, 4, 65), (5, 1, 129)])
+                                   (9, 3, 32), (9, 3, 33), (9, 3, 64),
+                                   (9, 4, 65), (9, 3, 160), (9, 3, 161),
+                                   (5, 1, 129)])
 def test_alpha_twin_matches_pallas_interpret_at_edges(t, b, s):
     """The twin, and the wrapper on CPU tensors, against ``alpha_stack`` in
     interpret mode on ``check_inputs.alpha_inputs`` at the card's edge
-    shapes cut to a few frames: T 1 and 2, S 1 and one past a warp, B 1,
+    shapes cut to a few frames: T 1 and 2, S 1 and at and one past the warp
+    multiples 32, 64 and 160, B 1,
     ragged valid states and lengths of 0 and past T. The Pallas kernel
     takes S padded to 128 lanes with invalid states, which no lower state
     reads."""

@@ -36,9 +36,18 @@ def _peak_err(got, want):
 
 @pytest.mark.parametrize("batch", [(), (3,), (2, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [16, 4096, 16384])
+@pytest.mark.parametrize("n", [
+    16, 4096, 16384,
+    # [n2, n1] off matfft's power-of-two splits: n1 not a multiple of a
+    # 16-byte load's elements, odd n1 n2 (rows off 16-byte boundaries)
+    pytest.param((33, 36), id="33x36"), pytest.param((33, 35), id="33x35"),
+    pytest.param((7, 5), id="7x5")])
 def test_epilogue_twin_bit_equal_to_jax_kernel(n, dtype, batch):
-    n1, n2 = jax_matfft._split(n // 2)
+    if isinstance(n, tuple):
+        n2, n1 = n
+        n = 2 * n1 * n2
+    else:
+        n1, n2 = jax_matfft._split(n // 2)
     rng = np.random.default_rng(n + len(batch))
     zr, zi = (torch.from_numpy(rng.standard_normal(
         (*batch, n2, n1)).astype(np.float32)).to(dtype) for _ in range(2))
