@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's Flax variables -> the port's state_dicts.
+"""Weight bridge between the JAX package's Flax variables and the port's
+state_dicts, both ways, and a JAX checkpoint into a port checkpoint.
 
 Input is the variables as nested dicts of numpy arrays, i.e.
 ``{"params": ..., "batch_stats": ...}`` after ``jax.tree.map(np.asarray,
@@ -13,12 +14,16 @@ the leaves change:
 - ``bias`` and ``embedding`` as they are.
 
 The epsilons (BatchNorm 1e-3, Flax LayerNorm 1e-6) live in the port's
-modules, not in the weights.
+modules, not in the weights. :func:`state_dict_to_flax` is the exact
+inverse (the TF1 exporters of ``infer/tf_ckpt.py`` take its output), and
+:func:`flax_checkpoint_to_port` writes a JAX checkpoint's raw tree as a
+port checkpoint directory.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import os
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -88,3 +93,73 @@ def e2e_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if "batch_stats" not in variables:
         raise ValueError("e2e variables need the pre-net's batch_stats")
     return flax_to_state_dict(variables)
+
+
+_KINDS = ("am", "lm", "e2e")
+_FLAX_STATS = {v: k for k, v in _STAT_NAMES.items()}
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor], kind: str
+                       ) -> Dict[str, Any]:
+    """The exact inverse of :func:`flax_to_state_dict` for a model of
+    ``kind`` ("am", "lm" or "e2e"): f32 numpy leaves, OIHW conv weights
+    back to HWIO ``kernel``, [out, in] dense weights to [in, out],
+    1-D ``weight`` to ``scale``, ``running_mean`` / ``running_var`` to
+    batch_stats ``mean`` / ``var``."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind={kind!r}: expected one of {_KINDS}")
+    out: Dict[str, Any] = {"params": {}}
+    for key, value in sd.items():
+        *path, name = key.split(".")
+        a = value.detach().cpu().to(torch.float32).numpy()
+        if name in _FLAX_STATS:
+            collection, leaf = "batch_stats", _FLAX_STATS[name]
+        elif name == "weight":
+            collection, leaf = "params", {4: "kernel", 2: "kernel",
+                                          1: "scale"}[a.ndim]
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else \
+                a.T if a.ndim == 2 else a
+        elif name in ("bias", "embedding"):
+            collection, leaf = "params", name
+        else:
+            raise ValueError(f"unknown state_dict entry {key!r}")
+        node = out.setdefault(collection, {})
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
+    if kind == "lm" and "batch_stats" in out:
+        raise ValueError("LM state_dicts hold no batch statistics")
+    if kind != "lm" and "batch_stats" not in out:
+        raise ValueError(f"{kind} state_dicts need batch statistics")
+    return out
+
+
+def _numpy_tree(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    return {k: _numpy_tree(v) if isinstance(v, Mapping) else np.asarray(v)
+            for k, v in tree.items()}
+
+
+def flax_checkpoint_to_port(raw_tree: Mapping[str, Any],
+                            stamp: Optional[Mapping[str, Any]],
+                            ckpt_dir: str) -> None:
+    """Write a JAX checkpoint as a port checkpoint directory.
+
+    ``raw_tree``: the JAX ``CheckpointManager(dir).restore_raw_best()`` (or
+    ``restore_raw_latest()``) tree, nested mappings of array-likes with
+    ``params`` and (AM, e2e) ``batch_stats``; its optimizer state is
+    dropped. ``stamp``: the JAX directory's ``identity.json`` as read
+    (``train.identity.read_identity``), or None. Writes ``0.pt`` holding
+    ``{"model": state_dict, "step": 0}``, the same state as
+    ``best/state.pt``, and the stamp unchanged, under ``ckpt_dir``; a port
+    trainer restores the model from it with a fresh optimizer at step 0,
+    ``Pipeline.from_checkpoints`` serves it."""
+    from asr_dfcnn_transformer_torch.train import identity
+    from asr_dfcnn_transformer_torch.train.checkpoint import CheckpointManager
+    variables = {c: _numpy_tree(raw_tree[c])
+                 for c in ("params", "batch_stats") if raw_tree.get(c)}
+    state = {"model": flax_to_state_dict(variables), "step": 0}
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(0, state)
+    mgr.save_best(state)
+    if stamp is not None:
+        identity.write_stamp(os.path.abspath(ckpt_dir), dict(stamp))

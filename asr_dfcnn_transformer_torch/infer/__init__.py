@@ -5,6 +5,7 @@ from asr_dfcnn_transformer_torch.infer.e2e_serving import (  # noqa: F401
     e2e_program,
 )
 from asr_dfcnn_transformer_torch.infer.pipeline import (  # noqa: F401
+    EvalResult,
     Pipeline,
     infer_bucket_frames,
     pipeline_program,

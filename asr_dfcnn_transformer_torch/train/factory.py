@@ -4,8 +4,8 @@
 package: ``build_lm_model(Config(lm=LmConfig(fused_ffn="pallas")))`` is how
 a user selects the ``fused_ffn`` kernel. Every builder takes ``device``
 (default ``cuda``, raising without CUDA) and an optional ``generator`` for
-the initial weights. ``build_mesh`` and ``build_loader`` are not ported yet
-(ROADMAP Queue A 12 and A 3).
+the initial weights. ``build_loader`` gives the configured corpus's
+``DataLoader``. ``build_mesh`` is not ported yet (ROADMAP Queue A 12).
 """
 
 from __future__ import annotations
@@ -31,22 +31,27 @@ def _dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def build_am_model(cfg: Config, device=None,
-                   generator: Optional[torch.Generator] = None):
-    from asr_dfcnn_transformer_torch.models import SEDFCNN, SEDFCNNConfig
-    name = cfg.am.model
+def am_architecture(name: str) -> dict:
+    """The ``SEDFCNN`` fields that an AM name (``AmConfig.model``, the
+    CLI's ``--model``) selects; names the port does not build raise,
+    naming their ROADMAP item."""
     if name in _UNPORTED_AM:
         raise ValueError(f"am model {name!r} is not ported yet: ROADMAP "
                          f"{_UNPORTED_AM[name]}")
-    kw = dict(se_ratio=tuple(cfg.am.se_ratio),
-              dropout_rate=cfg.am.dropout_rate, dtype=_dtype(cfg.am.dtype))
     if name == "se_dfcnn_fast":       # SEDFCNN.fast: space-to-depth
-        kw.update(stage_pool=(True, True, False, False, False),
-                  space_to_depth=True)
-    elif name in ("se_dfcnn", "se_dfcnn_pre"):
-        kw.update(se_first=name == "se_dfcnn_pre")
-    else:
-        raise ValueError(f"unknown am model {name!r}")
+        return dict(stage_pool=(True, True, False, False, False),
+                    space_to_depth=True)
+    if name in ("se_dfcnn", "se_dfcnn_pre"):
+        return dict(se_first=name == "se_dfcnn_pre")
+    raise ValueError(f"unknown am model {name!r}")
+
+
+def build_am_model(cfg: Config, device=None,
+                   generator: Optional[torch.Generator] = None):
+    from asr_dfcnn_transformer_torch.models import SEDFCNN, SEDFCNNConfig
+    kw = dict(se_ratio=tuple(cfg.am.se_ratio),
+              dropout_rate=cfg.am.dropout_rate, dtype=_dtype(cfg.am.dtype),
+              **am_architecture(cfg.am.model))
     return SEDFCNN(SEDFCNNConfig(vocab_mod.acoustic_vocab().size, **kw),
                    feature_dim=cfg.am.feature_dim, device=device,
                    generator=generator)
@@ -83,6 +88,28 @@ def build_e2e_model(cfg: Config, device=None,
         fused_attention=e.fused_attention, fused_ffn=e.fused_ffn,
         dtype=_dtype(e.dtype)), feature_dim=e.lfr_m * e.feature_dim,
         device=device, generator=generator)
+
+
+def build_loader(cfg: Config, mode: str, shuffle: Optional[bool] = None,
+                 e2e_vocab: bool = False):
+    """The ``DataLoader`` over ``cfg.data``'s manifests of ``mode``
+    (train / dev / test); ``e2e_vocab`` takes the e2e model's hanzi ids
+    (PAD / SOS / EOS first) instead of the LM's."""
+    from asr_dfcnn_transformer_torch.data import DataLoader, load_manifests
+    av = vocab_mod.acoustic_vocab()
+    lv = vocab_mod.e2e_language_vocab() if e2e_vocab \
+        else vocab_mod.language_vocab()
+    m = load_manifests(cfg.data.data_dir, mode,
+                       corpora=tuple(cfg.data.corpora),
+                       use_noise=cfg.data.use_noise_manifest,
+                       shuffle=cfg.data.shuffle if shuffle is None
+                       else shuffle,
+                       seed=cfg.train.seed,
+                       data_length=cfg.data.data_length)
+    return DataLoader(m, av, lv, speech_root=cfg.data.speech_data_root,
+                      noise_root=cfg.data.noise_data_root,
+                      feature_max_length=cfg.am.feature_max_length,
+                      bucket_bounds=tuple(cfg.data.bucket_bounds))
 
 
 def build_am_trainer(cfg: Config, workdir: str, augment_noise: bool = False,

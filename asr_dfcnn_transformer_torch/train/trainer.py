@@ -15,14 +15,17 @@ metrics carry that ``lr``.
 Around the steps: JSONL metrics, a non-finite-loss guard, per-epoch dev
 sweeps with a metric-gated best checkpoint, and resume from the latest
 checkpoint (the e2e trainer: step-numbered checkpoints and an epoch
-marker). Not ported yet: the device mesh, ``remat_stages``, TensorBoard
-(with the e2e attention images), profiling and identity stamps.
+marker), with the model's identity stamp written beside the checkpoints
+and checked before a restore. Not ported yet: the device mesh,
+``remat_stages``, TensorBoard (with the e2e attention images) and
+profiling.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 from typing import Callable, Dict, Iterator, Optional
 
@@ -47,6 +50,7 @@ from asr_dfcnn_transformer_torch.ops.ctc import ctc_loss
 from asr_dfcnn_transformer_torch.ops.ctc_decode import ctc_greedy_decode
 from asr_dfcnn_transformer_torch.ops.edit_distance import (
     batched_edit_distance)
+from asr_dfcnn_transformer_torch.train import identity
 from asr_dfcnn_transformer_torch.train.checkpoint import CheckpointManager
 from asr_dfcnn_transformer_torch.train.schedule import (
     polynomial_decay_with_cycle)
@@ -135,14 +139,33 @@ class _TrainerBase:
         return {"step": self.step, "model": self.model.state_dict(),
                 "optimizer": self.opt.state_dict()}
 
+    #: set True (CLI --force-model-mismatch) to downgrade a structural
+    #: identity mismatch at restore from an error to a warning
+    allow_model_mismatch: bool = False
+
     def restore_or_init(self) -> int:
         """Restore the latest checkpoint if there is one (else keep the
-        model's weights); returns the step."""
+        model's weights and stamp the checkpoint directory); returns the
+        step. The model is checked against the directory's identity stamp
+        first (``train/identity.py``); an unstamped checkpoint is stamped
+        on this first restore. A checkpoint that holds only ``"model"``
+        (``convert.flax_checkpoint_to_port``) keeps the fresh optimizer and
+        step 0."""
+        if self.ckpt.latest_step() is None:
+            identity.write_identity(self.ckpt.directory, self.model)
+            return self.step
+        identity.check_identity(self.ckpt.directory, self.model,
+                                override=self.allow_model_mismatch)
         state = self.ckpt.restore_latest()
-        if state is not None:
-            self.model.load_state_dict(state["model"])
+        self.model.load_state_dict(state["model"])
+        if "optimizer" in state:
             self.opt.load_state_dict(state["optimizer"])
-            self.step = int(state["step"])
+        self.step = int(state.get("step", 0))
+        if identity.read_identity(self.ckpt.directory) is None:
+            print(f"# identity: stamping the unstamped checkpoint under "
+                  f"{self.ckpt.directory!r} with the model it was restored "
+                  f"into", file=sys.stderr)
+            identity.write_identity(self.ckpt.directory, self.model)
         return self.step
 
     def save(self, epoch: int):

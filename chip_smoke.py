@@ -153,6 +153,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     offline noise corpus, and one ``fit`` epoch of the full-width noisy AM
     on the port's ``DataLoader`` batches with a checkpoint. The launch
     counters are reset before and read after each path.
+13. The port's CLI (``train/cli.py`` ``main``, in this process) at full
+    width in a temporary workdir over its ``--synthetic 64`` corpus (bucket
+    128): ``am`` and ``lm`` one epoch each (every logged loss finite, the
+    identity stamps written), ``eval`` greedy and ``--decode beam`` (two
+    accuracy lines each, a pred_log of 4 lines an utterance + 2),
+    ``eval-lm``, ``infer`` on a tone wav, ``export --format tf1`` of both
+    models (their tensors the checkpoints' bit for bit) and ``eval
+    --am-tf-ckpt --lm-tf-ckpt`` (the greedy eval's accuracy lines and
+    pred_log exactly), ``eval --model se_dfcnn_pre`` refused with a
+    ``ModelIdentityError`` naming ``se_first``, ``e2e`` one epoch and
+    ``eval-e2e``, and ``eval --config`` selecting ``fused_ffn="pallas"``
+    (12 launches an eval batch); each command's wall time, with the launch
+    counters reset before and read after it: every kernel of its path
+    must have run. Then ``--small`` f32 models trained by the CLI on the
+    CPU, served through ``Pipeline.from_checkpoints`` on the CPU and on the
+    card over the test batches, agree by phase 4's rule.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -1616,14 +1632,76 @@ def phase_served(results):
             results[name].setdefault("launches", counts[name])
 
 
-def phase_card_vs_cpu():
+def run_am_lm(am, lm, dev, sig, lens, bucket, pny_for_lm=None):
+    """fbank -> AM -> greedy pinyin (capped at the LM's positions) -> LM
+    on ``dev`` for host signals [B, S] and lengths [B]; the LM reads
+    ``pny_for_lm`` when given. -> (logits, logit lengths, pinyin ids,
+    pinyin lengths, LM logits), on the CPU."""
     import torch
-    from asr_dfcnn_transformer_torch.audio.fbank import (batched_fbank,
-                                                         samples_for_frames)
+    from asr_dfcnn_transformer_torch.audio.fbank import batched_fbank
     from asr_dfcnn_transformer_torch.models import (frames_from_samples,
                                                     logit_lengths)
-    from asr_dfcnn_transformer_torch.ops import (ctc_beam_search_decode,
-                                                 ctc_greedy_decode)
+    from asr_dfcnn_transformer_torch.ops import ctc_greedy_decode
+    x = torch.from_numpy(np.asarray(sig, np.float32)).to(dev)
+    n = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
+    feats, _ = batched_fbank(x, n, out_frames=bucket)
+    logits = am(feats[:, None])
+    in_len = logit_lengths(frames_from_samples(n), logits.shape[1])
+    ids, ids_len = ctc_greedy_decode(logits, in_len,
+                                     max_output_len=LM_MAX_LEN)
+    lm_in = ids if pny_for_lm is None else pny_for_lm.to(dev)
+    return (logits.cpu(), in_len.cpu(), ids.cpu(), ids_len.cpu(),
+            lm(lm_in.long()).cpu())
+
+
+def top2_margin(x):
+    import torch
+    top2 = torch.topk(x, 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def check_am_lm_agreement(label, cpu_models, card_models, sig, lens,
+                          bucket):
+    """Phase 4's rule: the AM's frame argmax and the LM's hanzi argmax (the
+    LM fed the CPU's pinyin on both devices) agree wherever the CPU's
+    top-2 margin >= MARGIN, and with every AM margin that high the
+    decoded pinyin are equal. Returns (CPU logits, logit lengths, whether
+    every margin of both models was that high)."""
+    import torch
+    with torch.inference_mode():
+        c_logits, c_len, c_ids, c_ids_len, c_lm = run_am_lm(
+            *cpu_models, "cpu", sig, lens, bucket)
+        g_logits, _, g_ids, g_ids_len, g_lm = run_am_lm(
+            *card_models, DEVICE, sig, lens, bucket, pny_for_lm=c_ids)
+    frames = torch.arange(c_logits.shape[1])[None, :] < c_len[:, None]
+    sure = frames & (top2_margin(c_logits) >= MARGIN)
+    am_bad = int((sure & (c_logits.argmax(-1) != g_logits.argmax(-1))).sum())
+    pos = torch.arange(c_lm.shape[1])[None, :] < c_ids_len[:, None]
+    sure_lm = pos & (top2_margin(c_lm) >= MARGIN)
+    lm_bad = int((sure_lm & (c_lm.argmax(-1) != g_lm.argmax(-1))).sum())
+    seq_equal = bool(torch.equal(c_ids, g_ids)
+                     and torch.equal(c_ids_len, g_ids_len))
+    print(f"{label}: AM logits max abs diff "
+          f"{float((c_logits - g_logits).abs().max()):.3g}; frame argmax "
+          f"mismatches {am_bad} of {int(sure.sum())} frames with margin >= "
+          f"1e-3 ({int(frames.sum())} valid)")
+    print(f"  pinyin lengths {c_ids_len.tolist()}, decoded pinyin equal: "
+          f"{seq_equal}; LM logits max abs diff "
+          f"{float((c_lm - g_lm).abs().max()):.3g}; hanzi mismatches "
+          f"{lm_bad} of {int(sure_lm.sum())} positions with margin >= 1e-3")
+    require(am_bad == 0 and lm_bad == 0, f"{label}: card and CPU ids "
+            "disagree")
+    am_sure = bool(sure.sum() == frames.sum())
+    if am_sure:
+        require(seq_equal, f"{label}: decoded pinyin differs with every "
+                "margin >= 1e-3")
+    return c_logits, c_len, am_sure and bool(sure_lm.sum() == pos.sum())
+
+
+def phase_card_vs_cpu():
+    import torch
+    from asr_dfcnn_transformer_torch.audio.fbank import samples_for_frames
+    from asr_dfcnn_transformer_torch.ops import ctc_beam_search_decode
     am_cpu, lm_cpu, _, _ = build_models(torch.float32, "cpu")
     am_gpu = copy.deepcopy(am_cpu).to(DEVICE).eval()
     lm_gpu = copy.deepcopy(lm_cpu).to(DEVICE).eval()
@@ -1633,45 +1711,9 @@ def phase_card_vs_cpu():
     lens = np.array([s, 2 * s // 3], np.int32)
     for i, n in enumerate(lens):
         sig[i, :n] = tone_utterance(rng, n)
-
-    def run(am, lm, dev, pny_for_lm=None):
-        x = torch.from_numpy(sig).to(dev)
-        n = torch.from_numpy(lens).to(dev)
-        feats, _ = batched_fbank(x, n, out_frames=BUCKETS[0])
-        logits = am(feats[:, None])
-        in_len = logit_lengths(frames_from_samples(n), logits.shape[1])
-        ids, ids_len = ctc_greedy_decode(logits, in_len, max_output_len=100)
-        lm_in = ids if pny_for_lm is None else pny_for_lm.to(dev)
-        return (logits.cpu(), in_len.cpu(), ids.cpu(), ids_len.cpu(),
-                lm(lm_in.long()).cpu())
-
-    def margin(x):
-        top2 = torch.topk(x, 2, dim=-1).values
-        return top2[..., 0] - top2[..., 1]
-
-    with torch.inference_mode():
-        c_logits, c_len, c_ids, c_ids_len, c_lm = run(am_cpu, lm_cpu, "cpu")
-        g_logits, _, g_ids, g_ids_len, g_lm = run(am_gpu, lm_gpu, DEVICE,
-                                                  pny_for_lm=c_ids)
-    frames = torch.arange(c_logits.shape[1])[None, :] < c_len[:, None]
-    sure = frames & (margin(c_logits) >= 1e-3)
-    am_bad = int((sure & (c_logits.argmax(-1) != g_logits.argmax(-1))).sum())
-    pos = torch.arange(c_lm.shape[1])[None, :] < c_ids_len[:, None]
-    sure_lm = pos & (margin(c_lm) >= 1e-3)
-    lm_bad = int((sure_lm & (c_lm.argmax(-1) != g_lm.argmax(-1))).sum())
-    seq_equal = bool(torch.equal(c_ids, g_ids)
-                     and torch.equal(c_ids_len, g_ids_len))
-    print(f"card vs CPU, f32, bucket {BUCKETS[0]}: AM logits max abs diff "
-          f"{float((c_logits - g_logits).abs().max()):.3g}; frame argmax "
-          f"mismatches {am_bad} of {int(sure.sum())} frames with margin >= "
-          f"1e-3 ({int(frames.sum())} valid)")
-    print(f"  pinyin lengths {c_ids_len.tolist()}, decoded pinyin equal: "
-          f"{seq_equal}; LM logits max abs diff "
-          f"{float((c_lm - g_lm).abs().max()):.3g}; hanzi mismatches "
-          f"{lm_bad} of {int(sure_lm.sum())} positions with margin >= 1e-3")
-    require(am_bad == 0 and lm_bad == 0, "card and CPU ids disagree")
-    if bool((margin(c_logits)[frames] >= 1e-3).all()):
-        require(seq_equal, "decoded pinyin differs with every margin >= 1e-3")
+    c_logits, c_len, _ = check_am_lm_agreement(
+        f"card vs CPU, f32, bucket {BUCKETS[0]}", (am_cpu, lm_cpu),
+        (am_gpu, lm_gpu), sig, lens, BUCKETS[0])
 
     # the beam decode of the CPU's logits: the twins on the CPU, the
     # kernels on the card
@@ -2538,6 +2580,259 @@ def phase_noise_data():
                 "loader-driven noisy fit")
 
 
+CLI_SYNTHETIC = "64"        # utterances a split of the CLI's corpus
+CLI_KERNELS = {   # what each of phase 13's commands must launch
+    "am": ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi"),
+    "lm": ("masked_attention_drop", "masked_attention_bwd"),
+    "eval": ("log_mel", "cmvn", "masked_attention"),
+    "eval beam": ("log_mel", "cmvn", "masked_attention", "topk_last",
+                  "beam_search"),
+    "eval-lm": ("masked_attention",),
+    "infer": ("log_mel", "cmvn", "masked_attention"),
+    "eval tf1": ("log_mel", "cmvn", "masked_attention"),
+    "e2e": E2E_TRAINED,
+    "eval-e2e": E2E_SERVED,
+    "eval fused_ffn": ("log_mel", "cmvn", "masked_attention", "fused_ffn"),
+}
+
+
+def run_cli(results, label, argv):
+    """One CLI command in this process (the kernels built in phase 1 are
+    reused), the launch counters reset just before and read just after:
+    every kernel ``CLI_KERNELS[label]`` names must have run. Prints the
+    command's output and wall time; returns (its stdout, the counts)."""
+    import contextlib
+    import io
+
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    from asr_dfcnn_transformer_torch.train import cli
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        print(out.getvalue(), end="")
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    print(f"cli {label}: {wall:.2f} s wall; launch counts {counts}")
+    for name in CLI_KERNELS.get(label, ()):
+        require(counts.get(name, 0) > 0,
+                f"{name} was never launched by the CLI's {label}")
+        results[name].setdefault("launches", counts[name])
+    return out.getvalue(), counts
+
+
+def accuracy_lines(text: str):
+    return [line for line in text.splitlines()
+            if line.startswith("*[Test Result]")]
+
+
+def pred_log_utterances(path: str):
+    """(the pred_log's text, its utterance count), the count held to the
+    4 lines an utterance + 2 accuracy lines of an AM -> LM eval."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    lines = text.splitlines()
+    n = sum(line.startswith("原文拼音结果") for line in lines)
+    require(n > 0 and len(lines) == 4 * n + 2,
+            f"pred_log {path}: {len(lines)} lines for {n} utterances")
+    return text, n
+
+
+def require_finite_losses(workdir: str, name: str):
+    """Every loss in ``<name>_metrics.jsonl`` (train and dev) is finite,
+    and the checkpoint directory carries its identity stamp."""
+    with open(os.path.join(workdir, f"{name}_metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    print(f"cli {name}: {len(losses)} logged losses, first {losses[0]:.4g}, "
+          f"last {losses[-1]:.4g}")
+    require(losses and all(np.isfinite(losses)),
+            f"{name}: a logged loss is not finite")
+    require(os.path.exists(os.path.join(workdir, f"ckpt_{name}",
+                                        "identity.json")),
+            f"{name}: no identity stamp beside the checkpoints")
+
+
+def phase_cli(results):
+    """Phase 13: the port's CLI (``train/cli.py`` ``main``) on the card at
+    full width, in a temporary workdir with ``--synthetic 64`` (bucket 128):
+    train the AM and the LM one epoch each; eval greedy and beam; eval-lm;
+    infer one tone wav; export both models as TF1 bundles and eval from
+    them (the same parameters bit for bit, so the same accuracy lines and
+    pred_log as the greedy eval); the refused ``--model se_dfcnn_pre``;
+    e2e one epoch and eval-e2e; eval with a config selecting
+    ``fused_ffn="pallas"`` (12 launches a batch). Then small f32 models
+    trained by the CLI on the CPU, served through
+    ``Pipeline.from_checkpoints`` on both devices over the test batches,
+    agree by phase 4's rule."""
+    import math
+
+    from asr_dfcnn_transformer_torch.audio.wav import write_wav
+    from asr_dfcnn_transformer_torch.core.config import Config, LmConfig
+    from asr_dfcnn_transformer_torch.train.factory import config_to_json
+    from asr_dfcnn_transformer_torch.train.identity import (
+        ModelIdentityError)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    t0 = time.perf_counter()
+    try:
+        wd = ["--workdir", os.path.join(workdir, "full"), "--synthetic",
+              CLI_SYNTHETIC]
+        full = wd[1]
+        for name in ("am", "lm"):
+            run_cli(results, name, [name] + wd + ["--epochs", "1"])
+            require_finite_losses(full, name)
+        log = os.path.join(full, "pred", "pred_log")
+        text, _ = run_cli(results, "eval", ["eval"] + wd)
+        greedy = accuracy_lines(text), pred_log_utterances(log)
+        require(len(greedy[0]) == 2, "eval printed no accuracy lines")
+        text, _ = run_cli(results, "eval beam",
+                          ["eval"] + wd + ["--decode", "beam"])
+        pred_log_utterances(log)
+        require(len(accuracy_lines(text)) == 2, "beam eval printed no "
+                "accuracy lines")
+        text, _ = run_cli(results, "eval-lm", ["eval-lm"] + wd)
+        require(len(accuracy_lines(text)) == 1, "eval-lm printed no "
+                "accuracy line")
+        wav = os.path.join(workdir, "tone.wav")
+        write_wav(wav, tone_utterance(np.random.default_rng(SEED + 13),
+                                      int(2.5 * SAMPLE_RATE)))
+        text, _ = run_cli(results, "infer", ["infer"] + wd + ["--wav", wav])
+        require("拼音:" in text and "汉字:" in text, "infer printed no "
+                "result")
+
+        bundles = {w: os.path.join(workdir, "tf1", w) for w in ("am", "lm")}
+        for w, prefix in bundles.items():
+            run_cli(results, f"export {w}", ["export", "--workdir", full,
+                                             "--what", w, "--out", prefix])
+        check_bundles_equal_checkpoints(full, bundles)
+        text, _ = run_cli(results, "eval tf1", ["eval"] + wd + [
+            "--am-tf-ckpt", bundles["am"], "--lm-tf-ckpt", bundles["lm"]])
+        from_tf1 = accuracy_lines(text), pred_log_utterances(log)
+        print(f"cli eval from the TF1 bundles: accuracy lines "
+              f"{'identical' if from_tf1 == greedy else 'DIFFER'} to the "
+              f"checkpoint eval's; pred_log of {from_tf1[1][1]} utterances")
+        require(from_tf1 == greedy, "the eval from the TF1 bundles differs "
+                "from the eval from the checkpoints")
+
+        try:
+            run_cli(results, "eval refused",
+                    ["eval"] + wd + ["--model", "se_dfcnn_pre"])
+        except ModelIdentityError as e:
+            print(f"cli eval --model se_dfcnn_pre refused: {e}")
+            require("se_first" in str(e), "the refusal does not name "
+                    "se_first")
+        else:
+            raise PhaseError("eval --model se_dfcnn_pre restored an "
+                             "se_dfcnn checkpoint")
+
+        run_cli(results, "e2e", ["e2e"] + wd + ["--epochs", "1"])
+        require_finite_losses(full, "e2e")
+        text, _ = run_cli(results, "eval-e2e", ["eval-e2e"] + wd)
+        require(len(accuracy_lines(text)) == 1, "eval-e2e printed no "
+                "accuracy line")
+
+        cfg = os.path.join(workdir, "fused_ffn.json")
+        with open(cfg, "w", encoding="utf-8") as f:
+            f.write(config_to_json(Config(lm=LmConfig(fused_ffn="pallas"))))
+        _, counts = run_cli(results, "eval fused_ffn",
+                            ["eval"] + wd + ["--config", cfg])
+        _, n_utts = pred_log_utterances(log)
+        batches = math.ceil(n_utts / Config().am.batch_size)
+        n_ffn = counts.get("fused_ffn", 0)
+        require(n_ffn == 12 * batches,
+                f"fused_ffn launched {n_ffn} times for "
+                f"{batches} eval batches of the 12-block LM")
+        print(f"cli phase, full width: {time.perf_counter() - t0:.1f} s")
+        cli_card_vs_cpu(os.path.join(workdir, "small"))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"cli phase: {time.perf_counter() - t0:.1f} s")
+
+
+def check_bundles_equal_checkpoints(workdir: str, bundles: dict):
+    """The TF1 bundles, loaded through ``convert``, hold the latest
+    checkpoints' parameters (what the CLI's eval restores) bit for bit."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.convert import (am_state_dict,
+                                                     lm_state_dict)
+    from asr_dfcnn_transformer_torch.infer.tf_ckpt import (load_tf1_lm,
+                                                           load_tf1_sedfcnn)
+    from asr_dfcnn_transformer_torch.train import CheckpointManager
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    loaded = {"am": am_state_dict(load_tf1_sedfcnn(bundles["am"], av.size)),
+              "lm": lm_state_dict(load_tf1_lm(bundles["lm"], av.size,
+                                              lv.size))}
+    for what, sd in loaded.items():
+        ckpt = CheckpointManager(os.path.join(
+            workdir, f"ckpt_{what}")).restore_latest()["model"]
+        differ = [k for k in ckpt
+                  if k not in sd or not torch.equal(ckpt[k], sd[k])]
+        print(f"cli export {what}: {len(sd)} tensors, "
+              f"{len(ckpt) - len(differ)} of {len(ckpt)} equal to the "
+              "checkpoint's bit for bit")
+        require(not differ and set(sd) == set(ckpt),
+                f"export {what}: tensors differ from the checkpoint: "
+                f"{differ[:5]}")
+
+
+def cli_card_vs_cpu(workdir: str):
+    """13, last step: ``--small`` f32 AM and LM trained one epoch each by
+    the CLI on the CPU, loaded with ``Pipeline.from_checkpoints`` on the
+    CPU and on the card; over the test batches the frame argmax and the
+    hanzi argmax agree wherever the CPU's margin >= 1e-3 (phase 4's rule),
+    and where every margin is that high the two pipelines' ids are
+    equal."""
+    import argparse
+
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.core.config import Config
+    from asr_dfcnn_transformer_torch.data import DataLoader, load_manifests
+    from asr_dfcnn_transformer_torch.infer import Pipeline
+    from asr_dfcnn_transformer_torch.train import cli
+    wd = ["--workdir", workdir, "--synthetic", CLI_SYNTHETIC, "--small",
+          "--platform", "cpu"]
+    for name in ("am", "lm"):
+        run_cli({}, f"small {name} (cpu)", [name] + wd + ["--epochs", "1"])
+        require_finite_losses(workdir, name)
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    pipes = []
+    for dev in ("cpu", DEVICE):
+        args = argparse.Namespace(small=True, device=torch.device(dev),
+                                  cfg=Config(), seed=SEED)
+        pipes.append(Pipeline.from_checkpoints(
+            workdir, cli._am_model(args, "se_dfcnn", av.size),
+            cli._lm_model(args, av.size, lv.size), acoustic_vocab=av,
+            language_vocab=lv))
+    syn = os.path.join(workdir, "synthetic")
+    test = DataLoader(load_manifests(os.path.join(syn, "data"), "test",
+                                     corpora=("thchs",)), av, lv,
+                      speech_root=os.path.join(syn, "wav"),
+                      bucket_bounds=(128,))
+    n_sure = 0
+    for i, b in enumerate(test.am_batches(16, shuffle=False)):
+        _, _, sure = check_am_lm_agreement(
+            f"cli small checkpoints card vs CPU, batch {i}",
+            (pipes[0].am_model, pipes[0].lm_model),
+            (pipes[1].am_model, pipes[1].lm_model),
+            b.signals, b.signal_lengths, b.bucket_frames)
+        if sure:
+            n_sure += 1
+            outs = [p.recognize_batch(b.signals, b.signal_lengths,
+                                      b.bucket_frames) for p in pipes]
+            require(all(np.array_equal(c, g) for c, g in zip(*outs)),
+                    f"batch {i}: the pipelines' ids differ with every "
+                    "margin >= 1e-3")
+    print(f"cli small checkpoints: {n_sure} batches with every margin >= "
+          "1e-3 gave equal pipeline ids on both devices")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2563,6 +2858,7 @@ def main() -> int:
     phase_e2e_train_card_vs_cpu()
     phase_fused_ffn(results)
     phase_noise(results, clean_am)
+    phase_cli(results)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

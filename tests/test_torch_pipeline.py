@@ -250,7 +250,8 @@ def test_package_never_imports_jax():
         "        'audio.specaugment', 'kernels.ffn', 'core.config',\n"
         "        'train.factory', 'ops.matfft', 'kernels.fft_epilogue',\n"
         "        'audio.noise', 'audio.wav', 'audio.noise_corpus',\n"
-        "        'data.manifest', 'data.synthetic', 'data.loader']\n"
+        "        'data.manifest', 'data.synthetic', 'data.loader',\n"
+        "        'train.identity', 'train.cli', 'infer.tf_ckpt']\n"
         "missing = [n for n in need if p.__name__ + '.' + n"
         " not in sys.modules]\n"
         "assert not missing, missing\n"
