@@ -4,6 +4,12 @@ SpecAugment, low-frame-rate stacking) and wav IO."""
 from asr_dfcnn_transformer_torch.audio.fbank import (  # noqa: F401
     FbankConfig,
     batched_fbank,
+    cmvn,
+    compute_fbank_from_signal,
+    log_spectrogram,
+    log_spectrogram_asrt,
+    logfbank,
+    mel_filterbank,
     num_frames,
 )
 from asr_dfcnn_transformer_torch.audio.lfr import (  # noqa: F401

@@ -10,7 +10,10 @@ per-bin standardisation.
 
 The numerics run in two kernels (``kernels/fbank.py``): ``log_mel`` and
 ``cmvn``, each a CUDA kernel on the card and its plain-PyTorch twin on the
-CPU. The numpy helpers below build their constant bases.
+CPU. The numpy helpers below build their constant bases. The
+single-utterance functions (``logfbank``, ``cmvn``,
+``compute_fbank_from_signal``) run the same kernels at B = 1; the
+reference's two spectrogram extractors take ``torch.fft.fft``.
 """
 
 from __future__ import annotations
@@ -133,3 +136,86 @@ def batched_fbank(signals: torch.Tensor, lengths: torch.Tensor,
     # cmvn zeroes rows past valid, so the slice needs no second mask
     feats = kfb.cmvn(feat, valid)[:, :t_out]
     return feats, torch.clamp(valid, max=t_out)
+
+
+# ---- single utterances (audio/fbank.py:137-300) --------------------------
+
+def logfbank(signal: torch.Tensor,
+             cfg: FbankConfig = FbankConfig()) -> torch.Tensor:
+    """[S] float signal -> [num_frames(S), nfilt] f32 log mel-filterbank
+    energies (``python_speech_features.logfbank``, wav_util.py:29): the
+    ``log_mel`` kernel at B = 1."""
+    from asr_dfcnn_transformer_torch.kernels import fbank as kfb
+    signal = torch.as_tensor(signal)
+    s = signal.shape[0]
+    length = torch.full((1,), s, dtype=torch.int32, device=signal.device)
+    return kfb.log_mel(signal.to(torch.float32).reshape(1, s).contiguous(),
+                       length, num_frames(s, cfg), cfg=cfg)[0]
+
+
+def cmvn(feat: torch.Tensor,
+         valid_frames: Optional[int] = None) -> torch.Tensor:
+    """Per-utterance, per-bin standardisation of [T, F] features
+    (``sklearn.preprocessing.scale``, wav_util.py:30): zero mean, unit std
+    (ddof 0, std 0 -> 1), then re-centred; the ``cmvn`` kernel at B = 1.
+
+    ``valid_frames``: the statistics run over ``feat[:valid_frames]`` only
+    (divided by max(valid_frames, 1)) and the rows from there on are
+    zeroed; None takes every row."""
+    from asr_dfcnn_transformer_torch.kernels import fbank as kfb
+    t = feat.shape[0]
+    valid = torch.full((1,), t if valid_frames is None else int(valid_frames),
+                       dtype=torch.int32, device=feat.device)
+    return kfb.cmvn(feat.to(torch.float32)[None].contiguous(), valid)[0]
+
+
+def compute_fbank_from_signal(signal: torch.Tensor,
+                              cfg: FbankConfig = FbankConfig()
+                              ) -> torch.Tensor:
+    """Single-utterance feature, logfbank + scale (wav_util.py:22-31):
+    [S] -> [num_frames(S), nfilt], through :func:`batched_fbank` at B = 1
+    (``log_mel`` then ``cmvn``)."""
+    signal = torch.as_tensor(signal)
+    s = signal.shape[0]
+    # num_frames(S) rows, every one valid (tests/test_torch_fbank_single.py)
+    feats, _ = batched_fbank(
+        signal.reshape(1, s),
+        torch.full((1,), s, dtype=torch.int32, device=signal.device), cfg)
+    return feats[0]
+
+
+def _hamming_frames(signal: torch.Tensor, n: int) -> torch.Tensor:
+    """The raw signal's n Hamming-windowed frames of 400 at hop 160, zero
+    past its end: [n, 400] f32."""
+    ham = torch.from_numpy((0.54 - 0.46 * np.cos(
+        2 * np.pi * np.arange(400) / 399)).astype(np.float32))
+    raw = torch.as_tensor(signal).to(torch.float32)
+    pad_len = (n - 1) * 160 + 400
+    sig = torch.nn.functional.pad(raw, (0, max(pad_len - raw.shape[0], 0)))
+    return sig[:pad_len].unfold(0, 400, 160) * ham.to(raw.device)
+
+
+def log_spectrogram(signal: torch.Tensor,
+                    feature_dim: int = 200) -> torch.Tensor:
+    """The reference's hand-rolled spectrogram (wav_util.py:49-79): 400-pt
+    Hamming window, hop 160, |FFT(400)|[:feature_dim], log(x + 1), then
+    :func:`cmvn`. As in the reference (and the JAX package), the frame
+    count comes from the pre-emphasised signal's length while the RAW
+    signal is windowed; ``max(1, .)`` keeps a signal shorter than one
+    window at one frame. The FFT is ``torch.fft.fft`` (cuFFT on the
+    card)."""
+    s = torch.as_tensor(signal).shape[0]
+    n = max(1, (s * 1000 // 16000 - 25) // 10 + 1)
+    spec = torch.fft.fft(_hamming_frames(signal, n), dim=-1).abs()
+    return cmvn(torch.log(spec[:, :feature_dim] + 1.0))
+
+
+def log_spectrogram_asrt(signal: torch.Tensor,
+                         feature_dim: int = 200) -> torch.Tensor:
+    """The reference's third extractor (wav_util.py:82-112): the same
+    Hamming spectrogram, |FFT| divided by the signal's length, log(x + 1),
+    NO standardisation; the frame count floors (no + 1)."""
+    s = torch.as_tensor(signal).shape[0]
+    n = max(1, (s * 1000 // 16000 - 25) // 10)
+    spec = torch.fft.fft(_hamming_frames(signal, n), dim=-1).abs()
+    return torch.log(spec[:, :feature_dim] / s + 1.0)

@@ -73,8 +73,9 @@ def flax_to_state_dict(variables: Mapping[str, Any]
 
 
 def am_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """``SEDFCNN`` variables (params + batch_stats) -> the port's
-    ``SEDFCNN`` state_dict (load with ``strict=True``)."""
+    """AM variables (params + batch_stats) of ``SEDFCNN``, ``DFCNN`` or
+    ``KerasDFCNN`` (``infer/hdf5_import.py``'s loader gives the last) ->
+    the port's model's state_dict (load with ``strict=True``)."""
     if "batch_stats" not in variables:
         raise ValueError("AM variables need batch_stats")
     return flax_to_state_dict(variables)

@@ -1,0 +1,235 @@
+"""The synthetic-corpus accuracy gates: train small models from scratch on
+the tone corpus and score them on its unseen test split.
+
+The port of the JAX package's ``tests/test_synthetic_{cer,fast,e2e}_gate.py``
+with their corpus, seeds, widths, steps, learning rates and thresholds, plus
+the beam gate (the cer gate's trained weights decoded with the prefix beam
+search). They are the one check that catches an accuracy fault end to end:
+a CTC gradient that is wrong but finite, a decode or an LM that loses
+tokens. The initial weights come from ``torch.Generator`` s, so they differ
+from the JAX package's.
+
+``tests/test_torch_gates.py`` runs them on the CPU (marked slow);
+``chip_smoke.py`` phase 15 on the card, where they drive the training
+kernels (``ctc_alpha``, ``ctc_beta_xi``, the masked and dual-axis attention
+backwards) to a trained model.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+import time
+from typing import Dict, Tuple
+
+import torch
+
+# the JAX gates' thresholds
+AM_LM_MIN_ACCURACY = 0.97        # pinyin and hanzi, cer and fast gates
+E2E_MIN_TEACHER_FORCED = 0.95    # the last training step's accuracy
+E2E_MIN_ACCURACY = 0.85          # cached greedy hanzi on the test split
+E2E_MIN_UTTERANCES = 100
+BEAM_SLACK = 0.01                # beam >= greedy - this, pinyin and hanzi
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def corpus(root: str, num_utts: int):
+    """(train loader, test loader, acoustic vocab, language vocab) over the
+    gates' synthetic corpus: ``num_utts`` utterances a split, 4 tone
+    classes, 2-4 syllables of 250 ms, seed 42, bucket 128."""
+    from asr_dfcnn_transformer_torch.core import vocab
+    from asr_dfcnn_transformer_torch.data import (DataLoader, load_manifests,
+                                                  make_synthetic_corpus)
+    data_dir, wav_root, _, _ = make_synthetic_corpus(
+        os.path.join(root, "corpus"), num_utts=num_utts, num_classes=4,
+        syllables_per_utt=(2, 4), tone_ms=250, seed=42)
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+
+    def mk(mode):
+        return DataLoader(load_manifests(data_dir, mode, corpora=("thchs",)),
+                          av, lv, speech_root=wav_root, bucket_bounds=(128,))
+
+    return mk("train"), mk("test"), av, lv
+
+
+def train_am_lm(root: str, device, fast: bool = False):
+    """The cer gate's training (the fast gate's with ``fast``): an f32
+    SE-DFCNN 12/12/24/24/24 (head 24, dropout 0) for 500 steps at lr
+    1.5e-3, then an f32 LM d 64 x 4 heads x 2 blocks (dropout 0) for 240
+    steps at lr 2e-3, batch 8 over 96 utterances. -> (AM, LM, test
+    loader, vocabs, {wall seconds, last losses})."""
+    from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
+                                                    TransformerLM,
+                                                    TransformerLMConfig)
+    from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer
+    device = torch.device(device)
+    train_dl, test_dl, av, lv = corpus(root, 96)
+    arch = dict(stage_pool=(True, True, False, False, False),
+                space_to_depth=True) if fast else {}
+    am = SEDFCNN(SEDFCNNConfig(av.size, stage_features=(12, 12, 24, 24, 24),
+                               head_features=24, dropout_rate=0.0,
+                               dtype=torch.float32, **arch),
+                 device=device, generator=torch.Generator().manual_seed(0))
+    work = os.path.join(root, "work")
+    amt = AMTrainer(am, work, lr=1.5e-3)
+    amt.restore_or_init()
+    gen = torch.Generator(device=device).manual_seed(1)
+    batches = list(train_dl.am_batches(8, shuffle=False))
+    t0 = time.perf_counter()
+    for step in range(500):
+        am_loss = amt.train_step(batches[step % len(batches)], gen)["loss"]
+    _sync(device)
+    t_am = time.perf_counter() - t0
+
+    lm = TransformerLM(TransformerLMConfig(av.size, lv.size, d_model=64,
+                                           num_heads=4, num_blocks=2,
+                                           dropout_rate=0.0,
+                                           dtype=torch.float32),
+                       device=device,
+                       generator=torch.Generator().manual_seed(1))
+    lmt = LMTrainer(lm, work, lr=2e-3)
+    lmt.restore_or_init()
+    lm_batches = list(train_dl.lm_batches(8, shuffle=False))
+    t0 = time.perf_counter()
+    for step in range(240):
+        lm_loss = lmt.train_step(lm_batches[step % len(lm_batches)],
+                                 gen)["loss"]
+    _sync(device)
+    t_lm = time.perf_counter() - t0
+    return am, lm, test_dl, av, lv, {
+        "am_train_s": t_am, "lm_train_s": t_lm,
+        "am_last_loss": float(am_loss), "lm_last_loss": float(lm_loss)}
+
+
+def evaluate(am, lm, test_dl, av, lv, decode: str = "greedy"):
+    """``Pipeline.evaluate`` over the test split (batch 8) -> (result,
+    wall seconds)."""
+    from asr_dfcnn_transformer_torch.infer import Pipeline
+    pipe = Pipeline(am, lm, acoustic_vocab=av, language_vocab=lv,
+                    decode=decode, beam_width=8)
+    t0 = time.perf_counter()
+    res = pipe.evaluate(test_dl.am_batches(8, shuffle=False))
+    _sync(pipe.device)
+    return res, time.perf_counter() - t0
+
+
+def am_lm_gate(root: str, device, fast: bool = False,
+               beam: bool = False) -> Dict[str, float]:
+    """The cer gate (``fast``: the fast gate): train, then the greedy
+    accuracies; with ``beam`` also the beam gate's on the same weights."""
+    t0 = time.perf_counter()
+    am, lm, test_dl, av, lv, out = train_am_lm(root, device, fast)
+    res, out["eval_s"] = evaluate(am, lm, test_dl, av, lv)
+    out.update(pinyin=res.pinyin_accuracy, hanzi=res.hanzi_accuracy,
+               utterances=res.num_utterances)
+    if beam:
+        res_b, out["beam_eval_s"] = evaluate(am, lm, test_dl, av, lv,
+                                             "beam")
+        out.update(beam_pinyin=res_b.pinyin_accuracy,
+                   beam_hanzi=res_b.hanzi_accuracy,
+                   beam_utterances=res_b.num_utterances)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def am_lm_misses(out: Dict[str, float]) -> list:
+    """The cer / fast / beam gates' failed conditions (empty: passed)."""
+    bad = []
+    if out["utterances"] != 96:
+        bad.append(f"{out['utterances']} test utterances, not 96")
+    for key in ("pinyin", "hanzi"):
+        if not out[key] > AM_LM_MIN_ACCURACY:
+            bad.append(f"{key} accuracy {out[key]:.4f} <= "
+                       f"{AM_LM_MIN_ACCURACY}")
+        if f"beam_{key}" in out and \
+                not out[f"beam_{key}"] >= out[key] - BEAM_SLACK:
+            bad.append(f"beam {key} accuracy {out[f'beam_{key}']:.4f} < "
+                       f"greedy {out[key]:.4f} - {BEAM_SLACK}")
+    return bad
+
+
+def e2e_gate(root: str, device) -> Dict[str, float]:
+    """The e2e gate: an f32 ``SpeechTransformer`` (d 64, 4 heads, 2 + 2
+    blocks, pre-net 16, dropout 0) over 40-filter fbank (LFR 4 / 3) for 900
+    steps at lr 2e-3, batch 8 over 144 utterances; then the KV-cached
+    greedy decode of the test split, scored by clipped edit distance."""
+    from asr_dfcnn_transformer_torch.models import (SpeechTransformer,
+                                                    SpeechTransformerConfig,
+                                                    greedy_decode_cached)
+    from asr_dfcnn_transformer_torch.ops.edit_distance import edit_distance
+    from asr_dfcnn_transformer_torch.train import E2ETrainer
+    device = torch.device(device)
+    t_all = time.perf_counter()
+    train_dl, test_dl, _, lv = corpus(root, 144)
+    model = SpeechTransformer(SpeechTransformerConfig(
+        lv.size, d_model=64, num_heads=4, num_enc_blocks=2, num_dec_blocks=2,
+        prenet_channels=16, dropout_rate=0.0, dtype=torch.float32),
+        feature_dim=4 * 40, device=device,
+        generator=torch.Generator().manual_seed(0))
+    tr = E2ETrainer(model, os.path.join(root, "work"), lr=2e-3,
+                    feature_dim=40)
+    tr.restore_or_init()
+    gen = torch.Generator(device=device).manual_seed(1)
+    batches = list(train_dl.am_batches(8, shuffle=False))
+    t0 = time.perf_counter()
+    for step in range(900):
+        m = tr.train_step(batches[step % len(batches)], gen)
+    final_acc = float(m["acc"])
+    t_train = time.perf_counter() - t0
+
+    model.eval()
+    err = tot = n_utts = 0
+    t0 = time.perf_counter()
+    for batch in test_dl.am_batches(8, shuffle=False):
+        with torch.inference_mode():
+            sig, sig_len = tr._to_device(batch.signals, batch.signal_lengths)
+            feats, valid = tr.features(sig, sig_len, batch.bucket_frames)
+            ids, lens = greedy_decode_cached(model, feats, valid)
+        ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
+        for j in range(ids.shape[0]):
+            if batch.weights[j] == 0:
+                continue
+            n_utts += 1
+            gt = list(batch.hanzi[j][: batch.hanzi_lengths[j]])
+            d = edit_distance(gt, list(ids[j][: lens[j]]))
+            err += min(d, len(gt))
+            tot += len(gt)
+    return {"teacher_forced": final_acc, "hanzi": 1.0 - err / max(tot, 1),
+            "utterances": n_utts, "last_loss": float(m["loss"]),
+            "train_s": t_train, "eval_s": time.perf_counter() - t0,
+            "wall_s": time.perf_counter() - t_all}
+
+
+def e2e_misses(out: Dict[str, float]) -> list:
+    """The e2e gate's failed conditions (empty: passed)."""
+    bad = []
+    if not out["teacher_forced"] > E2E_MIN_TEACHER_FORCED:
+        bad.append(f"teacher-forced accuracy {out['teacher_forced']:.4f} "
+                   f"<= {E2E_MIN_TEACHER_FORCED}")
+    if out["utterances"] < E2E_MIN_UTTERANCES:
+        bad.append(f"{out['utterances']} test utterances < "
+                   f"{E2E_MIN_UTTERANCES}")
+    if not out["hanzi"] > E2E_MIN_ACCURACY:
+        bad.append(f"hanzi accuracy {out['hanzi']:.4f} <= "
+                   f"{E2E_MIN_ACCURACY}")
+    return bad
+
+
+GATES = ("cer", "fast", "e2e")
+
+
+def run(gate: str, device) -> Tuple[Dict[str, float], list]:
+    """One gate in a temporary directory -> (its numbers, its misses);
+    the cer gate includes the beam gate."""
+    with tempfile.TemporaryDirectory(prefix=f"gate_{gate}_") as root:
+        if gate == "e2e":
+            out = e2e_gate(root, device)
+            return out, e2e_misses(out)
+        out = am_lm_gate(root, device, fast=gate == "fast",
+                         beam=gate == "cer")
+        return out, am_lm_misses(out)
+

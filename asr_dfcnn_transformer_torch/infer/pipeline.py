@@ -99,7 +99,8 @@ class Pipeline:
     """AM (fbank -> pinyin CTC) + LM (pinyin -> hanzi) inference.
 
     Args:
-      am_model: the port's ``SEDFCNN`` (its device is the pipeline's).
+      am_model: the port's ``SEDFCNN``, ``DFCNN`` or ``KerasDFCNN`` (its
+        device is the pipeline's).
       lm_model: the port's ``TransformerLM`` on the same device, or None
         (then only pinyin comes back).
       decode: "greedy" (``tf.nn.ctc_greedy_decoder`` parity) or "beam"

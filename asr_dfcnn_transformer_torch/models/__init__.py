@@ -1,7 +1,11 @@
 """Acoustic model, language model and end-to-end speech Transformer."""
 
 from asr_dfcnn_transformer_torch.models.dfcnn import (  # noqa: F401
+    DFCNN,
     SEDFCNN,
+    DFCNNConfig,
+    KerasDFCNN,
+    KerasDFCNNConfig,
     SEDFCNNConfig,
     frames_from_samples,
     logit_lengths,

@@ -46,43 +46,107 @@ def _const(shape, value: float, device) -> torch.Tensor:
     return torch.full(shape, value, dtype=torch.float32, device=device)
 
 
+class Bf16Matmul(torch.autograd.Function):
+    """``bf16_dot_general`` (layers.py:33) as ``nn.Dense`` applies it:
+    y = x W^T with both operands rounded to bf16, the products summed and
+    returned in f32. On the card one cuBLAS product with bf16 operands and
+    an f32 output (``torch.mm(..., out_dtype=torch.float32)``); on the CPU
+    its twin, an f32 product of the rounded operands (a product of two
+    bf16 values is exact in f32). ``F.linear`` on bf16 tensors would
+    round the result to bf16 as well: a different function.
+
+    The backward is JAX's transpose of that product: each cotangent is an
+    f32 product with the other rounded operand, rounded to bf16 (the
+    operand's type inside the product), then cast to the operand's own
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        wb = weight.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.shapes = (x.shape, x.dtype, weight.dtype)
+        if x.is_cuda:
+            y = torch.mm(xb, wb.t(), out_dtype=torch.float32)
+        elif x.device.type == "cpu":
+            y = xb.float() @ wb.float().t()
+        else:
+            raise ValueError(f"bf16 logits head: no route for {x.device}")
+        return y.reshape(*x.shape[:-1], weight.shape[0])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        xb, wb = ctx.saved_tensors
+        x_shape, x_dtype, w_dtype = ctx.shapes
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        gx = (g2 @ wb.float()).to(torch.bfloat16).to(x_dtype)
+        gw = (g2.t() @ xb.float()).to(torch.bfloat16).to(w_dtype)
+        return gx.reshape(x_shape), gw
+
+
 class Dense(nn.Module):
     """``nn.Dense``: y = x W^T (+ b) in ``dtype``; weight [out, in] f32.
 
     The bias is added after the product is rounded to ``dtype``, as Flax
-    does, rather than inside the product as ``F.linear`` would."""
+    does, rather than inside the product as ``F.linear`` would.
+    ``bf16_operands``: the product is :class:`Bf16Matmul` (Flax's
+    ``dot_general=bf16_dot_general``), which returns f32, so ``dtype``
+    must be f32."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  bias: bool = True, dtype: torch.dtype, device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, bf16_operands: bool = False):
         super().__init__()
+        if bf16_operands and dtype != torch.float32:
+            raise ValueError("bf16 operands return f32: dtype must be f32")
         self.dtype = dtype
+        self.bf16_operands = bf16_operands
         self.weight = _param((out_features, in_features),
                              1.0 / math.sqrt(in_features), generator, device)
         self.bias = (nn.Parameter(_const((out_features,), 0.0, device))
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.bf16_operands:
+            y = Bf16Matmul.apply(x, self.weight)
+        else:
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
 
 
-class Conv3x3(nn.Module):
-    """``nn.Conv(features, (3, 3), padding="SAME")`` in NCHW; weight OIHW."""
+def logits_dense(in_features: int, vocab_size: int, logits_matmul: str, *,
+                 device, generator: torch.Generator) -> Dense:
+    """The f32 logits projection of the AM family and the LM (dfcnn.py:40
+    ``_logits_dense``): "f32" is a full f32 product, "bf16" rounds both
+    operands to bf16 and sums in f32. The parameters are the same either
+    way, so checkpoints are interchangeable across the setting."""
+    if logits_matmul not in ("f32", "bf16"):
+        raise ValueError(f"logits_matmul must be f32|bf16, "
+                         f"got {logits_matmul!r}")
+    return Dense(in_features, vocab_size, dtype=torch.float32, device=device,
+                 generator=generator, bf16_operands=logits_matmul == "bf16")
 
-    def __init__(self, in_ch: int, out_ch: int, *, dtype: torch.dtype,
-                 device, generator: torch.Generator):
+
+class Conv(nn.Module):
+    """``nn.Conv(features, (k, k), padding="SAME")`` in NCHW for an odd
+    ``kernel_size`` k; weight OIHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, *,
+                 dtype: torch.dtype, device, generator: torch.Generator):
         super().__init__()
         self.dtype = dtype
-        self.weight = _param((out_ch, in_ch, 3, 3),
-                             1.0 / math.sqrt(in_ch * 9), generator, device)
+        k = kernel_size
+        self.weight = _param((out_ch, in_ch, k, k),
+                             1.0 / math.sqrt(in_ch * k * k), generator,
+                             device)
         self.bias = nn.Parameter(_const((out_ch,), 0.0, device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype), padding=1)
+                        self.bias.to(self.dtype),
+                        padding=self.weight.shape[-1] // 2)
 
 
 class BatchNorm(nn.Module):
@@ -170,22 +234,37 @@ class LayerNorm(nn.Module):
 
 class ConvBnCell(nn.Module):
     """Conv3x3 -> ReLU -> BatchNorm, optional 2x2 pooling (layers.py:52).
-    ``pool_type`` "avg" is the SE models' "maxpool" that average-pools."""
+    ``pool_type`` "avg" is the SE models' "maxpool" that average-pools.
+    ``nin`` adds the plain DFCNN head's network-in-network insert before
+    the pooling: Conv 1x1 (``nin_features``) -> ReLU -> BatchNorm -> Conv
+    3x3 (``features``) -> ReLU -> BatchNorm, named ``Conv_1``,
+    ``BatchNorm_1``, ``Conv_2``, ``BatchNorm_2`` as in Flax."""
 
     def __init__(self, in_ch: int, features: int, *, pool: bool = False,
-                 pool_type: str = "max", dtype: torch.dtype, device,
+                 pool_type: str = "max", nin: bool = False,
+                 nin_features: int = 32, dtype: torch.dtype, device,
                  generator: torch.Generator):
         super().__init__()
         if pool_type not in ("max", "avg"):
             raise ValueError(f"unknown pool_type {pool_type!r}")
         self.pool = pool
         self.pool_type = pool_type
-        self.Conv_0 = Conv3x3(in_ch, features, dtype=dtype, device=device,
-                              generator=generator)
+        self.nin = nin
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.Conv_0 = Conv(in_ch, features, **kw)
         self.BatchNorm_0 = BatchNorm(features, dtype=dtype, device=device)
+        if nin:
+            self.Conv_1 = Conv(features, nin_features, 1, **kw)
+            self.BatchNorm_1 = BatchNorm(nin_features, dtype=dtype,
+                                         device=device)
+            self.Conv_2 = Conv(nin_features, features, **kw)
+            self.BatchNorm_2 = BatchNorm(features, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.BatchNorm_0(F.relu(self.Conv_0(x)))
+        if self.nin:
+            x = self.BatchNorm_1(F.relu(self.Conv_1(x)))
+            x = self.BatchNorm_2(F.relu(self.Conv_2(x)))
         if self.pool:
             pool = F.max_pool2d if self.pool_type == "max" else F.avg_pool2d
             x = pool(x, 2, 2)

@@ -20,19 +20,19 @@ from torch import nn
 
 from asr_dfcnn_transformer_torch.core import constants
 from asr_dfcnn_transformer_torch.core.device import default_device
-from asr_dfcnn_transformer_torch.models.layers import (Dense, Dropout,
-                                                       FeedForward,
+from asr_dfcnn_transformer_torch.models.layers import (Dropout, FeedForward,
                                                        LearnedPositionEmbed,
                                                        MultiHeadAttention,
                                                        ScaledEmbed,
-                                                       label_smoothing)
+                                                       label_smoothing,
+                                                       logits_dense)
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerLMConfig:
     """The Flax ``TransformerLM``'s fields, name for name.
-    ``dropout_rate`` acts in training only; ``logits_matmul`` supports
-    "f32". ``fused_attention`` ("auto" | "pallas" | "einsum") goes to every
+    ``dropout_rate`` acts in training only; ``logits_matmul`` is "f32" or
+    "bf16" (bf16 operands summed in f32). ``fused_attention`` ("auto" | "pallas" | "einsum") goes to every
     block's ``MultiHeadAttention``: "auto" and "pallas" run the attention
     kernels, "einsum" the plain-torch branch. ``fused_ffn`` goes to every
     ``FeedForward``: "pallas" runs the ``fused_ffn`` kernel, "auto" and
@@ -62,9 +62,6 @@ class TransformerLM(nn.Module):
         ``device="cpu"`` for the CPU)."""
         super().__init__()
         c = config
-        if c.logits_matmul != "f32":
-            raise ValueError("the port computes the hanzi logits in f32 "
-                             f"only, got logits_matmul={c.logits_matmul!r}")
         self.config = c
         device = default_device(device)
         gen = generator if generator is not None \
@@ -82,9 +79,9 @@ class TransformerLM(nn.Module):
                     **kw))
                 self.add_module(f"block{s}_{i}_ffn", FeedForward(
                     c.d_model, fused=c.fused_ffn, **kw))
-        self.output = Dense(c.d_model, c.output_vocab_size,
-                            dtype=torch.float32, device=device,
-                            generator=gen)
+        self.output = logits_dense(c.d_model, c.output_vocab_size,
+                                   c.logits_matmul, device=device,
+                                   generator=gen)
 
     @property
     def n_stacks(self) -> int:

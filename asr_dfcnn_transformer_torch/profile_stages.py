@@ -3,10 +3,11 @@
     python -m asr_dfcnn_transformer_torch.profile_stages [--out PATH]
         [--model am_lm|e2e] [--decode greedy|beam] [--train]
         [--fused-ffn auto|pallas|einsum] [--augment]
+        [--am se_dfcnn|dfcnn|keras_dfcnn|...] [--batch N]
 
-Builds the full-width bf16 SE-DFCNN + Transformer LM from a seeded
-``torch.Generator`` and, for each of the server's buckets at its batch of
-8, times the four stages of ``pipeline_program`` (fbank, AM, CTC decode,
+Builds the full-width bf16 SE-DFCNN (or the AM ``--am`` names) +
+Transformer LM from a seeded ``torch.Generator`` and, for each of the
+server's buckets at its batch of 8 (or ``--batch``), times the four stages of ``pipeline_program`` (fbank, AM, CTC decode,
 LM + argmax) with CUDA events, beside the host's wall time for the whole
 batch. ``--decode beam`` times the prefix beam search (W = K = 8, the
 ``topk_last`` and ``beam_search`` kernels) in place of the greedy decode.
@@ -46,6 +47,7 @@ and device time per launch the kernel lines then report beside the others.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import tempfile
@@ -423,6 +425,12 @@ def main(argv=None) -> int:
     ap.add_argument("--augment", action="store_true",
                     help="with --train: colored noise and SpecAugment in "
                     "the AM step")
+    ap.add_argument("--am", default="se_dfcnn",
+                    choices=("se_dfcnn", "se_dfcnn_pre", "se_dfcnn_fast",
+                             "dfcnn", "keras_dfcnn"),
+                    help="the AM -> LM path's acoustic model")
+    ap.add_argument("--batch", type=int, default=BATCH,
+                    help="the AM -> LM serving path's batch size")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_stages: no CUDA device", file=sys.stderr)
@@ -431,8 +439,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     config = _config(args.fused_ffn)
+    config = config.replace(am=dataclasses.replace(config.am, model=args.am))
     print(f"device {torch.cuda.get_device_name(0)}, fused_ffn "
-          f"{args.fused_ffn}")
+          f"{args.fused_ffn}, am {args.am}")
     if args.model == "e2e":
         if args.train:
             profile_e2e_training(args.out, dev, config)
@@ -448,15 +457,16 @@ def main(argv=None) -> int:
         return 0
     cfg = FbankConfig()
     rng = np.random.default_rng(SEED)
-    print(f"batch {BATCH}, bf16, decode {args.decode}, times in ms (CUDA "
+    batch = args.batch
+    print(f"batch {batch}, bf16, decode {args.decode}, times in ms (CUDA "
           f"events, mean of {ITERS})")
     with torch.inference_mode():
         for bucket in BUCKETS:
             s = samples_for_frames(bucket)
             sig = torch.from_numpy(
-                0.1 * rng.standard_normal((BATCH, s)).astype(np.float32)
+                0.1 * rng.standard_normal((batch, s)).astype(np.float32)
             ).to(dev)
-            lens = torch.full((BATCH,), s, dtype=torch.int32,
+            lens = torch.full((batch,), s, dtype=torch.int32,
                               device=dev)
             per, wall = _timed_batches(
                 lambda: _stages(am, lm, sig, lens, bucket, cfg, args.decode),
@@ -468,8 +478,8 @@ def main(argv=None) -> int:
         bucket = max(BUCKETS)
         s = samples_for_frames(bucket)
         sig = torch.from_numpy(0.1 * rng.standard_normal(
-            (BATCH, s)).astype(np.float32)).to(dev)
-        lens = torch.full((BATCH,), s, dtype=torch.int32, device=dev)
+            (batch, s)).astype(np.float32)).to(dev)
+        lens = torch.full((batch,), s, dtype=torch.int32, device=dev)
         wall, dev_ms, events = _trace(
             lambda: pipeline_program(am, lm, sig, lens, bucket,
                                      fbank_cfg=cfg, decode=args.decode,

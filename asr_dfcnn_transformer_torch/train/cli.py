@@ -7,7 +7,7 @@
     python -m asr_dfcnn_transformer_torch.train.cli eval-lm  --workdir W [...]
     python -m asr_dfcnn_transformer_torch.train.cli eval-e2e --workdir W [...]
     python -m asr_dfcnn_transformer_torch.train.cli infer    --workdir W --wav f.wav
-    python -m asr_dfcnn_transformer_torch.train.cli export   --workdir W --out P [--what am|lm]
+    python -m asr_dfcnn_transformer_torch.train.cli export   --workdir W --out P [--what am|lm] [--format tf1|hdf5]
 
 The JAX CLI's commands, flags and defaults, on the port's models, trainers
 and kernels; the accuracy lines are printed in the JAX CLI's words, so a
@@ -20,10 +20,10 @@ the default config they are the JAX CLI's models field for field, and
 JAX CLI's tone corpus under ``<workdir>/synthetic``.
 
 Not ported yet, each with its ROADMAP Queue A item: ``atten``, ``joint``
-and ``eval-atten`` (A 11), ``infer --streaming`` (A 8), ``export --format
-hdf5`` and ``eval --am-hdf5`` (A 4), ``export-serving``, ``infer-artifact``
-and ``serve`` (A 8, A 2), ``--tensorboard`` (A 5.7), ``--distributed``
-(A 12).
+and ``eval-atten`` (A 11), ``--model bigru`` and the BiGRU's ``.hdf5``
+(``export --what bigru``, ``eval --am-hdf5 --model bigru``; A 11),
+``infer --streaming`` (A 8), ``export-serving``, ``infer-artifact`` and
+``serve`` (A 8, A 2), ``--tensorboard`` (A 5.7), ``--distributed`` (A 12).
 """
 
 from __future__ import annotations
@@ -81,7 +81,13 @@ def _build_parser():
             sp.add_argument("--model", default="se_dfcnn", choices=AM_NAMES,
                             help="acoustic model architecture; eval must "
                                  "match what `am` trained (the port builds "
-                                 "se_dfcnn, se_dfcnn_pre and se_dfcnn_fast)")
+                                 "all but bigru)")
+            sp.add_argument("--logits-matmul", default="f32",
+                            choices=["f32", "bf16"],
+                            help="final vocab-projection matmul: f32 "
+                                 "(reference numerics) or bf16 operands "
+                                 "with f32 accumulation (same parameter "
+                                 "tree, checkpoints interchangeable)")
         if name == "am":
             sp.add_argument("--augment-noise", action="store_true")
         if name in ("am", "e2e"):
@@ -94,6 +100,12 @@ def _build_parser():
             sp.add_argument("--beam-width", type=int, default=8)
             sp.add_argument("--limit", type=int, default=None)
         if name == "eval":
+            sp.add_argument("--am-hdf5", default=None,
+                            help="load the acoustic model from a Keras "
+                                 ".hdf5 weight file instead of the "
+                                 "workdir's checkpoint (cnn_ctc layout, "
+                                 "e.g. the reference's model_05.7.64.hdf5; "
+                                 "needs h5py)")
             sp.add_argument("--am-tf-ckpt", default=None,
                             help="load the SE-DFCNN acoustic model from a "
                                  "TF1 tensor_bundle checkpoint prefix "
@@ -111,16 +123,22 @@ def _build_parser():
     sp.add_argument("--model", default="se_dfcnn", choices=AM_NAMES)
 
     sp = sub.add_parser(
-        "export", help="export a trained model to the reference's TF1 "
-                       "checkpoint format")
+        "export", help="export the trained AM back to the reference's "
+                       "checkpoint formats")
     sp.add_argument("--workdir", required=True)
     sp.add_argument("--out", required=True,
-                    help="output path (tf1: checkpoint prefix)")
+                    help="output path (tf1: checkpoint prefix; "
+                         "hdf5: .hdf5 file)")
     sp.add_argument("--format", default="tf1", choices=["tf1", "hdf5"],
                     help="tf1 = tensor_bundle (Saver) files for SE-DFCNN "
                          "(--what am) or the Transformer LM (--what lm); "
-                         "hdf5 is not ported yet (ROADMAP Queue A 4)")
-    sp.add_argument("--what", default="am", choices=["am", "lm", "bigru"])
+                         "hdf5 = Keras cnn_ctc weights (keras_dfcnn only; "
+                         "needs h5py)")
+    sp.add_argument("--what", default="am", choices=["am", "lm", "bigru"],
+                    help="which trained model to export: the acoustic "
+                         "model (am, default) or the language model (lm, "
+                         "tf1 only); bigru is not ported yet (ROADMAP "
+                         "Queue A 11)")
     sp.add_argument("--use-latest", action="store_true",
                     help="export the latest checkpoint instead of the "
                          "metric-gated best")
@@ -208,18 +226,29 @@ def _init_generator(args) -> torch.Generator:
 
 
 def _am_model(args, name: str, vocab_size: int):
-    from asr_dfcnn_transformer_torch.models import SEDFCNN, SEDFCNNConfig
+    """The JAX CLI's models: ``--small`` ones (f32; the plain DFCNN at full
+    width), else the factory's from the resolved config; both with
+    ``--logits-matmul``."""
+    from asr_dfcnn_transformer_torch import models
     from asr_dfcnn_transformer_torch.train import factory
+    lg = getattr(args, "logits_matmul", "f32")
     if args.small:
-        factory.am_architecture(name)        # unported names raise
-        cfg = SEDFCNNConfig(vocab_size, stage_features=(4, 4, 8, 8, 8),
-                            head_features=8,
-                            se_first=name == "se_dfcnn_pre",
-                            dtype=torch.float32)
-        return SEDFCNN(cfg, feature_dim=200, device=args.device,
-                       generator=_init_generator(args))
+        kw = dict(logits_matmul=lg, dtype=torch.float32)
+        if name == "dfcnn":
+            model, cfg = models.DFCNN, models.DFCNNConfig(vocab_size, **kw)
+        elif name == "keras_dfcnn":
+            model, cfg = models.KerasDFCNN, models.KerasDFCNNConfig(
+                vocab_size, dense_units=16, **kw)
+        else:
+            factory.am_architecture(name)        # bigru raises
+            model, cfg = models.SEDFCNN, models.SEDFCNNConfig(
+                vocab_size, stage_features=(4, 4, 8, 8, 8), head_features=8,
+                se_first=name == "se_dfcnn_pre", **kw)
+        return model(cfg, feature_dim=200, device=args.device,
+                     generator=_init_generator(args))
     cfg = args.cfg.replace(am=dataclasses.replace(args.cfg.am, model=name))
-    return factory.build_am_model(cfg, args.device, _init_generator(args))
+    return factory.build_am_model(cfg, args.device, _init_generator(args),
+                                  logits_matmul=lg)
 
 
 def _lm_model(args, av_size: int, lv_size: int):
@@ -369,7 +398,7 @@ def _require_ckpt(trainer, what: str, workdir: str) -> None:
     mistyped --workdir would otherwise give plausible near-zero
     accuracy)."""
     if trainer.ckpt.latest_step() is None:
-        hint = " or pass --am-tf-ckpt" if what == "AM" else ""
+        hint = " or pass --am-hdf5" if what == "AM" else ""
         raise SystemExit(
             f"error: no {what} checkpoint found under {workdir!r} — "
             f"eval/infer refuses to run on randomly initialized weights. "
@@ -382,7 +411,9 @@ def _load_pipeline(args, decode="greedy", beam_width=8, need_am=True):
     from asr_dfcnn_transformer_torch.infer import Pipeline
     from asr_dfcnn_transformer_torch.infer.tf_ckpt import (load_tf1_lm,
                                                            load_tf1_sedfcnn)
-    from asr_dfcnn_transformer_torch.models import SEDFCNN, SEDFCNNConfig
+    from asr_dfcnn_transformer_torch.models import (KerasDFCNN,
+                                                    KerasDFCNNConfig, SEDFCNN,
+                                                    SEDFCNNConfig)
     from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer
     bsz = args.batch_size or 16
     loader, av, lv = _data(args, bsz, _bounds(args))
@@ -396,7 +427,17 @@ def _load_pipeline(args, decode="greedy", beam_width=8, need_am=True):
         lmt = _trainer_flags(LMTrainer(lm, args.workdir), args)
         _require_ckpt(lmt, "LM", args.workdir)
         lmt.restore_or_init()
-    if getattr(args, "am_tf_ckpt", None):
+    if getattr(args, "am_hdf5", None):
+        from asr_dfcnn_transformer_torch.infer.hdf5_import import (
+            load_keras_dfcnn_hdf5)
+        if getattr(args, "model", "se_dfcnn") == "bigru":
+            raise SystemExit("error: the BiGRU's .hdf5 (cnn_rnn_ctc) is not "
+                             "ported yet (ROADMAP Queue A 11)")
+        am = KerasDFCNN(KerasDFCNNConfig(av.size), device=args.device,
+                        generator=_init_generator(args))
+        am.load_state_dict(am_state_dict(load_keras_dfcnn_hdf5(args.am_hdf5,
+                                                               av.size)))
+    elif getattr(args, "am_tf_ckpt", None):
         am = SEDFCNN(SEDFCNNConfig(av.size), device=args.device,
                      generator=_init_generator(args))
         am.load_state_dict(am_state_dict(load_tf1_sedfcnn(args.am_tf_ckpt,
@@ -435,17 +476,20 @@ def cmd_infer(args):
 
 
 def cmd_export(args):
-    """Hand a trained model back to the reference stack as a TF1
+    """Hand a trained model back to the reference stack: a TF1
     tensor_bundle (the AM Saver's names, train.py:38, or the LM's,
-    train.py:148)."""
+    train.py:148) or Keras .hdf5 weights (cnn_ctc.py:85)."""
     from asr_dfcnn_transformer_torch.convert import state_dict_to_flax
     from asr_dfcnn_transformer_torch.infer import Pipeline
     from asr_dfcnn_transformer_torch.infer.tf_ckpt import (export_tf1_lm,
                                                            export_tf1_sedfcnn,
                                                            write_tf_checkpoint)
-    if args.format != "tf1" or args.what == "bigru":
-        raise SystemExit("error: the Keras hdf5 export is not ported yet "
-                         "(ROADMAP Queue A 4); use --format tf1 --what am|lm")
+    if args.what == "bigru":
+        raise SystemExit("error: the BiGRU's export (Keras cnn_rnn_ctc) is "
+                         "not ported yet (ROADMAP Queue A 11)")
+    if args.what == "lm" and args.format != "tf1":
+        raise SystemExit("error: the LM has no Keras layout; use --format "
+                         "tf1")
     state = Pipeline._restore(args.workdir, args.what,
                               use_best=not args.use_latest)
     if state is None:
@@ -456,14 +500,23 @@ def cmd_export(args):
         if args.what == "lm":
             nb = sum(k.startswith("block0_") and k.endswith("_attn")
                      for k in variables["params"])
-            tensors = export_tf1_lm(variables, num_blocks=nb)
+            write_tf_checkpoint(args.out,
+                                export_tf1_lm(variables, num_blocks=nb))
+        elif args.format == "tf1":
+            write_tf_checkpoint(args.out, export_tf1_sedfcnn(variables))
         else:
-            tensors = export_tf1_sedfcnn(variables)
+            from asr_dfcnn_transformer_torch.infer.hdf5_import import (
+                save_keras_dfcnn_hdf5)
+            p = variables["params"]
+            save_keras_dfcnn_hdf5(
+                args.out, variables,
+                vocab_size=p["Dense_1"]["kernel"].shape[1],
+                dense_units=p["Dense_0"]["kernel"].shape[1])
     except KeyError as e:
         raise SystemExit(
-            f"error: checkpoint layout does not match the {args.what}/tf1 "
-            f"export mapping (se_dfcnn family or lm); missing {e}")
-    write_tf_checkpoint(args.out, tensors)
+            f"error: checkpoint layout does not match the {args.what}/"
+            f"{args.format} export mapping (tf1 = se_dfcnn family or lm, "
+            f"hdf5 = keras_dfcnn); missing {e}")
     print(f"exported {args.what} {args.format} -> {args.out}")
 
 

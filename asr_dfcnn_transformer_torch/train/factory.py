@@ -20,24 +20,17 @@ from asr_dfcnn_transformer_torch.core import config as cmod
 from asr_dfcnn_transformer_torch.core import vocab as vocab_mod
 from asr_dfcnn_transformer_torch.core.config import Config
 
-# AM names the JAX factory builds and the port does not yet, with the
-# ROADMAP item that ports each
-_UNPORTED_AM = {"dfcnn": "Queue A 4 (DFCNN)",
-                "keras_dfcnn": "Queue A 4 (KerasDFCNN)",
-                "bigru": "Queue A 11 (BiGRUCTC)"}
-
-
 def _dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
 def am_architecture(name: str) -> dict:
-    """The ``SEDFCNN`` fields that an AM name (``AmConfig.model``, the
-    CLI's ``--model``) selects; names the port does not build raise,
-    naming their ROADMAP item."""
-    if name in _UNPORTED_AM:
-        raise ValueError(f"am model {name!r} is not ported yet: ROADMAP "
-                         f"{_UNPORTED_AM[name]}")
+    """The ``SEDFCNN`` fields that an SE-DFCNN name (``AmConfig.model``,
+    the CLI's ``--model``) selects; ``bigru`` raises, naming its ROADMAP
+    item, and so does any name the JAX factory does not build."""
+    if name == "bigru":
+        raise ValueError("am model 'bigru' is not ported yet: ROADMAP "
+                         "Queue A 11 (BiGRUCTC)")
     if name == "se_dfcnn_fast":       # SEDFCNN.fast: space-to-depth
         return dict(stage_pool=(True, True, False, False, False),
                     space_to_depth=True)
@@ -47,14 +40,27 @@ def am_architecture(name: str) -> dict:
 
 
 def build_am_model(cfg: Config, device=None,
-                   generator: Optional[torch.Generator] = None):
-    from asr_dfcnn_transformer_torch.models import SEDFCNN, SEDFCNNConfig
-    kw = dict(se_ratio=tuple(cfg.am.se_ratio),
-              dropout_rate=cfg.am.dropout_rate, dtype=_dtype(cfg.am.dtype),
-              **am_architecture(cfg.am.model))
-    return SEDFCNN(SEDFCNNConfig(vocab_mod.acoustic_vocab().size, **kw),
-                   feature_dim=cfg.am.feature_dim, device=device,
-                   generator=generator)
+                   generator: Optional[torch.Generator] = None,
+                   logits_matmul: str = "f32"):
+    """The AM that ``cfg.am.model`` names, as the JAX factory builds it;
+    ``logits_matmul`` selects the logits head's product (the JAX CLI's
+    ``--logits-matmul``; the JAX factory leaves it at "f32")."""
+    from asr_dfcnn_transformer_torch import models
+    av = vocab_mod.acoustic_vocab()
+    am = cfg.am
+    kw = dict(dropout_rate=am.dropout_rate, logits_matmul=logits_matmul,
+              dtype=_dtype(am.dtype))
+    if am.model == "dfcnn":
+        model, config = models.DFCNN, models.DFCNNConfig(av.size, **kw)
+    elif am.model == "keras_dfcnn":
+        model, config = models.KerasDFCNN, models.KerasDFCNNConfig(
+            av.size, dense_units=am.dense_units, **kw)
+    else:
+        model, config = models.SEDFCNN, models.SEDFCNNConfig(
+            av.size, se_ratio=tuple(am.se_ratio),
+            **am_architecture(am.model), **kw)
+    return model(config, feature_dim=am.feature_dim, device=device,
+                 generator=generator)
 
 
 def build_lm_model(cfg: Config, device=None,

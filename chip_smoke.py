@@ -169,6 +169,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     must have run. Then ``--small`` f32 models trained by the CLI on the
     CPU, served through ``Pipeline.from_checkpoints`` on the CPU and on the
     card over the test batches, agree by phase 4's rule.
+14. The reference's AM family at full width (vocab 1536): ``DFCNN`` and
+    ``KerasDFCNN`` from one seeded Flax-layout tree each, through the
+    bridge onto the card and the CPU. In f32 with the 12-block LM, a batch
+    of 8 at bucket 1600 held card against CPU by phase 4's rule, then the
+    bf16 stacks (f32 heads) against the f32 ones on the card (printed);
+    ``KerasDFCNN`` -> LM in bf16 served by ``Pipeline.recognize_batch`` at
+    batch 128, bucket 1600 (bench.py's am_lm_keras_b128 shape): ms a batch
+    and utterances per second over 12 runs after 2 warm-up (CUDA events,
+    mean and spread), ``log_mel`` and ``cmvn`` once and the masked forward
+    12 times a batch; ``logits_matmul="bf16"`` in f32 SE-DFCNN and LM
+    copies: each head against its twin on the same input (rtol 1e-5, atol
+    1e-4), with ``allow_bf16_reduced_precision_reduction`` off and on, and
+    the whole models card against CPU; three ``AMTrainer`` steps of the
+    bf16 ``DFCNN`` at batch 16, bucket 1600 (finite, falling losses; the
+    CTC kernels launched); the single-utterance front end on a 7.3 s
+    utterance card against CPU (``compute_fbank_from_signal`` one
+    ``log_mel`` and one ``cmvn``).
+15. The accuracy gates (``asr_dfcnn_transformer_torch/gates.py``) trained
+    and scored on the card: cer (with the beam gate on its weights), fast
+    and e2e, with the JAX gates' thresholds; each gate's accuracies, wall
+    and launch counts (the CTC, masked and dual-axis attention kernels
+    forward and backward, ``topk_last`` and ``beam_search``). A miss
+    fails the run.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -2833,11 +2856,422 @@ def cli_card_vs_cpu(workdir: str):
           "1e-3 gave equal pipeline ids on both devices")
 
 
+# ------------------------------------------------- phase 14: the AM family
+
+FAMILY_BATCH, FAMILY_BUCKET = 8, 1600      # card vs CPU, greedy
+SERVE_BATCH, SERVE_RUNS, SERVE_WARMUP = 128, 12, 2   # bench am_lm_keras_b128
+DFCNN_STEPS = 3
+HEAD_RTOL, HEAD_ATOL = 1e-5, 1e-4          # the bf16 head, same inputs
+FRONT_RTOL, FRONT_ATOL = 1e-4, 1e-3        # log_mel's rule (phase 2)
+FAMILY = ("dfcnn", "keras_dfcnn")
+
+
+def family_trees():
+    """One seeded Flax-layout tree of each of ``KerasDFCNN`` and ``DFCNN``
+    (a CPU f32 model from ``torch.Generator``, through
+    ``convert.state_dict_to_flax``), and the LM's state_dict."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch import models
+    from asr_dfcnn_transformer_torch.convert import state_dict_to_flax
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    gen = torch.Generator().manual_seed(SEED + 14)
+    trees = {}
+    for name in FAMILY:
+        model, cfg = family_class(name)
+        trees[name] = state_dict_to_flax(model(
+            cfg(av.size, dtype=torch.float32), device="cpu",
+            generator=gen).state_dict(), "am")
+    lm = models.TransformerLM(models.TransformerLMConfig(
+        av.size, lv.size, dtype=torch.float32), device="cpu", generator=gen)
+    return trees, lm.state_dict(), av, lv
+
+
+def family_class(name):
+    from asr_dfcnn_transformer_torch import models
+    return {"dfcnn": (models.DFCNN, models.DFCNNConfig),
+            "keras_dfcnn": (models.KerasDFCNN,
+                            models.KerasDFCNNConfig)}[name]
+
+
+def bridged_am(name, tree, dtype, device, **kw):
+    """The family model ``name`` in ``dtype`` (f32 head) on ``device``,
+    its weights from the Flax-layout ``tree`` through the bridge."""
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.convert import am_state_dict
+    model, cfg = family_class(name)
+    am = model(cfg(vocab.acoustic_vocab().size, dtype=dtype, **kw),
+               device=device)
+    am.load_state_dict(am_state_dict(tree), strict=True)
+    return am.eval()
+
+
+def lm_like(state, dtype, device, **kw):
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.models import (TransformerLM,
+                                                    TransformerLMConfig)
+    lm = TransformerLM(TransformerLMConfig(
+        vocab.acoustic_vocab().size, vocab.language_vocab().size,
+        dtype=dtype, **kw), device=device)
+    lm.load_state_dict({k: v.to(torch.float32) for k, v in state.items()},
+                       strict=True)
+    return lm.eval()
+
+
+def ragged_batch(rng, batch, bucket):
+    """Host signals [batch, S(bucket)] of tone utterances, ragged lengths
+    (the first fills the bucket), and their lengths."""
+    from asr_dfcnn_transformer_torch.audio.fbank import samples_for_frames
+    s = samples_for_frames(bucket)
+    lens = rng.integers(s // 3, s + 1, size=batch).astype(np.int32)
+    lens[0] = s
+    sig = np.zeros((batch, s), np.float32)
+    for i, n in enumerate(lens):
+        sig[i, :n] = tone_utterance(rng, int(n))
+    return sig, lens
+
+
+def phase_am_family(results):
+    """Phase 14: the reference's AM family at full width (vocab 1536)."""
+    t0 = time.perf_counter()
+    trees, lm_state, av, lv = family_trees()
+    rng = np.random.default_rng(SEED + 14)
+    sig, lens = ragged_batch(rng, FAMILY_BATCH, FAMILY_BUCKET)
+    for name in FAMILY:
+        n_par = sum(int(np.prod(a.shape)) for c in trees[name].values()
+                    for a in _leaves(c))
+        print(f"{name}: bf16 stack, f32 head, vocab {av.size}, "
+              f"{n_par / 1e6:.2f} M weights from one seeded Flax-layout "
+              "tree")
+        family_card_vs_cpu(name, trees[name], lm_state, sig, lens)
+    serve_keras_b128(results, trees["keras_dfcnn"], lm_state, av, lv)
+    bf16_heads(sig, lens)
+    dfcnn_training(trees["dfcnn"], av)
+    single_utterance_front_end()
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def family_card_vs_cpu(name, tree, lm_state, sig, lens):
+    """14.2: the f32 copies of the model and the LM on the card (kernels)
+    and the CPU (twins), a batch of 8 at bucket 1600, greedy: phase 4's
+    rule. Then the bf16 model on the card against its f32 copy there
+    (printed: bf16 rounds at other places than f32 does)."""
+    import torch
+    cpu = (bridged_am(name, tree, torch.float32, "cpu"),
+           lm_like(lm_state, torch.float32, "cpu"))
+    card = (bridged_am(name, tree, torch.float32, DEVICE),
+            lm_like(lm_state, torch.float32, DEVICE))
+    check_am_lm_agreement(f"{name} card vs CPU, f32, batch {len(lens)}, "
+                          f"bucket {FAMILY_BUCKET}", cpu, card, sig, lens,
+                          FAMILY_BUCKET)
+    bf16 = (bridged_am(name, tree, torch.bfloat16, DEVICE),
+            lm_like(lm_state, torch.bfloat16, DEVICE))
+    with torch.inference_mode():
+        f32_logits, in_len, *_ = run_am_lm(*card, DEVICE, sig, lens,
+                                           FAMILY_BUCKET)
+        b_logits, *_ = run_am_lm(*bf16, DEVICE, sig, lens, FAMILY_BUCKET)
+    frames = torch.arange(f32_logits.shape[1])[None, :] < in_len[:, None]
+    agree = (f32_logits.argmax(-1) == b_logits.argmax(-1))[frames]
+    print(f"  {name} bf16 vs f32 on the card: logits max abs diff "
+          f"{float((b_logits - f32_logits).abs().max()):.3g} (f32 max "
+          f"{float(f32_logits.abs().max()):.3g}); frame argmax agrees on "
+          f"{int(agree.sum())} of {agree.numel()} valid frames")
+    require(bool(torch.isfinite(b_logits).all()),
+            f"{name}: bf16 logits not finite")
+    del cpu, card, bf16
+
+
+def serve_keras_b128(results, tree, lm_state, av, lv):
+    """14.3: ``KerasDFCNN`` (bf16, f32 head) -> greedy CTC -> the 12-block
+    LM (bf16) behind ``Pipeline.recognize_batch``, batch 128 at bucket
+    1600 (bench.py's am_lm_keras_b128 shape): host signals in, ids out.
+    CUDA events around each call after warm-up; ``log_mel`` and ``cmvn``
+    once and the masked attention forward 12 times a batch."""
+    import torch
+    from asr_dfcnn_transformer_torch.infer import Pipeline
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    am = bridged_am("keras_dfcnn", tree, torch.bfloat16, DEVICE)
+    lm = lm_like(lm_state, torch.bfloat16, DEVICE)
+    pipe = Pipeline(am, lm, acoustic_vocab=av, language_vocab=lv)
+    sig, lens = ragged_batch(np.random.default_rng(SEED + 141), SERVE_BATCH,
+                             FAMILY_BUCKET)
+    for _ in range(SERVE_WARMUP):
+        out = pipe.recognize_batch(sig, lens, FAMILY_BUCKET)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for _ in range(SERVE_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = pipe.recognize_batch(sig, lens, FAMILY_BUCKET)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    counts = dict(LAUNCHES)
+    ms = np.array(times)
+    print(f"keras_dfcnn -> LM served, batch {SERVE_BATCH} at bucket "
+          f"{FAMILY_BUCKET}, greedy, bf16: {ms.mean():.2f} ms a batch "
+          f"(std {ms.std():.2f}, min {ms.min():.2f}, max {ms.max():.2f}, "
+          f"{SERVE_RUNS} runs after {SERVE_WARMUP} warm-up; CUDA events "
+          f"around Pipeline.recognize_batch, host arrays in and out), "
+          f"{SERVE_BATCH / ms.mean() * 1e3:.1f} utterances/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  launch counts over the {SERVE_RUNS} timed batches: {counts}")
+    want = {"log_mel": SERVE_RUNS, "cmvn": SERVE_RUNS,
+            "masked_attention": 12 * SERVE_RUNS}
+    for k, n in want.items():
+        require(counts.get(k, 0) == n, f"{k} launched {counts.get(k, 0)} "
+                f"times in {SERVE_RUNS} batches, not {n}")
+        results[k].setdefault("launches", n)
+    pny_len = out[1]
+    require(out[0].shape[0] == SERVE_BATCH and (pny_len > 0).all(),
+            "the batch-128 serve decoded an empty utterance")
+
+
+def bf16_heads(sig, lens):
+    """14.4: ``logits_matmul="bf16"`` (the ``Bf16Matmul`` head: cuBLAS with
+    bf16 operands and an f32 output on the card, its twin on the CPU) in
+    f32 SE-DFCNN and LM copies of phase 3's seeded models, the LM reading
+    the CPU AM's greedy pinyin. Each head, card against twin on the same
+    input (the CPU's), within rtol 1e-5, atol 1e-4 (only the order of the
+    f32 sums differs), with allow_bf16_reduced_precision_reduction off and
+    on. Whole models: the f32 stacks give the heads inputs within rtol /
+    atol 1e-4 of the CPU's, and each card head's output equals the twin on
+    the card's own input within the head's tolerance; the logits' gap is
+    printed (an input element that the two stacks sum differently can
+    round to the neighbouring bf16 value: one bf16 ulp of it times its
+    weights)."""
+    import torch
+    from asr_dfcnn_transformer_torch.audio.fbank import batched_fbank
+    from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
+                                                    TransformerLM,
+                                                    TransformerLMConfig,
+                                                    frames_from_samples,
+                                                    logit_lengths)
+    from asr_dfcnn_transformer_torch.models.layers import Bf16Matmul
+    from asr_dfcnn_transformer_torch.ops import ctc_greedy_decode
+    am32, lm32, av, lv = build_models(torch.float32, "cpu")
+    cpu = (SEDFCNN(SEDFCNNConfig(av.size, logits_matmul="bf16",
+                                 dtype=torch.float32), device="cpu"),
+           TransformerLM(TransformerLMConfig(av.size, lv.size,
+                                             logits_matmul="bf16",
+                                             dtype=torch.float32),
+                         device="cpu"))
+    cpu[0].load_state_dict(am32.state_dict())
+    cpu[1].load_state_dict(lm32.state_dict())
+    cpu = tuple(m.eval() for m in cpu)
+    card = tuple(copy.deepcopy(m).to(DEVICE).eval() for m in cpu)
+    seen = {}
+
+    def keep_input(key):
+        def hook(module, args, output):
+            seen[key] = args[0]              # returns None: output kept
+        return hook
+
+    hooks = [m.register_forward_hook(keep_input((where, label)))
+             for where, models in (("cpu", cpu), ("card", card))
+             for label, m in (("SE-DFCNN", models[0].Dense_0),
+                              ("LM", models[1].output))]
+    with torch.inference_mode():
+        n = torch.from_numpy(lens)
+        feats, _ = batched_fbank(torch.from_numpy(sig), n,
+                                 out_frames=FAMILY_BUCKET)
+        logits = {"SE-DFCNN": (cpu[0](feats[:, None]),
+                               card[0](feats.to(DEVICE)[:, None]).cpu())}
+        pny, _ = ctc_greedy_decode(
+            logits["SE-DFCNN"][0],
+            logit_lengths(frames_from_samples(n), FAMILY_BUCKET // 8),
+            max_output_len=LM_MAX_LEN)
+        logits["LM"] = (cpu[1](pny.long()),
+                        card[1](pny.long().to(DEVICE)).cpu())
+    for h in hooks:
+        h.remove()
+    heads = {"SE-DFCNN": cpu[0].Dense_0, "LM": cpu[1].output}
+    for label, head in heads.items():
+        hx, w = seen[("cpu", label)], head.weight
+        flags = {}
+        with torch.inference_mode():
+            want = Bf16Matmul.apply(hx, w)
+            for flag in (False, True):
+                torch.backends.cuda.matmul.\
+                    allow_bf16_reduced_precision_reduction = flag
+                flags[flag] = Bf16Matmul.apply(hx.to(DEVICE),
+                                               w.to(DEVICE)).cpu()
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+        ok, err = close_enough(flags[False], want, HEAD_RTOL, HEAD_ATOL)
+        ok2, err2 = close_enough(flags[True], want, HEAD_RTOL, HEAD_ATOL)
+        same = torch.equal(flags[False], flags[True])
+        print(f"bf16 head, {label} [{hx.reshape(-1, hx.shape[-1]).shape[0]}"
+              f", {hx.shape[-1]}] x [{w.shape[1]}, {w.shape[0]}]: card "
+              f"(torch.mm, out_dtype f32) vs CPU twin max abs err "
+              f"{err:.3g}, with allow_bf16_reduced_precision_reduction on "
+              f"{err2:.3g}, the two {'bit-equal' if same else 'DIFFER'} "
+              f"(rtol {HEAD_RTOL}, atol {HEAD_ATOL}) "
+              f"{'ok' if ok and ok2 else 'FAIL'}")
+        require(ok and ok2, f"bf16 head {label}: card and twin disagree")
+
+        x_card = seen[("card", label)].cpu()
+        ok_x, err_x = close_enough(x_card, hx, 1e-4, 1e-4)
+        with torch.inference_mode():
+            twin_on_card_x = head(x_card)
+        want_m, got_m = logits[label]
+        ok_h, err_h = close_enough(got_m, twin_on_card_x, HEAD_RTOL,
+                                   HEAD_ATOL)
+        flips = int((x_card.bfloat16() != hx.bfloat16()).sum())
+        print(f"{label}, logits_matmul=bf16, f32 stack, card vs CPU: head "
+              f"inputs max abs err {err_x:.3g} (rtol / atol 1e-4), "
+              f"{flips} of {hx.numel()} round to another bf16 value; the "
+              f"card's logits against the twin head on the card's input "
+              f"{err_h:.3g}; logits card vs CPU max abs diff "
+              f"{float((got_m - want_m).abs().max()):.3g} "
+              f"{'ok' if ok_x and ok_h else 'FAIL'}")
+        require(ok_x and ok_h, f"{label} with the bf16 head: card and CPU "
+                "disagree")
+
+
+def dfcnn_training(tree, av):
+    """14.5: three ``AMTrainer`` steps of the bf16 ``DFCNN`` (f32 head),
+    batch 16 at bucket 1600: finite losses, the last below the first,
+    finite gradients; the CTC kernels launched."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    from asr_dfcnn_transformer_torch.train import AMTrainer
+    am = bridged_am("dfcnn", tree, torch.bfloat16, DEVICE)
+    batch = am_batch(np.random.default_rng(SEED + 145), AM_BATCH, AM_BUCKET,
+                     AM_LABELS, av.size)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dfcnn_")
+    try:
+        tr = AMTrainer(am, workdir)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        reset_launches()
+        losses = []
+        for step in range(DFCNN_STEPS):
+            losses.append(float(tr.train_step(batch, gen)["loss"]))
+            if step == 0:
+                require_finite_grads("dfcnn after step 1", am)
+        counts = dict(LAUNCHES)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"dfcnn: {DFCNN_STEPS} AMTrainer steps, batch {AM_BATCH} at "
+          f"bucket {AM_BUCKET}, bf16: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; launch counts {counts}")
+    require(all(np.isfinite(losses)), "dfcnn: a loss is not finite")
+    require(losses[-1] < losses[0], "dfcnn: the loss did not fall")
+    for k in ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi"):
+        require(counts.get(k, 0) > 0, f"dfcnn training never launched {k}")
+
+
+def single_utterance_front_end():
+    """14.6: the single-utterance functions on a 7.3 s tone utterance, the
+    card against the CPU: ``compute_fbank_from_signal`` and ``logfbank``
+    (``log_mel`` + ``cmvn`` at B = 1, each launched exactly once a call)
+    within log_mel's rule (rtol 1e-4, atol 1e-3), ``cmvn`` within 1e-5,
+    the two spectrograms (cuFFT against the CPU's FFT) within 1e-4."""
+    import torch
+    from asr_dfcnn_transformer_torch.audio import fbank as fb
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    x = tone_utterance(np.random.default_rng(SEED + 146),
+                       int(7.3 * SAMPLE_RATE))
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).to(DEVICE)
+    reset_launches()
+    got = fb.compute_fbank_from_signal(xg)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    want = fb.compute_fbank_from_signal(xc)
+    ok, err = close_enough(got.cpu(), want, FRONT_RTOL, FRONT_ATOL)
+    print(f"compute_fbank_from_signal [{x.size}] -> {tuple(got.shape)} "
+          f"(num_frames {fb.num_frames(x.size)}): card vs CPU max abs err "
+          f"{err:.3g} (rtol {FRONT_RTOL}, atol {FRONT_ATOL}); launch counts "
+          f"{counts} {'ok' if ok else 'FAIL'}")
+    require(ok and got.shape == (fb.num_frames(x.size), 200),
+            "compute_fbank_from_signal: card and CPU disagree")
+    require(counts.get("log_mel") == 1 and counts.get("cmvn") == 1,
+            "compute_fbank_from_signal: not one log_mel and one cmvn")
+    lf_g, lf_c = fb.logfbank(xg), fb.logfbank(xc)
+    checks = [("logfbank", lf_g, lf_c, FRONT_RTOL, FRONT_ATOL),
+              ("cmvn", fb.cmvn(lf_c.to(DEVICE), 300), fb.cmvn(lf_c, 300),
+               0.0, 1e-5),
+              ("log_spectrogram", fb.log_spectrogram(xg),
+               fb.log_spectrogram(xc), 1e-4, 1e-4),
+              ("log_spectrogram_asrt", fb.log_spectrogram_asrt(xg),
+               fb.log_spectrogram_asrt(xc), 1e-4, 1e-4)]
+    for label, g, c, rtol, atol in checks:
+        ok, err = close_enough(g.cpu(), c, rtol, atol)
+        print(f"  {label} {tuple(g.shape)}: card vs CPU max abs err "
+              f"{err:.3g} (rtol {rtol}, atol {atol}) "
+              f"{'ok' if ok else 'FAIL'}")
+        require(ok and g.shape == c.shape, f"{label}: card and CPU disagree")
+
+
+# ------------------------------------------------- phase 15: the gates
+
+GATE_KERNELS = {   # what each gate's run must launch
+    "cer": ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi",
+            "masked_attention", "masked_attention_bwd", "topk_last",
+            "beam_search"),
+    "fast": ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi",
+             "masked_attention", "masked_attention_bwd"),
+    "e2e": ("log_mel", "cmvn", "masked_attention", "masked_attention_bwd",
+            "dual_axis_attention", "dual_axis_attention_bwd"),
+}
+
+
+def phase_gates(results):
+    """Phase 15: the synthetic-corpus accuracy gates (``gates.py``: the
+    JAX package's cer, fast and e2e gates, and the beam gate inside the
+    cer run) trained and scored on the card, the launch counters reset
+    before and read after each. A miss fails the run."""
+    import torch
+    from asr_dfcnn_transformer_torch import gates
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    t0 = time.perf_counter()
+    for gate, names in GATE_KERNELS.items():
+        torch.cuda.synchronize()
+        reset_launches()
+        out, bad = gates.run(gate, DEVICE)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        print(f"gate {gate}: " + json.dumps(out))
+        print(f"gate {gate}: launch counts {counts}")
+        require(not bad, f"gate {gate} missed: {'; '.join(bad)}")
+        for name in names:
+            require(counts.get(name, 0) > 0,
+                    f"gate {gate} never launched {name}")
+            results[name].setdefault("launches", counts[name])
+        if gate == "e2e":
+            print(f"gate e2e: teacher-forced {out['teacher_forced']:.4f} "
+                  f"(> {gates.E2E_MIN_TEACHER_FORCED}), cached greedy hanzi "
+                  f"{out['hanzi']:.4f} (> {gates.E2E_MIN_ACCURACY}) over "
+                  f"{out['utterances']} utterances, {out['wall_s']:.1f} s")
+        else:
+            line = (f"gate {gate}: pinyin {out['pinyin']:.4f}, hanzi "
+                    f"{out['hanzi']:.4f} (> {gates.AM_LM_MIN_ACCURACY})")
+            if "beam_pinyin" in out:
+                line += (f"; beam gate: pinyin {out['beam_pinyin']:.4f}, "
+                         f"hanzi {out['beam_hanzi']:.4f} (>= greedy - "
+                         f"{gates.BEAM_SLACK})")
+            print(f"{line}; {out['wall_s']:.1f} s")
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # bf16 products sum wholly in f32 on cuBLAS, as in the kernels and the
@@ -2859,6 +3293,9 @@ def main() -> int:
     phase_fused_ffn(results)
     phase_noise(results, clean_am)
     phase_cli(results)
+    phase_am_family(results)
+    phase_gates(results)
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

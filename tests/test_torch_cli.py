@@ -74,14 +74,18 @@ def test_cli_eval(workdir, capsys, decode):
 
 
 def test_cli_eval_wrong_model_fails_loudly(workdir):
-    """eval --model must match what `am` trained (the identity stamp), and
-    names the port does not build fail naming their ROADMAP item."""
+    """eval --model must match what `am` trained (the identity stamp: the
+    other SE-DFCNN ordering, and the plain and Keras DFCNNs, another
+    class), and bigru, which the port does not build, fails naming its
+    ROADMAP item."""
     with pytest.raises(ModelIdentityError, match="se_first"):
         cli.main(["eval", "--workdir", workdir, "--model", "se_dfcnn_pre"]
                  + SMALL)
-    for name in ("dfcnn", "bigru", "keras_dfcnn"):
-        with pytest.raises(ValueError, match="ROADMAP"):
+    for name in ("dfcnn", "keras_dfcnn"):
+        with pytest.raises(ModelIdentityError, match="class"):
             cli.main(["eval", "--workdir", workdir, "--model", name] + SMALL)
+    with pytest.raises(ValueError, match="ROADMAP Queue A 11"):
+        cli.main(["eval", "--workdir", workdir, "--model", "bigru"] + SMALL)
 
 
 def test_cli_infer(workdir, capsys):
@@ -115,7 +119,8 @@ def test_cli_eval_e2e(workdir, capsys, decode):
 
 
 def test_cli_export_tf1(workdir):
-    """export --format tf1 writes the checkpoint's exact parameters."""
+    """export --format tf1 writes the checkpoint's exact parameters, and
+    --format hdf5 a keras_dfcnn checkpoint's."""
     for what in ("am", "lm"):
         prefix = os.path.join(workdir, "export", f"{what}.ckpt")
         cli.main(["export", "--workdir", workdir, "--what", what,
@@ -129,9 +134,38 @@ def test_cli_export_tf1(workdir):
         for k in fw:
             np.testing.assert_array_equal(np.asarray(fg[k], np.float32),
                                           fw[k], err_msg=str(k))
-    with pytest.raises(SystemExit, match="Queue A 4"):
+    # --format hdf5: a keras_dfcnn checkpoint as a file the JAX reader
+    # loads, with the checkpoint's parameters bit for bit; the se_dfcnn
+    # checkpoint has no Keras layout; the BiGRU waits for Queue A 11
+    from asr_dfcnn_transformer_tpu.infer.hdf5_import import (
+        load_keras_dfcnn_hdf5)
+    from asr_dfcnn_transformer_torch.models import (KerasDFCNN,
+                                                    KerasDFCNNConfig)
+    from asr_dfcnn_transformer_torch.train import CheckpointManager
+    keras_wd = os.path.join(workdir, "keras")
+    am = KerasDFCNN(KerasDFCNNConfig(1536, dense_units=16,
+                                     dtype=torch.float32), device="cpu",
+                    generator=torch.Generator().manual_seed(4))
+    CheckpointManager(os.path.join(keras_wd, "ckpt_am")).save(
+        0, {"model": am.state_dict(), "step": 0})
+    out = os.path.join(workdir, "export", "am.hdf5")
+    cli.main(["export", "--workdir", keras_wd, "--format", "hdf5",
+              "--use-latest", "--out", out])
+    fw = _flat(state_dict_to_flax(am.state_dict(), "am"))
+    fg = _flat(load_keras_dfcnn_hdf5(out, 1536, dense_units=16))
+    assert set(fw) == set(fg)
+    for k in fw:
+        np.testing.assert_array_equal(fg[k], fw[k], err_msg=str(k))
+    with pytest.raises(SystemExit, match="does not match"):
         cli.main(["export", "--workdir", workdir, "--format", "hdf5",
                   "--out", os.path.join(workdir, "x.hdf5")])
+    with pytest.raises(SystemExit, match="no Keras layout"):
+        cli.main(["export", "--workdir", workdir, "--format", "hdf5",
+                  "--what", "lm", "--out", os.path.join(workdir, "x.hdf5")])
+    with pytest.raises(SystemExit, match="Queue A 11"):
+        cli.main(["export", "--workdir", workdir, "--format", "hdf5",
+                  "--what", "bigru", "--out",
+                  os.path.join(workdir, "x.hdf5")])
 
 
 def test_cli_eval_with_tf1_checkpoints(workdir, capsys):
