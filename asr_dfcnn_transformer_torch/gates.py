@@ -7,7 +7,7 @@ the beam gate (the cer gate's trained weights decoded with the prefix beam
 search). They are the one check that catches an accuracy fault end to end:
 a CTC gradient that is wrong but finite, a decode or an LM that loses
 tokens. The initial weights come from ``torch.Generator`` s, so they differ
-from the JAX package's.
+from the JAX package's, but follow the same initializers.
 
 ``tests/test_torch_gates.py`` runs them on the CPU (marked slow);
 ``chip_smoke.py`` phase 15 on the card, where they drive the training
@@ -17,10 +17,11 @@ backwards) to a trained model.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,6 +31,24 @@ E2E_MIN_TEACHER_FORCED = 0.95    # the last training step's accuracy
 E2E_MIN_ACCURACY = 0.85          # cached greedy hanzi on the test split
 E2E_MIN_UTTERANCES = 100
 BEAM_SLACK = 0.01                # beam >= greedy - this, pinyin and hanzi
+
+
+@contextlib.contextmanager
+def _reproducible(on: bool = True):
+    """PyTorch's deterministic algorithms (``on``) for the length of a gate,
+    the settings restored after it. On the card cuDNN's default convolution
+    backward and ``scatter_add_`` (the CTC backward) add in an order that
+    changes from run to run, and the e2e gate's accuracies varied with it
+    between runs of the same code; the JAX gates run on XLA, whose results
+    repeat. An operation with no deterministic version warns (``warn_only``)
+    rather than stopping the gate."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
 
 
 def _sync(device: torch.device) -> None:
@@ -117,6 +136,7 @@ def evaluate(am, lm, test_dl, av, lv, decode: str = "greedy"):
     return res, time.perf_counter() - t0
 
 
+@_reproducible()
 def am_lm_gate(root: str, device, fast: bool = False,
                beam: bool = False) -> Dict[str, float]:
     """The cer gate (``fast``: the fast gate): train, then the greedy
@@ -152,11 +172,23 @@ def am_lm_misses(out: Dict[str, float]) -> list:
     return bad
 
 
-def e2e_gate(root: str, device) -> Dict[str, float]:
+def e2e_gate(root: str, device, init_seed: int = 0,
+             deterministic: bool = True,
+             initial_state: Optional[dict] = None) -> Dict[str, float]:
     """The e2e gate: an f32 ``SpeechTransformer`` (d 64, 4 heads, 2 + 2
     blocks, pre-net 16, dropout 0) over 40-filter fbank (LFR 4 / 3) for 900
     steps at lr 2e-3, batch 8 over 144 utterances; then the KV-cached
-    greedy decode of the test split, scored by clipped edit distance."""
+    greedy decode of the test split, scored by clipped edit distance.
+
+    The gate's own run takes the defaults. ``init_seed`` seeds the initial
+    weights, ``initial_state`` replaces them (a state dict), and
+    ``deterministic`` False keeps PyTorch's default algorithms: the knobs
+    ``gate_spread`` turns to see how far the outcome moves."""
+    with _reproducible(deterministic):
+        return _e2e_gate(root, device, init_seed, initial_state)
+
+
+def _e2e_gate(root, device, init_seed, initial_state) -> Dict[str, float]:
     from asr_dfcnn_transformer_torch.models import (SpeechTransformer,
                                                     SpeechTransformerConfig,
                                                     greedy_decode_cached)
@@ -169,16 +201,21 @@ def e2e_gate(root: str, device) -> Dict[str, float]:
         lv.size, d_model=64, num_heads=4, num_enc_blocks=2, num_dec_blocks=2,
         prenet_channels=16, dropout_rate=0.0, dtype=torch.float32),
         feature_dim=4 * 40, device=device,
-        generator=torch.Generator().manual_seed(0))
+        generator=torch.Generator().manual_seed(init_seed))
+    if initial_state is not None:
+        model.load_state_dict(initial_state, strict=True)
     tr = E2ETrainer(model, os.path.join(root, "work"), lr=2e-3,
                     feature_dim=40)
     tr.restore_or_init()
     gen = torch.Generator(device=device).manual_seed(1)
     batches = list(train_dl.am_batches(8, shuffle=False))
     t0 = time.perf_counter()
+    accs = []
     for step in range(900):
         m = tr.train_step(batches[step % len(batches)], gen)
+        accs.append(m["acc"])
     final_acc = float(m["acc"])
+    last_epoch = torch.stack(accs[-len(batches):])
     t_train = time.perf_counter() - t0
 
     model.eval()
@@ -200,7 +237,9 @@ def e2e_gate(root: str, device) -> Dict[str, float]:
             tot += len(gt)
     return {"teacher_forced": final_acc, "hanzi": 1.0 - err / max(tot, 1),
             "utterances": n_utts, "last_loss": float(m["loss"]),
-            "train_s": t_train, "eval_s": time.perf_counter() - t0,
+            "last_epoch_acc": float(last_epoch.mean()),
+            "last_epoch_min": float(last_epoch.min()), "train_s": t_train,
+            "eval_s": time.perf_counter() - t0,
             "wall_s": time.perf_counter() - t_all}
 
 

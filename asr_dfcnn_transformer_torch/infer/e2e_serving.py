@@ -1,5 +1,7 @@
 """End-to-end speech Transformer recognition: the port of
-``infer/export_serving.py``'s ``export_e2e`` program and ``E2EServing``.
+``infer/export_serving.py``'s ``export_e2e`` program and ``E2EServing``,
+served live from the model (``export_serving`` writes the same program to
+an artifact).
 
 The JAX package serves the e2e model from a ``jax.export`` artifact; here
 ``E2EServing`` is built from a port ``SpeechTransformer`` and the e2e vocab
@@ -26,28 +28,57 @@ from asr_dfcnn_transformer_torch.audio.fbank import (FbankConfig,
 from asr_dfcnn_transformer_torch.audio.lfr import batched_lfr
 from asr_dfcnn_transformer_torch.core.vocab import Vocab
 from asr_dfcnn_transformer_torch.models.speech_transformer import (
-    SpeechTransformer, beam_decode_cached, greedy_decode_cached)
+    SpeechTransformer, _finalize_beam, _finalize_greedy, beam_start,
+    beam_step, greedy_start, greedy_step)
 
 DECODES = ("greedy", "beam")
+
+
+def e2e_start(model: SpeechTransformer, signals: torch.Tensor,
+              lengths: torch.Tensor, bucket_frames: int, *,
+              fbank_cfg: FbankConfig, lfr_m: int, lfr_n: int, decode: str,
+              beam_width: int, max_len: int):
+    """fbank -> LFR -> encoder -> the cached decode's (state, consts)
+    before step 0 (``models.speech_transformer`` ``greedy_start`` /
+    ``beam_start``)."""
+    feats, valid = batched_fbank(signals, lengths, cfg=fbank_cfg,
+                                 out_frames=bucket_frames)
+    lfr, lfr_valid = batched_lfr(feats, valid, lfr_m, lfr_n)
+    memory, mem_valid = model.encode(lfr[..., None], lfr_valid)
+    if decode == "beam":
+        return beam_start(model, memory, mem_valid, beam_width, max_len)
+    return greedy_start(model, memory, mem_valid, max_len)
+
+
+def e2e_step(model: SpeechTransformer, state, consts, i, *, decode: str):
+    """Decode step ``i`` (an int, or a 0-d int64 tensor) -> the state."""
+    step = beam_step if decode == "beam" else greedy_step
+    return step(model, state, consts, i)[0]
+
+
+def e2e_finish(state, *, decode: str, lp_alpha: float):
+    """The final state -> (ids [B, max_len] int32, lengths [B] int32)."""
+    if decode == "beam":
+        ids, lens, _ = _finalize_beam(state[0], state[1], lp_alpha)
+        return ids, lens
+    return _finalize_greedy(state[0])
 
 
 def e2e_program(model: SpeechTransformer, signals: torch.Tensor,
                 lengths: torch.Tensor, bucket_frames: int, *,
                 fbank_cfg: FbankConfig, lfr_m: int, lfr_n: int, decode: str,
                 beam_width: int, lp_alpha: float, max_len: int):
-    """One padded batch (``export_e2e``'s ``fn_for_bucket``): signals
-    [B, S] f32 and lengths [B] on the model's device -> (ids [B, max_len]
-    int32, lengths [B] int32)."""
-    feats, valid = batched_fbank(signals, lengths, cfg=fbank_cfg,
-                                 out_frames=bucket_frames)
-    lfr, lfr_valid = batched_lfr(feats, valid, lfr_m, lfr_n)
-    if decode == "beam":
-        ids, lens, _ = beam_decode_cached(model, lfr[..., None], lfr_valid,
-                                          beam_size=beam_width,
-                                          lp_alpha=lp_alpha, max_len=max_len)
-        return ids, lens
-    return greedy_decode_cached(model, lfr[..., None], lfr_valid,
-                                max_len=max_len)
+    """One padded batch: signals [B, S] f32 and lengths [B] on the model's
+    device -> (ids [B, max_len] int32, lengths [B] int32). Every one of
+    the ``max_len`` steps runs (no break on the data); a serving artifact
+    runs the same start, steps and finish as three programs."""
+    state, consts = e2e_start(model, signals, lengths, bucket_frames,
+                              fbank_cfg=fbank_cfg, lfr_m=lfr_m, lfr_n=lfr_n,
+                              decode=decode, beam_width=beam_width,
+                              max_len=max_len)
+    for i in range(max_len):
+        state = e2e_step(model, state, consts, i, decode=decode)
+    return e2e_finish(state, decode=decode, lp_alpha=lp_alpha)
 
 
 class E2EServing:

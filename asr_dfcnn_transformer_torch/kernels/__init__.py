@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels (sources in ``csrc/``) and their twins.
 
 ``LAUNCHES`` counts each kernel's launches since ``reset_launches()``.
+``OPS`` names the ``torch.library`` custom ops that hold the forwards
+serving runs (an exported program calls them; importing this package
+registers them).
 """
 
 from asr_dfcnn_transformer_torch.kernels._build import (  # noqa: F401
@@ -49,3 +52,7 @@ from asr_dfcnn_transformer_torch.kernels.topk import (  # noqa: F401
     topk_last,
     topk_last_reference,
 )
+
+#: the custom ops (``torch.ops.asr_port.<name>``), one a kernel forward
+OPS = ("log_mel", "cmvn", "masked_attention", "topk_last", "beam_search",
+       "dual_axis_attention", "fused_ffn")

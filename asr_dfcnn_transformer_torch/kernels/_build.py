@@ -10,6 +10,13 @@ ignores, so an edited source rebuilds and an unchanged one is reused.
 Also holds the launch counters: every kernel wrapper adds one to its name's
 count where it launches its kernel, so a run can show that its main path
 went through the kernels.
+
+The forwards that serving runs are ``torch.library`` custom ops in the
+``asr_port`` namespace (``kernels.OPS``, each made by ``define_op``): each
+has the kernel's twin as its CPU implementation, the launch as its CUDA one
+and a fake that gives its outputs' shapes and types, so ``torch.export``
+traces through them and ``torch.export.load`` finds them once
+``asr_dfcnn_transformer_torch.kernels`` is imported.
 """
 
 from __future__ import annotations
@@ -68,6 +75,28 @@ _SIGNATURES = {
     "asr_beam_search": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _P), _I),
 }
+
+#: the custom ops' namespace
+NAMESPACE = "asr_port"
+#: the library that holds the custom ops
+_OPS_LIB = torch.library.Library(NAMESPACE, "DEF")
+
+
+def define_op(name: str, cpu, cuda, fake) -> torch._ops.OpOverload:
+    """Define the custom op ``asr_port::<name>`` -> its ``OpOverload``.
+    Its schema comes from the annotations of ``cpu``, the kernel's twin,
+    which runs for CPU tensors; ``cuda`` launches the kernel for CUDA
+    tensors, and ``fake`` gives the outputs' shapes and types to tracing.
+    Defined through ``torch.library.Library``, not
+    ``torch.library.custom_op``: the latter runs each implementation under
+    ``torch._disable_dynamo``, which imports ``torch._dynamo`` at an op's
+    first call (a serving process pays it on its first request) and puts
+    Python layers around every launch."""
+    _OPS_LIB.define(name + torch.library.infer_schema(cpu, mutates_args=()))
+    _OPS_LIB.impl(name, cpu, "CPU")
+    _OPS_LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_OPS_LIB)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 #: the kernels' dtype_code argument
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -189,6 +218,16 @@ def no_grad_inputs(name: str, *tensors: torch.Tensor) -> None:
     if any(t.requires_grad for t in tensors):
         raise ValueError(f"{name} has no backward: its inputs must not "
                          "require grad")
+
+
+def check_device(name: str, *tensors) -> None:
+    """Refuse tensors on a device other than the CPU or CUDA: a kernel's
+    op has an implementation for those two only (``None`` entries are
+    skipped)."""
+    for t in tensors:
+        if t is not None and t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: expected CUDA or CPU tensors, got "
+                             f"{t.device.type}")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

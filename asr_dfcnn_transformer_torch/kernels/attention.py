@@ -3,11 +3,13 @@
 Replaces ``ops/pallas/attn_kernel.py: masked_flash_attention``: the forward
 with and without dropout (``_mflash_fwd_kernel``) and the recompute
 backward (``_mflash_bwd_kernel``); the CUDA source is ``csrc/attention.cu``.
-``masked_attention`` is the ``MaskedAttention`` autograd Function: its
-forward and its backward each run the plain-PyTorch twin
+``masked_attention`` is the ``MaskedAttention`` autograd Function where a
+backward is to be recorded, else its forward alone. The forward is the
+custom op ``asr_port::masked_attention`` (so ``torch.export`` traces it);
+the forward and the backward each run the plain-PyTorch twin
 (``masked_attention_reference`` / ``masked_attention_bwd_reference``) for
 CPU tensors, launch the kernel for CUDA tensors, and raise for anything
-else, so the CPU tests run the same Function the card runs.
+else, so the CPU tests run the same code the card runs.
 
 Dropout is a keep mask [B, H, Tq, Tk] drawn by the caller, as in the JAX
 package: the backward re-applies the same mask, so the VJP is exact.
@@ -226,10 +228,17 @@ def _checked_bwd_smem(dtype: torch.dtype, dh: int) -> None:
                 bwd_smem_bytes(dh, dtype), f"Dh={dh}")
 
 
-def _forward(q, k, v, k_valid, causal, keep_mask, keep_prob):
-    if _on_cpu(q, k, v, k_valid, keep_mask):
-        return masked_attention_reference(q, k, v, k_valid, causal,
-                                          keep_mask, keep_prob)
+def _masked_attention_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          k_valid: torch.Tensor,
+                          keep_mask: Optional[torch.Tensor], keep_prob: float,
+                          causal: bool) -> torch.Tensor:
+    """The forward's op: the twin for CPU tensors."""
+    return masked_attention_reference(q, k, v, k_valid, causal, keep_mask,
+                                      keep_prob)
+
+
+def _masked_attention_cuda(q, k, v, k_valid, keep_mask, keep_prob, causal):
+    """The forward's op: the kernel for CUDA tensors."""
     tensors = [t for t in (q, k, v, k_valid, keep_mask) if t is not None]
     dev = _build.require_cuda("masked_attention", *tensors)
     out = torch.empty_like(q)
@@ -251,6 +260,21 @@ def _forward(q, k, v, k_valid, causal, keep_mask, keep_prob):
             int(causal), _build.stream_ptr(dev))
     _build.check(name, rc)
     return out
+
+
+def _masked_attention_fake(q, k, v, k_valid, keep_mask, keep_prob, causal):
+    return torch.empty_like(q)
+
+
+_masked_attention_op = _build.define_op(
+    "masked_attention", _masked_attention_cpu, _masked_attention_cuda,
+    _masked_attention_fake)
+
+
+def _forward(q, k, v, k_valid, causal, keep_mask, keep_prob):
+    _build.check_device("masked_attention", q, k, v, k_valid, keep_mask)
+    return _masked_attention_op(q, k, v, k_valid, keep_mask,
+                                float(keep_prob), bool(causal))
 
 
 def _backward(q, k, v, k_valid, dout, causal, keep_mask, keep_prob):
@@ -349,5 +373,9 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             # no dropout, as masked_flash_attention: the forward and the
             # VJP both ignore the mask
             keep_mask = None
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        # no backward to record: the op alone, which torch.export traces
+        return _forward(q, k, v, k_valid, causal, keep_mask, keep_prob)
     return MaskedAttention.apply(q, k, v, k_valid, keep_mask,
                                  float(keep_prob), bool(causal))

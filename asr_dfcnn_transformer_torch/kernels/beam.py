@@ -7,9 +7,9 @@ the same candidates in the same order, the same double rolling hash, the
 same masked logsumexp, first-occurrence rule, top-W order, prefix rebuild
 and freeze past each length. ``beam_step`` is that scan step in torch; the
 twin (``beam_search_reference``) runs it frame by frame, and the streaming
-decode (``ops/ctc_decode.py``) runs it chunk by chunk. The wrapper runs the
-twin for CPU tensors, launches the kernel for CUDA tensors, and raises for
-anything else.
+decode (``ops/ctc_decode.py``) runs it chunk by chunk. The wrapper calls the
+custom op ``asr_port::beam_search``, which runs the twin for CPU tensors and
+launches the kernel for CUDA tensors; the wrapper raises for anything else.
 
 Hashes are uint32 in the JAX package; here they are int64 holding the
 uint32 value, multiplied in 16-bit halves so that no product overflows.
@@ -243,29 +243,25 @@ def beam_search_reference(lp: torch.Tensor, top_lp: torch.Tensor,
     return prefixes, plen, pb, pnb
 
 
-def beam_search(lp: torch.Tensor, top_lp: torch.Tensor,
-                top_ids: torch.Tensor, lens: torch.Tensor, *,
-                beam_width: int, topk: int, blank: int, max_decode_len: int):
-    """The whole CTC prefix beam search.
+def _beam_search_cpu(lp: torch.Tensor, top_lp: torch.Tensor,
+                     top_ids: torch.Tensor, lens: torch.Tensor,
+                     beam_width: int, topk: int, blank: int,
+                     max_decode_len: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """The op under ``beam_search``: the twin for CPU tensors."""
+    return beam_search_reference(lp, top_lp, top_ids, lens,
+                                 beam_width=beam_width, topk=topk,
+                                 blank=blank, max_decode_len=max_decode_len)
 
-    lp [B, T, V] f32 log-probs; top_lp / top_ids [B, T, K] f32 / int32 their
-    per-frame top-k (K = topk); lens [B] int32 valid frames. Returns
-    (prefixes [B, W, L] int32, plen [B, W] int32, pb [B, W] f32, pnb [B, W]
-    f32), W = beam_width, L = max_decode_len.
-    """
-    _check(lp, top_lp, top_ids, lens, beam_width, topk, blank, max_decode_len)
-    tensors = (lp, top_lp, top_ids, lens)
-    kw = dict(beam_width=beam_width, topk=topk, blank=blank,
-              max_decode_len=max_decode_len)
-    if all(x.device.type == "cpu" for x in tensors):
-        return beam_search_reference(lp, top_lp, top_ids, lens, **kw)
-    dev = _build.require_cuda("beam_search", *tensors)
+
+def _beam_search_cuda(lp, top_lp, top_ids, lens, beam_width, topk, blank,
+                      max_decode_len):
+    """The op under ``beam_search``: the kernel for CUDA tensors."""
+    dev = _build.require_cuda("beam_search", lp, top_lp, top_ids, lens)
     b, t, v = lp.shape
     w, k, lcap = beam_width, topk, max_decode_len
-    prefixes = torch.empty((b, w, lcap), dtype=torch.int32, device=dev)
-    plen = torch.empty((b, w), dtype=torch.int32, device=dev)
-    pb = torch.empty((b, w), dtype=torch.float32, device=dev)
-    pnb = torch.empty((b, w), dtype=torch.float32, device=dev)
+    prefixes, plen, pb, pnb = _beam_outputs(lp, w, lcap)
     if b == 0:
         return prefixes, plen, pb, pnb
     # the back-pointers of each frame, read by the kernel's trace-back
@@ -278,3 +274,37 @@ def beam_search(lp: torch.Tensor, top_lp: torch.Tensor,
             blank, lcap, _build.stream_ptr(dev))
     _build.check("beam_search", rc, f"W {w}, K {k}, L {lcap}")
     return prefixes, plen, pb, pnb
+
+
+def _beam_outputs(lp, w, lcap):
+    """Empty (prefixes [B, W, L] int32, plen [B, W] int32, pb, pnb [B, W]
+    f32) beside ``lp``."""
+    b = lp.shape[0]
+    return (lp.new_empty((b, w, lcap), dtype=torch.int32),
+            lp.new_empty((b, w), dtype=torch.int32),
+            lp.new_empty((b, w)), lp.new_empty((b, w)))
+
+
+def _beam_search_fake(lp, top_lp, top_ids, lens, beam_width, topk, blank,
+                      max_decode_len):
+    return _beam_outputs(lp, beam_width, max_decode_len)
+
+
+_beam_search_op = _build.define_op(
+    "beam_search", _beam_search_cpu, _beam_search_cuda, _beam_search_fake)
+
+
+def beam_search(lp: torch.Tensor, top_lp: torch.Tensor,
+                top_ids: torch.Tensor, lens: torch.Tensor, *,
+                beam_width: int, topk: int, blank: int, max_decode_len: int):
+    """The whole CTC prefix beam search.
+
+    lp [B, T, V] f32 log-probs; top_lp / top_ids [B, T, K] f32 / int32 their
+    per-frame top-k (K = topk); lens [B] int32 valid frames. Returns
+    (prefixes [B, W, L] int32, plen [B, W] int32, pb [B, W] f32, pnb [B, W]
+    f32), W = beam_width, L = max_decode_len.
+    """
+    _check(lp, top_lp, top_ids, lens, beam_width, topk, blank, max_decode_len)
+    _build.check_device("beam_search", lp, top_lp, top_ids, lens)
+    return _beam_search_op(lp, top_lp, top_ids, lens, beam_width, topk,
+                           blank, max_decode_len)

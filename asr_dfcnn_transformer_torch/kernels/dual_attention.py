@@ -3,8 +3,10 @@
 Replaces ``ops/pallas/attn_kernel.py: dual_axis_attention``: its forward
 (``_fwd_kernel``) and its recompute VJP (``_attn_packed_bwd``,
 ``_bwd_kernel``); the CUDA source is ``csrc/dual_attention.cu``.
-``dual_axis_attention`` is the ``DualAxisAttention`` autograd Function: its
-forward and its backward each run the plain-PyTorch twin
+``dual_axis_attention`` is the ``DualAxisAttention`` autograd Function where
+a backward is to be recorded, else its forward alone, the custom op
+``asr_port::dual_axis_attention``. The forward and the backward each run
+the plain-PyTorch twin
 (``dual_axis_attention_reference`` / ``dual_axis_attention_bwd_reference``)
 for CPU tensors, launch the kernel for CUDA tensors, and raise for anything
 else, so the CPU tests run the same Function the card runs.
@@ -110,9 +112,14 @@ def dual_axis_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return tuple(x.to(q.dtype) for x in (dq, dk, dv))
 
 
-def _forward(q, k, v):
-    if all(x.device.type == "cpu" for x in (q, k, v)):
-        return dual_axis_attention_reference(q, k, v)
+def _dual_axis_attention_cpu(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """The forward's op: the twin for CPU tensors."""
+    return dual_axis_attention_reference(q, k, v)
+
+
+def _dual_axis_attention_cuda(q, k, v):
+    """The forward's op: the kernel for CUDA tensors."""
     dev = _build.require_cuda("dual_axis_attention", q, k, v)
     out = torch.empty_like(q)
     r, t, c = q.shape
@@ -126,6 +133,20 @@ def _forward(q, k, v):
             _build.stream_ptr(dev))
     _build.check("dual_axis_attention", rc, f"R={r}, T={t}, C={c}")
     return out
+
+
+def _dual_axis_attention_fake(q, k, v):
+    return torch.empty_like(q)
+
+
+_dual_axis_attention_op = _build.define_op(
+    "dual_axis_attention", _dual_axis_attention_cpu, _dual_axis_attention_cuda,
+    _dual_axis_attention_fake)
+
+
+def _forward(q, k, v):
+    _build.check_device("dual_axis_attention", q, k, v)
+    return _dual_axis_attention_op(q, k, v)
 
 
 def _backward(q, k, v, dout):
@@ -186,4 +207,7 @@ def dual_axis_attention(q: torch.Tensor, k: torch.Tensor,
             f"dual_axis_attention: the backward at T={t}, C={c}, {q.dtype} "
             f"needs {bwd_smem_bytes(t, c, q.dtype)} bytes of shared memory, "
             f"above {MAX_SMEM}")
+    if not grad:
+        # no backward to record: the op alone, which torch.export traces
+        return _forward(q, k, v)
     return DualAxisAttention.apply(q, k, v)

@@ -7,8 +7,10 @@ projection, with tables built here on the host (``fft_twiddles_np``,
 ``mel_spans_np``); its twin keeps the f64 matrix-product DFT. The ``cmvn``
 kernel runs one thread-block cluster per utterance; ``cmvn_plan`` mirrors
 its tiling and ``cmvn_blocked_np`` its order of sums.
-Each wrapper runs its plain-PyTorch twin (``*_reference``) for CPU tensors,
-launches the kernel for CUDA tensors, and raises for anything else. Neither
+Each wrapper calls its custom op (``asr_port::log_mel``,
+``asr_port::cmvn``), which runs the plain-PyTorch twin (``*_reference``)
+for CPU tensors and launches the kernel for CUDA tensors; the wrapper
+raises for anything else. Neither
 has a backward: both raise when an input requires grad, rather than return
 an output cut off from the graph.
 """
@@ -16,6 +18,7 @@ an output cut off from the graph.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -108,23 +111,25 @@ def log_mel_reference(signals: torch.Tensor, lengths: torch.Tensor,
     return torch.log(torch.clamp_min(power @ mel, EPS))
 
 
-def log_mel(signals: torch.Tensor, lengths: torch.Tensor, n_frames: int,
-            cfg: FbankConfig = FbankConfig()) -> torch.Tensor:
-    """[B, S] f32 raw signals + [B] int32 sample lengths -> [B, n_frames,
-    nfilt] f32 log-mel. Pre-emphasis and the signal-end mask are applied
-    inside; frames past the signal read zeros. The kernel's FFT runs in
-    f64 (see csrc/fbank.cu), the rest in f32."""
-    _check_geometry(cfg)
-    if signals.dim() != 2 or signals.dtype != torch.float32:
-        raise ValueError("log_mel: signals must be [B, S] float32, got "
-                         f"{tuple(signals.shape)} {signals.dtype}")
-    if lengths.shape != (signals.shape[0],) or lengths.dtype != torch.int32:
-        raise ValueError("log_mel: lengths must be [B] int32")
-    if n_frames < 1:
-        raise ValueError(f"log_mel: n_frames must be >= 1, got {n_frames}")
-    _build.no_grad_inputs("log_mel", signals)
-    if signals.device.type == "cpu" and lengths.device.type == "cpu":
-        return log_mel_reference(signals, lengths, n_frames, cfg)
+def _op_cfg(nfilt: int, preemph: float, sample_rate: int, low_freq: float,
+            high_freq: Optional[float]) -> FbankConfig:
+    return FbankConfig(sample_rate=sample_rate, nfilt=nfilt, preemph=preemph,
+                       low_freq=low_freq, high_freq=high_freq)
+
+
+def _log_mel_cpu(signals: torch.Tensor, lengths: torch.Tensor, n_frames: int,
+                 nfilt: int, preemph: float, sample_rate: int,
+                 low_freq: float, high_freq: Optional[float]) -> torch.Tensor:
+    """The op under ``log_mel``: the twin for CPU tensors."""
+    return log_mel_reference(signals, lengths, n_frames,
+                             _op_cfg(nfilt, preemph, sample_rate, low_freq,
+                                     high_freq))
+
+
+def _log_mel_cuda(signals, lengths, n_frames, nfilt, preemph, sample_rate,
+                  low_freq, high_freq):
+    """The op under ``log_mel``: the kernel for CUDA tensors."""
+    cfg = _op_cfg(nfilt, preemph, sample_rate, low_freq, high_freq)
     dev = _build.require_cuda("log_mel", signals, lengths)
     b, s = signals.shape
     twiddles, spans, weights = _fft_tables(cfg, dev)
@@ -141,6 +146,38 @@ def log_mel(signals: torch.Tensor, lengths: torch.Tensor, n_frames: int,
             _build.stream_ptr(dev))
     _build.check("log_mel", rc)
     return out
+
+
+def _log_mel_fake(signals, lengths, n_frames, nfilt, preemph, sample_rate,
+                  low_freq, high_freq):
+    return signals.new_empty((signals.shape[0], n_frames, nfilt))
+
+
+_log_mel_op = _build.define_op("log_mel", _log_mel_cpu, _log_mel_cuda,
+                               _log_mel_fake)
+
+
+def log_mel(signals: torch.Tensor, lengths: torch.Tensor, n_frames: int,
+            cfg: FbankConfig = FbankConfig()) -> torch.Tensor:
+    """[B, S] f32 raw signals + [B] int32 sample lengths -> [B, n_frames,
+    nfilt] f32 log-mel. Pre-emphasis and the signal-end mask are applied
+    inside; frames past the signal read zeros. The kernel's FFT runs in
+    f64 (see csrc/fbank.cu), the rest in f32."""
+    _check_geometry(cfg)
+    if signals.dim() != 2 or signals.dtype != torch.float32:
+        raise ValueError("log_mel: signals must be [B, S] float32, got "
+                         f"{tuple(signals.shape)} {signals.dtype}")
+    if lengths.shape != (signals.shape[0],) or lengths.dtype != torch.int32:
+        raise ValueError("log_mel: lengths must be [B] int32")
+    if n_frames < 1:
+        raise ValueError(f"log_mel: n_frames must be >= 1, got {n_frames}")
+    _build.no_grad_inputs("log_mel", signals)
+    _build.check_device("log_mel", signals, lengths)
+    return _log_mel_op(signals, lengths, n_frames, cfg.nfilt,
+                       float(cfg.preemph), cfg.sample_rate,
+                       float(cfg.low_freq),
+                       None if cfg.high_freq is None
+                       else float(cfg.high_freq))
 
 
 def cmvn_reference(feat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -231,18 +268,13 @@ def cmvn_blocked_np(feat: np.ndarray, valid: np.ndarray,
     return out
 
 
-def cmvn(feat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """[B, T, F] f32 features + [B] int32 valid frame counts -> normalised
-    [B, T, F]: per-utterance, per-bin masked mean/std (ddof 0, std 0 -> 1),
-    a second re-centering, rows at/past ``valid`` zeroed."""
-    if feat.dim() != 3 or feat.dtype != torch.float32:
-        raise ValueError("cmvn: feat must be [B, T, F] float32, got "
-                         f"{tuple(feat.shape)} {feat.dtype}")
-    if valid.shape != (feat.shape[0],) or valid.dtype != torch.int32:
-        raise ValueError("cmvn: valid must be [B] int32")
-    _build.no_grad_inputs("cmvn", feat)
-    if feat.device.type == "cpu" and valid.device.type == "cpu":
-        return cmvn_reference(feat, valid)
+def _cmvn_cpu(feat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The op under ``cmvn``: the twin for CPU tensors."""
+    return cmvn_reference(feat, valid)
+
+
+def _cmvn_cuda(feat, valid):
+    """The op under ``cmvn``: the kernel for CUDA tensors."""
     dev = _build.require_cuda("cmvn", feat, valid)
     b, t, f = feat.shape
     out = torch.empty_like(feat)
@@ -254,3 +286,24 @@ def cmvn(feat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                           b, t, f, _build.stream_ptr(dev))
     _build.check("cmvn", rc)
     return out
+
+
+def _cmvn_fake(feat, valid):
+    return torch.empty_like(feat)
+
+
+_cmvn_op = _build.define_op("cmvn", _cmvn_cpu, _cmvn_cuda, _cmvn_fake)
+
+
+def cmvn(feat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[B, T, F] f32 features + [B] int32 valid frame counts -> normalised
+    [B, T, F]: per-utterance, per-bin masked mean/std (ddof 0, std 0 -> 1),
+    a second re-centering, rows at/past ``valid`` zeroed."""
+    if feat.dim() != 3 or feat.dtype != torch.float32:
+        raise ValueError("cmvn: feat must be [B, T, F] float32, got "
+                         f"{tuple(feat.shape)} {feat.dtype}")
+    if valid.shape != (feat.shape[0],) or valid.dtype != torch.int32:
+        raise ValueError("cmvn: valid must be [B] int32")
+    _build.no_grad_inputs("cmvn", feat)
+    _build.check_device("cmvn", feat, valid)
+    return _cmvn_op(feat, valid)

@@ -4,9 +4,11 @@ Replaces ``ops/pallas/ffn_kernel.py: fused_ffn`` (``_fused_ffn`` and its
 body ``_ffn_kernel``); the CUDA source is ``csrc/ffn.cu``, which keeps the
 [N, F] inner activation out of device memory and, in bf16, splits F
 across the blocks of a cluster (``plan`` mirrors its tiling).
-``fused_ffn`` is the ``FusedFFN`` autograd Function: its forward runs the
-plain-PyTorch twin ``fused_ffn_reference`` for CPU tensors, launches the
-kernel for CUDA tensors and raises for anything else; its backward is
+``fused_ffn`` is the ``FusedFFN`` autograd Function where a backward is to
+be recorded, else its forward alone. The forward is the custom op
+``asr_port::fused_ffn``: it runs the plain-PyTorch twin
+``fused_ffn_reference`` for CPU tensors, launches the kernel for CUDA
+tensors and raises for anything else; the backward is
 ``fused_ffn_bwd_reference``, plain PyTorch on both devices, as the JAX VJP
 (``_fused_ffn_bwd``) is plain XLA.
 
@@ -137,9 +139,14 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _forward(x, w1, b1, w2, b2):
-    if all(t.device.type == "cpu" for t in (x, w1, b1, w2, b2)):
-        return fused_ffn_reference(x, w1, b1, w2, b2)
+def _fused_ffn_cpu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The forward's op: the twin for CPU tensors."""
+    return fused_ffn_reference(x, w1, b1, w2, b2)
+
+
+def _fused_ffn_cuda(x, w1, b1, w2, b2):
+    """The forward's op: the kernel for CUDA tensors."""
     x, w1, b1, w2, b2 = (t.contiguous() for t in (x, w1, b1, w2, b2))
     dev = _build.require_cuda("fused_ffn", x, w1, b1, w2, b2)
     n, d = x.shape
@@ -148,7 +155,7 @@ def _forward(x, w1, b1, w2, b2):
     dp, fp = x.shape[1], w1.shape[0]
     y = torch.empty_like(x)
     if n == 0:
-        return y[:, :d]
+        return y[:, :d].contiguous()
     lib = _build.library()
     code = _build.DTYPE_CODES[x.dtype]
     # the f32 running sum between passes, where F needs more than one, in
@@ -163,6 +170,19 @@ def _forward(x, w1, b1, w2, b2):
                                fp, _build.stream_ptr(dev))
     _build.check("fused_ffn", rc, f"N={n}, D={dp}, F={fp}")
     return y if dp == d else y[:, :d].contiguous()
+
+
+def _fused_ffn_fake(x, w1, b1, w2, b2):
+    return torch.empty_like(x)
+
+
+_fused_ffn_op = _build.define_op("fused_ffn", _fused_ffn_cpu, _fused_ffn_cuda,
+                                 _fused_ffn_fake)
+
+
+def _forward(x, w1, b1, w2, b2):
+    _build.check_device("fused_ffn", x, w1, b1, w2, b2)
+    return _fused_ffn_op(x, w1, b1, w2, b2)
 
 
 class FusedFFN(torch.autograd.Function):
@@ -199,5 +219,10 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"{tuple(w2.shape)}, b2 {tuple(b2.shape)} disagree")
     check_supported(d, f)
     w1c, b1c, w2c, b2c = (a.to(x.dtype) for a in (w1, b1, w2, b2))
-    y = FusedFFN.apply(x.reshape(-1, d), w1c, b1c, w2c, b2c)
+    args = (x.reshape(-1, d), w1c, b1c, w2c, b2c)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        y = FusedFFN.apply(*args)
+    else:
+        # no backward to record: the op alone, which torch.export traces
+        y = _forward(*args)
     return y.reshape(x.shape)

@@ -4,9 +4,10 @@ Replaces ``ops/pallas/topk_kernel.py: topk_last``; the CUDA source is
 ``csrc/topk.cu``. k rounds of (max, first index attaining it, mask that
 index to exactly -1e30): values descending, ties to the lower index, as
 ``lax.top_k`` orders them, and a row with fewer than k entries above -1e30
-degrades as the JAX kernel does. The wrapper runs the twin
-(``topk_last_reference``) for a CPU tensor, launches the kernel for a CUDA
-tensor, and raises for anything else.
+degrades as the JAX kernel does. The wrapper calls the custom op
+``asr_port::topk_last``, which runs the twin (``topk_last_reference``) for a
+CPU tensor and launches the kernel for a CUDA tensor; the wrapper raises for
+anything else.
 """
 
 from __future__ import annotations
@@ -48,14 +49,14 @@ def topk_last_reference(x: torch.Tensor, k: int
             torch.cat(ids, -1).to(torch.int32))
 
 
-def topk_last(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of ``x`` [..., V] (any float type) over the last axis -> (vals
-    [..., k] in x's type, ids [..., k] int32), in ``lax.top_k``'s order.
-    The kernel runs in f32: x is cast on the way in and the values back on
-    the way out, as the JAX kernel does. ``k > V`` raises."""
-    _check(x, k)
-    if x.device.type == "cpu":
-        return topk_last_reference(x, k)
+def _topk_last_cpu(x: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op under ``topk_last``: the twin for CPU tensors."""
+    return topk_last_reference(x, k)
+
+
+def _topk_last_cuda(x, k):
+    """The op under ``topk_last``: the kernel (in f32) for CUDA tensors."""
     if not x.is_floating_point():
         raise ValueError(f"topk_last: x must be a float tensor, got {x.dtype}")
     dtype = x.dtype
@@ -73,3 +74,22 @@ def topk_last(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
             _build.stream_ptr(dev))
     _build.check("topk_last", rc, f"V {v}, k {k}")
     return vals.to(dtype), ids
+
+
+def _topk_last_fake(x, k):
+    shape = (*x.shape[:-1], k)
+    return x.new_empty(shape), x.new_empty(shape, dtype=torch.int32)
+
+
+_topk_last_op = _build.define_op("topk_last", _topk_last_cpu, _topk_last_cuda,
+                                 _topk_last_fake)
+
+
+def topk_last(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of ``x`` [..., V] (any float type) over the last axis -> (vals
+    [..., k] in x's type, ids [..., k] int32), in ``lax.top_k``'s order.
+    The kernel runs in f32: x is cast on the way in and the values back on
+    the way out, as the JAX kernel does. ``k > V`` raises."""
+    _check(x, k)
+    _build.check_device("topk_last", x)
+    return _topk_last_op(x, k)

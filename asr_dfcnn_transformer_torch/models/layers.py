@@ -36,9 +36,27 @@ LN_EPS = 1e-6      # Flax LayerNorm's default, not torch's 1e-5
 BACKENDS = ("auto", "pallas", "einsum")  # the JAX modules' ``fused`` values
 
 
+# the standard deviation of a unit normal truncated to [-2, 2]
+# (jax.nn.initializers.variance_scaling's correction)
+_TRUNC_STD = 0.87962566103423978
+
+
 def _param(shape, std: float, generator: torch.Generator,
            device) -> nn.Parameter:
+    """``nn.initializers.normal(std)`` (the embeddings)."""
     w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
+    return nn.Parameter(w.to(device))
+
+
+def _lecun_normal(shape, fan_in: int, generator: torch.Generator,
+                  device) -> nn.Parameter:
+    """``nn.initializers.lecun_normal()`` (every Dense and Conv kernel): a
+    normal truncated at two of its standard deviations, scaled so that the
+    variance is 1 / ``fan_in``."""
+    s = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
+    w = torch.empty(shape, dtype=torch.float32)
+    nn.init.trunc_normal_(w, std=s, a=-2.0 * s, b=2.0 * s,
+                          generator=generator)
     return nn.Parameter(w.to(device))
 
 
@@ -101,8 +119,8 @@ class Dense(nn.Module):
             raise ValueError("bf16 operands return f32: dtype must be f32")
         self.dtype = dtype
         self.bf16_operands = bf16_operands
-        self.weight = _param((out_features, in_features),
-                             1.0 / math.sqrt(in_features), generator, device)
+        self.weight = _lecun_normal((out_features, in_features),
+                                    in_features, generator, device)
         self.bias = (nn.Parameter(_const((out_features,), 0.0, device))
                      if bias else None)
 
@@ -138,9 +156,8 @@ class Conv(nn.Module):
         super().__init__()
         self.dtype = dtype
         k = kernel_size
-        self.weight = _param((out_ch, in_ch, k, k),
-                             1.0 / math.sqrt(in_ch * k * k), generator,
-                             device)
+        self.weight = _lecun_normal((out_ch, in_ch, k, k), in_ch * k * k,
+                                    generator, device)
         self.bias = nn.Parameter(_const((out_ch,), 0.0, device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

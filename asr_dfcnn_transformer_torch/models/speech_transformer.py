@@ -34,7 +34,6 @@ cached step's too, runs the ``fused_ffn`` kernel.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -49,7 +48,7 @@ from asr_dfcnn_transformer_torch.models.layers import (BatchNorm, Dense,
                                                        LearnedPositionEmbed,
                                                        MultiHeadAttention,
                                                        ScaledEmbed, _const,
-                                                       _param,
+                                                       _lecun_normal,
                                                        label_smoothing)
 
 NEG_INF = -1e30     # the beam's dead-candidate score (speech_transformer.py)
@@ -104,8 +103,8 @@ class SameConv(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
-        self.weight = _param((features, in_ch, 3, 3),
-                             1.0 / math.sqrt(in_ch * 9), generator, device)
+        self.weight = _lecun_normal((features, in_ch, 3, 3), in_ch * 9,
+                                    generator, device)
         self.bias = nn.Parameter(_const((features,), 0.0, device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -347,15 +346,16 @@ class SpeechTransformer(nn.Module):
                 torch.stack([v for _, v in kv]),
                 self.dec_pos(self.config.position_max_length))
 
-    def decode_one(self, tok: torch.Tensor, pos: int, pos_row: torch.Tensor,
+    def decode_one(self, tok: torch.Tensor, pos, pos_row: torch.Tensor,
                    cross_k: torch.Tensor, cross_v: torch.Tensor,
                    self_k: torch.Tensor, self_v: torch.Tensor,
                    mem_len: torch.Tensor):
-        """One cached step at position ``pos``: tok [B] ids, pos_row [D],
-        cross_k / cross_v [n_dec, B, Tmem, D], self_k / self_v [n_dec, B,
-        Lmax, D] (row ``pos`` written in place; unused under
-        ``parity_decoder``), mem_len [B] -> ([B, vocab] f32 logits, self_k,
-        self_v)."""
+        """One cached step at position ``pos`` (an int, or a 0-d int64
+        tensor, so that one traced program serves every step): tok [B]
+        ids, pos_row [D], cross_k / cross_v [n_dec, B, Tmem, D], self_k /
+        self_v [n_dec, B, Lmax, D] (row ``pos`` written in place; unused
+        under ``parity_decoder``), mem_len [B] -> ([B, vocab] f32 logits,
+        self_k, self_v)."""
         c = self.config
         y = self.dec_embed(tok.to(torch.int64)[:, None]) \
             + pos_row.to(c.dtype)[None, None, :]
@@ -367,8 +367,8 @@ class SpeechTransformer(nn.Module):
             if not c.parity_decoder:
                 attn = self._block("dec_self", i)
                 kt, vt = attn.project_kv(y)
-                self_k[i, :, pos] = kt[:, 0]
-                self_v[i, :, pos] = vt[:, 0]
+                _put_(self_k[i], 1, pos, kt[:, 0])
+                _put_(self_v[i], 1, pos, vt[:, 0])
                 y = attn.attend_step(y, self_k[i], self_v[i], pos + 1)
             y = self._block("dec_cross", i).attend_step(y, cross_k[i],
                                                         cross_v[i], cross_len)
@@ -448,11 +448,36 @@ def _margin(values: torch.Tensor, k: int) -> torch.Tensor:
     return top[:, k - 1] - top[:, k]
 
 
-def _greedy_cached(model: SpeechTransformer, memory: torch.Tensor,
-                   mem_valid: torch.Tensor, max_len: int,
-                   margins: Optional[List[torch.Tensor]] = None):
-    """The cached greedy loop over an encoded batch; ``margins`` (a list)
-    collects each step's top-2 logit gap [B]."""
+def _take(x: torch.Tensor, dim: int, i) -> torch.Tensor:
+    """x's index ``i`` along ``dim``; ``i`` an int or a 0-d int64 tensor."""
+    if isinstance(i, torch.Tensor):
+        return torch.index_select(x, dim, i.reshape(1)).squeeze(dim)
+    return x.select(dim, i)
+
+
+def _put_(x: torch.Tensor, dim: int, i, value: torch.Tensor) -> None:
+    """x's index ``i`` along ``dim`` := value, in place (``i`` as in
+    :func:`_take`)."""
+    if isinstance(i, torch.Tensor):
+        x.index_copy_(dim, i.reshape(1), value.unsqueeze(dim).to(x.dtype))
+    else:
+        x.select(dim, i).copy_(value)
+
+
+def _pos_row(pos_table: torch.Tensor, i) -> torch.Tensor:
+    """The position table's row min(i, rows - 1)."""
+    last = pos_table.shape[0] - 1
+    at = torch.clamp(i, max=last) if isinstance(i, torch.Tensor) \
+        else min(i, last)
+    return _take(pos_table, 0, at)
+
+
+def greedy_start(model: SpeechTransformer, memory: torch.Tensor,
+                 mem_valid: torch.Tensor, max_len: int):
+    """The cached greedy loop before step 0 over an encoded batch ->
+    (state, consts): state (tokens [B, L+1] with the [SOS] column,
+    finished [B], self_k, self_v [n_dec, B, L, D]) changes every step;
+    consts (cross_k, cross_v, the position table, mem_len [B]) do not."""
     c = model.config
     b = memory.shape[0]
     cross_k, cross_v, pos_table = model.precompute_decode_state(memory)
@@ -462,25 +487,44 @@ def _greedy_cached(model: SpeechTransformer, memory: torch.Tensor,
     self_v = torch.zeros_like(self_k)
     tokens = _init_tokens((b, max_len + 1), memory.device)
     finished = torch.zeros(b, dtype=torch.bool, device=memory.device)
+    return ((tokens, finished, self_k, self_v),
+            (cross_k, cross_v, pos_table, mem_len))
+
+
+def greedy_step(model: SpeechTransformer, state, consts, i):
+    """Step ``i`` (an int, or a 0-d int64 tensor) of the cached greedy
+    loop -> (state, the step's [B, vocab] logits)."""
+    tokens, finished, self_k, self_v = state
+    cross_k, cross_v, pos_table, mem_len = consts
+    logits, self_k, self_v = model.decode_one(
+        _take(tokens, 1, i), i, _pos_row(pos_table, i), cross_k, cross_v,
+        self_k, self_v, mem_len)
+    nxt = torch.where(finished, constants.PAD, torch.argmax(logits, -1))
+    _put_(tokens, 1, i + 1, nxt)
+    finished = finished | (nxt == constants.EOS)
+    return (tokens, finished, self_k, self_v), logits
+
+
+def _greedy_cached(model: SpeechTransformer, memory: torch.Tensor,
+                   mem_valid: torch.Tensor, max_len: int,
+                   margins: Optional[List[torch.Tensor]] = None):
+    """The cached greedy loop over an encoded batch; ``margins`` (a list)
+    collects each step's top-2 logit gap [B]."""
+    state, consts = greedy_start(model, memory, mem_valid, max_len)
     for i in range(max_len):
-        pos_row = pos_table[min(i, pos_table.shape[0] - 1)]
-        logits, self_k, self_v = model.decode_one(
-            tokens[:, i], i, pos_row, cross_k, cross_v, self_k, self_v,
-            mem_len)
+        state, logits = greedy_step(model, state, consts, i)
         if margins is not None:
             margins.append(_margin(logits, 1))
-        nxt = torch.where(finished, constants.PAD, torch.argmax(logits, -1))
-        tokens[:, i + 1] = nxt
-        finished = finished | (nxt == constants.EOS)
-    return _finalize_greedy(tokens)
+    return _finalize_greedy(state[0])
 
 
-def _beam_cached(model: SpeechTransformer, memory: torch.Tensor,
-                 mem_valid: torch.Tensor, beam_size: int, lp_alpha: float,
-                 max_len: int, margins: Optional[List[torch.Tensor]] = None):
-    """The cached beam loop over an encoded batch; ``margins`` (a list)
-    collects each step's gap between the K-th and (K+1)-th best candidate
-    [B]."""
+def beam_start(model: SpeechTransformer, memory: torch.Tensor,
+               mem_valid: torch.Tensor, beam_size: int, max_len: int):
+    """The cached beam loop before step 0 over an encoded batch, beams on
+    the batch axis -> (state, consts): state (tokens [B, K, L+1], logp
+    [B, K], finished [B, K], self_k, self_v [n_dec, B*K, L, D]); consts
+    (cross_k, cross_v, the position table, mem_len [B*K], the log-probs
+    of a finished beam [vocab], each utterance's first beam row [B, 1])."""
     c = model.config
     k = beam_size
     b = memory.shape[0]
@@ -496,33 +540,53 @@ def _beam_cached(model: SpeechTransformer, memory: torch.Tensor,
     logp = torch.where(torch.arange(k, device=dev) == 0, 0.0,
                        NEG_INF)[None].repeat(b, 1)
     finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    # a finished beam continues only with PAD, at no cost
     pad_only = torch.full((c.vocab_size,), NEG_INF, device=dev)
     pad_only[constants.PAD] = 0.0
     rows = torch.arange(b, device=dev)[:, None] * k
+    return ((tokens, logp, finished, self_k, self_v),
+            (cross_k, cross_v, pos_table, mem_len, pad_only, rows))
+
+
+def beam_step(model: SpeechTransformer, state, consts, i):
+    """Step ``i`` (an int, or a 0-d int64 tensor) of the cached beam loop
+    -> (state, the step's [B, K * vocab] candidate scores)."""
+    tokens, logp, finished, self_k, self_v = state
+    cross_k, cross_v, pos_table, mem_len, pad_only, rows = consts
+    b, k = logp.shape
+    logits, self_k, self_v = model.decode_one(
+        _take(tokens.view(b * k, -1), 1, i), i, _pos_row(pos_table, i),
+        cross_k, cross_v, self_k, self_v, mem_len)
+    lp = torch.log_softmax(logits.float(), dim=-1).view(b, k, -1)
+    v = lp.shape[-1]
+    lp = torch.where(finished[..., None], pad_only, lp)
+    cand = (logp[..., None] + lp).view(b, k * v)
+    logp, top_idx = _top_k(cand, k)
+    src = top_idx // v                                   # [B, K]
+    sym = top_idx % v
+    tokens = torch.gather(tokens, 1,
+                          src[..., None].expand(-1, -1, tokens.shape[2]))
+    _put_(tokens, 2, i + 1, sym)
+    finished = torch.gather(finished, 1, src) | (sym == constants.EOS)
+    # the self-attention caches follow the surviving beams
+    flat_src = (rows + src).view(-1)
+    self_k = self_k[:, flat_src]
+    self_v = self_v[:, flat_src]
+    return (tokens, logp, finished, self_k, self_v), cand
+
+
+def _beam_cached(model: SpeechTransformer, memory: torch.Tensor,
+                 mem_valid: torch.Tensor, beam_size: int, lp_alpha: float,
+                 max_len: int, margins: Optional[List[torch.Tensor]] = None):
+    """The cached beam loop over an encoded batch; ``margins`` (a list)
+    collects each step's gap between the K-th and (K+1)-th best candidate
+    [B]."""
+    state, consts = beam_start(model, memory, mem_valid, beam_size, max_len)
     for i in range(max_len):
-        pos_row = pos_table[min(i, pos_table.shape[0] - 1)]
-        logits, self_k, self_v = model.decode_one(
-            tokens.view(b * k, -1)[:, i], i, pos_row, cross_k, cross_v,
-            self_k, self_v, mem_len)
-        lp = torch.log_softmax(logits.float(), dim=-1).view(b, k, -1)
-        v = lp.shape[-1]
-        # a finished beam continues only with PAD, at no cost
-        lp = torch.where(finished[..., None], pad_only, lp)
-        cand = (logp[..., None] + lp).view(b, k * v)
+        state, cand = beam_step(model, state, consts, i)
         if margins is not None:
-            margins.append(_margin(cand, k))
-        logp, top_idx = _top_k(cand, k)
-        src = top_idx // v                                   # [B, K]
-        sym = top_idx % v
-        tokens = torch.gather(tokens, 1,
-                              src[..., None].expand(-1, -1, max_len + 1))
-        tokens[:, :, i + 1] = sym
-        finished = torch.gather(finished, 1, src) | (sym == constants.EOS)
-        # the self-attention caches follow the surviving beams
-        flat_src = (rows + src).view(-1)
-        self_k = self_k[:, flat_src]
-        self_v = self_v[:, flat_src]
-    return _finalize_beam(tokens, logp, lp_alpha)
+            margins.append(_margin(cand, beam_size))
+    return _finalize_beam(state[0], state[1], lp_alpha)
 
 
 def _microbatched(decode_fn: Callable, feats: torch.Tensor,

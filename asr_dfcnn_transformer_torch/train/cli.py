@@ -6,8 +6,11 @@
     python -m asr_dfcnn_transformer_torch.train.cli eval     --workdir W [...]
     python -m asr_dfcnn_transformer_torch.train.cli eval-lm  --workdir W [...]
     python -m asr_dfcnn_transformer_torch.train.cli eval-e2e --workdir W [...]
-    python -m asr_dfcnn_transformer_torch.train.cli infer    --workdir W --wav f.wav
+    python -m asr_dfcnn_transformer_torch.train.cli infer    --workdir W --wav f.wav [--streaming]
     python -m asr_dfcnn_transformer_torch.train.cli export   --workdir W --out P [--what am|lm] [--format tf1|hdf5]
+    python -m asr_dfcnn_transformer_torch.train.cli export-serving --workdir W --out A.zip [--what pipeline|e2e]
+    python -m asr_dfcnn_transformer_torch.train.cli infer-artifact --artifact A.zip --wav f.wav
+    python -m asr_dfcnn_transformer_torch.train.cli serve    (--workdir W | --artifact A.zip) [--streams N]
 
 The JAX CLI's commands, flags and defaults, on the port's models, trainers
 and kernels; the accuracy lines are printed in the JAX CLI's words, so a
@@ -19,11 +22,15 @@ the default config they are the JAX CLI's models field for field, and
 ``--small`` builds the JAX CLI's small models. ``--synthetic N`` writes the
 JAX CLI's tone corpus under ``<workdir>/synthetic``.
 
+A serving artifact (``export-serving``) runs on the device it was exported
+on: ``infer-artifact`` and ``serve --artifact`` take ``--platform cpu`` for
+one exported with ``--platform cpu``, and ``--serve-platforms`` can only
+name the exporting device.
+
 Not ported yet, each with its ROADMAP Queue A item: ``atten``, ``joint``
 and ``eval-atten`` (A 11), ``--model bigru`` and the BiGRU's ``.hdf5``
 (``export --what bigru``, ``eval --am-hdf5 --model bigru``; A 11),
-``infer --streaming`` (A 8), ``export-serving``, ``infer-artifact`` and
-``serve`` (A 8, A 2), ``--tensorboard`` (A 5.7), ``--distributed`` (A 12).
+``--tensorboard`` (A 5.7), ``--distributed`` (A 12).
 """
 
 from __future__ import annotations
@@ -45,8 +52,8 @@ def _build_parser():
     p = argparse.ArgumentParser(prog="asr-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def common(sp):
-        sp.add_argument("--workdir", required=True)
+    def common(sp, workdir_required=True):
+        sp.add_argument("--workdir", required=workdir_required, default=None)
         sp.add_argument("--data-dir", default=None)
         sp.add_argument("--speech-root", default=None)
         sp.add_argument("--noise-root", default="")
@@ -121,6 +128,12 @@ def _build_parser():
     sp.add_argument("--wav", required=True)
     sp.add_argument("--decode", default="greedy", choices=["greedy", "beam"])
     sp.add_argument("--model", default="se_dfcnn", choices=AM_NAMES)
+    sp.add_argument("--streaming", action="store_true",
+                    help="decode incrementally (IncrementalRecognizer): "
+                         "feed the wav in chunks, print a partial "
+                         "hypothesis per chunk, then the final")
+    sp.add_argument("--chunk-seconds", type=float, default=1.28,
+                    help="streaming push size in seconds")
 
     sp = sub.add_parser(
         "export", help="export the trained AM back to the reference's "
@@ -143,6 +156,79 @@ def _build_parser():
                     help="export the latest checkpoint instead of the "
                          "metric-gated best")
     sp.add_argument("--platform", default=None)
+
+    sp = sub.add_parser(
+        "export-serving",
+        help="write the AM -> LM (or e2e) inference programs + weights + "
+             "vocabs into ONE artifact (torch.export programs on the "
+             "port's kernel ops) servable without model code or "
+             "checkpoints")
+    common(sp)
+    sp.add_argument("--out", required=True, help="artifact path (.zip)")
+    sp.add_argument("--what", default="pipeline",
+                    choices=["pipeline", "e2e"],
+                    help="pipeline = AM -> LM (ServingPipeline); e2e = "
+                         "SpeechTransformer encoder + KV-cached decode "
+                         "(E2EServing)")
+    sp.add_argument("--model", default="se_dfcnn", choices=AM_NAMES)
+    sp.add_argument("--decode", default="greedy", choices=["greedy", "beam"])
+    sp.add_argument("--beam-width", type=int, default=8)
+    sp.add_argument("--no-lm", action="store_true",
+                    help="pipeline artifact without the LM stage "
+                         "(pinyin only; no ckpt_lm needed)")
+    sp.add_argument("--use-latest", action="store_true",
+                    help="export the latest checkpoint instead of the "
+                         "metric-gated best")
+    sp.add_argument("--serve-batch-sizes", default="1,8",
+                    help="comma-separated batch sizes to export entry "
+                         "points for")
+    sp.add_argument("--serve-buckets", default="128,512,1600",
+                    help="comma-separated bucket_frames (multiples of 8)")
+    sp.add_argument("--serve-platforms", default=None,
+                    help="the device the programs run on: only the "
+                         "exporting device (cuda, or cpu with --platform "
+                         "cpu) can be named; a torch.export program runs "
+                         "where it was exported")
+
+    sp = sub.add_parser(
+        "infer-artifact",
+        help="recognize a wav from a serving artifact alone: no workdir, "
+             "checkpoints or assets")
+    sp.add_argument("--artifact", required=True, help=".zip path")
+    sp.add_argument("--wav", required=True)
+    sp.add_argument("--platform", default=None,
+                    help="the artifact's device (default cuda; 'cpu' for "
+                         "an artifact exported with --platform cpu)")
+
+    sp = sub.add_parser(
+        "serve",
+        help="HTTP recognition endpoint (infer/http_server.py): POST a PCM "
+             "wav to /v1/recognize. Backed by the micro-batching "
+             "BatchingServer over a live workdir pipeline, or by a "
+             "serving artifact (--artifact; no checkpoints needed)")
+    common(sp, workdir_required=False)
+    sp.add_argument("--artifact", default=None,
+                    help="serve a .zip artifact instead of workdir "
+                         "checkpoints")
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8000,
+                    help="0 = pick a free port (printed on startup)")
+    sp.add_argument("--model", default="se_dfcnn", choices=AM_NAMES)
+    sp.add_argument("--decode", default="greedy", choices=["greedy", "beam"])
+    sp.add_argument("--beam-width", type=int, default=8)
+    sp.add_argument("--max-batch", type=int, default=16,
+                    help="rows per coalesced device batch (live backend)")
+    sp.add_argument("--max-wait-ms", type=float, default=5.0,
+                    help="batching window after the first pending request")
+    sp.add_argument("--max-requests", type=int, default=None,
+                    help="exit after N recognitions (smoke tests)")
+    sp.add_argument("--streams", type=int, default=0,
+                    help="max concurrent /v1/stream sessions (StreamPool-"
+                         "batched incremental recognition; 0 = disabled; "
+                         "live backend only)")
+    sp.add_argument("--stream-idle-timeout", type=float, default=600.0,
+                    help="seconds of inactivity before a stream's slot is "
+                         "reclaimed")
     return p
 
 
@@ -470,7 +556,21 @@ def cmd_eval(args):
 
 def cmd_infer(args):
     pipe, _, _ = _load_pipeline(args, args.decode)
-    pinyin, hanzi = pipe.recognize_file(args.wav)
+    if args.streaming:
+        from asr_dfcnn_transformer_torch.audio.wav import read_wav
+        from asr_dfcnn_transformer_torch.infer.streaming import (
+            IncrementalRecognizer)
+        sig, sr = read_wav(args.wav)
+        rec = IncrementalRecognizer(pipe)
+        step = max(1, int(args.chunk_seconds * sr))
+        for i in range(0, len(sig), step):
+            rec.push(sig[i: i + step])
+            pinyin, hanzi = rec.partial()
+            print(f"[{min(i + step, len(sig)) / sr:6.2f}s] "
+                  f"{' '.join(pinyin)} | {hanzi}", flush=True)
+        pinyin, hanzi = rec.finalize()
+    else:
+        pinyin, hanzi = pipe.recognize_file(args.wav)
     print("拼音:", " ".join(pinyin))
     print("汉字:", hanzi)
 
@@ -520,19 +620,149 @@ def cmd_export(args):
     print(f"exported {args.what} {args.format} -> {args.out}")
 
 
+def _csv_ints(text: str):
+    return tuple(int(x) for x in text.split(",") if x)
+
+
+def cmd_export_serving(args):
+    """One self-contained serving artifact: the inference programs
+    (torch.export) + weights + vocab tables, from the workdir's
+    checkpoints (the metric-gated best unless --use-latest) and the asset
+    vocabularies; no corpus or trainer state."""
+    from asr_dfcnn_transformer_torch.core import vocab as V
+    from asr_dfcnn_transformer_torch.infer import export_serving as es
+    from asr_dfcnn_transformer_torch.infer.pipeline import Pipeline
+    batch_sizes = _csv_ints(args.serve_batch_sizes)
+    buckets = _csv_ints(args.serve_buckets)
+    platforms = (tuple(args.serve_platforms.split(","))
+                 if args.serve_platforms else None)
+    use_best = not args.use_latest
+    mismatch = getattr(args, "force_model_mismatch", False)
+    try:
+        if args.what == "e2e":
+            ev = V.e2e_language_vocab()
+            model, nfilt = _e2e_model(args, ev.size)
+            state = Pipeline._restore(args.workdir, "e2e", use_best, model,
+                                      mismatch)
+            if state is None:
+                raise SystemExit(f"error: no end-to-end checkpoint under "
+                                 f"{args.workdir!r}")
+            model.load_state_dict(state["model"])
+            e = args.cfg.e2e
+            meta = es.export_e2e(
+                model, args.out, vocab=ev, feature_dim=nfilt, lfr_m=e.lfr_m,
+                lfr_n=e.lfr_n, decode=args.decode,
+                beam_width=(args.beam_width if args.decode == "beam"
+                            else 3),
+                batch_sizes=batch_sizes, buckets=buckets,
+                platforms=platforms)
+        else:
+            av, lv = V.acoustic_vocab(), V.language_vocab()
+            am = _am_model(args, args.model, av.size)
+            lm = None if args.no_lm else _lm_model(args, av.size, lv.size)
+            pipe = Pipeline.from_checkpoints(
+                args.workdir, am, lm, acoustic_vocab=av,
+                language_vocab=None if args.no_lm else lv,
+                use_best=use_best, decode=args.decode,
+                beam_width=args.beam_width, allow_model_mismatch=mismatch)
+            meta = es.export_pipeline(pipe, args.out,
+                                      batch_sizes=batch_sizes,
+                                      buckets=buckets, platforms=platforms)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}")
+    walls = ", ".join(f"{k} {v:.1f} s"
+                      for k, v in meta["export_seconds"].items())
+    print(f"exported serving artifact -> {args.out} "
+          f"(kind={meta['kind']}, {len(meta['programs'])} entry points, "
+          f"decode={meta['decode']}, device={meta['device']}; {walls})")
+
+
+def _load_artifact(args):
+    from asr_dfcnn_transformer_torch.core.device import default_device
+    from asr_dfcnn_transformer_torch.infer.export_serving import (
+        load_artifact)
+    try:
+        return load_artifact(args.artifact,
+                             device=default_device(args.platform))
+    except ValueError as e:
+        raise SystemExit(f"error: {e}")
+
+
+def cmd_infer_artifact(args):
+    """Artifact-only recognition: load_artifact + recognize, nothing else
+    (the deployment-side counterpart of `infer`)."""
+    from asr_dfcnn_transformer_torch.audio.wav import read_wav
+    from asr_dfcnn_transformer_torch.infer.export_serving import E2EServing
+    served = _load_artifact(args)
+    sig, _ = read_wav(args.wav)
+    if isinstance(served, E2EServing):
+        print("汉字:", served.recognize_signal(sig))
+    else:
+        pinyin, hanzi = served.recognize_signal(sig)
+        print("拼音:", " ".join(pinyin))
+        if served.language_vocab is not None:   # a --no-lm artifact has
+            print("汉字:", hanzi)               # no hanzi stage at all
+
+
+def cmd_serve(args):
+    """HTTP recognition endpoint over a live pipeline (micro-batched) or
+    a serving artifact."""
+    import time
+
+    from asr_dfcnn_transformer_torch.infer.http_server import (
+        HTTPRecognitionServer)
+    if args.streams and args.artifact:
+        raise SystemExit("serve: --streams needs a live --workdir backend")
+    if args.artifact:
+        backend = _load_artifact(args)
+        bounds = (400, 800, 1200, 1600)
+    else:
+        if not args.workdir:
+            raise SystemExit(
+                "serve: pass --workdir (live checkpoints) or --artifact")
+        backend, _, _ = _load_pipeline(args, args.decode, args.beam_width)
+        bounds = _bounds(args)
+    srv = HTTPRecognitionServer(
+        backend, host=args.host, port=args.port,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        bucket_bounds=bounds, streams=args.streams,
+        stream_kw={"idle_timeout_s": args.stream_idle_timeout}
+        if args.streams else None)
+    print(f"serving on http://{args.host}:{srv.port} "
+          f"(backend: {srv._backend.kind}"
+          + (f", {args.streams} stream slots" if args.streams else "")
+          + ")", flush=True)
+    if args.max_requests:
+        srv.start()
+        while srv.requests_served < args.max_requests:
+            time.sleep(0.05)
+        srv.close()
+        return
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.close()
+
+
 COMMANDS = {"am": cmd_am, "lm": cmd_lm, "e2e": cmd_e2e, "eval": cmd_eval,
             "eval-lm": cmd_eval_lm, "eval-e2e": cmd_eval_e2e,
-            "infer": cmd_infer, "export": cmd_export}
+            "infer": cmd_infer, "export": cmd_export,
+            "export-serving": cmd_export_serving,
+            "infer-artifact": cmd_infer_artifact, "serve": cmd_serve}
 
 
 def main(argv=None):
     from asr_dfcnn_transformer_torch.core.device import default_device
     args = _build_parser().parse_args(argv)
-    # export reads checkpoints into host memory; every other command runs
-    # on the device and resolves the config (training ones snapshot it)
-    if args.cmd != "export":
+    # export reads checkpoints into host memory and infer-artifact needs
+    # no workdir; every other command runs on the device and resolves the
+    # config (training ones snapshot it)
+    if args.cmd not in ("export", "infer-artifact"):
         args.device = default_device(args.platform)
-        args.cfg = _apply_config(args)
+        if getattr(args, "workdir", None):
+            args.cfg = _apply_config(args)
     COMMANDS[args.cmd](args)
 
 

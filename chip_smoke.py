@@ -192,6 +192,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     and launch counts (the CTC, masked and dual-axis attention kernels
     forward and backward, ``topk_last`` and ``beam_search``). A miss
     fails the run.
+16. Streaming and exported serving at full width: (a) one 15.9 s stream
+    through ``IncrementalRecognizer`` on the ``KerasDFCNN`` (f32) -> LM in
+    1.28 s pushes, greedy and beam, equal to the offline
+    ``recognize_signal``; running CMVN equal at 0.32 / 1.28 / 4.0 s
+    pushes; the default SE-DFCNN's agreement with its offline decode; the
+    wall per push and its split into ``log_mel``, AM window and LM partial
+    by CUDA events (the card's ``streaming_chunk``); (b) ``StreamPool(16)``
+    over 16 streams of 0.5-15.9 s equal to 16 independent recognizers,
+    greedy and beam, with the wall per round and the real-time streams the
+    card carries (``streaming_pool16``). In (a) and (b) the streamed run's
+    calls of ``log_mel`` (pre-emphasis 0, full-length rows), ``topk_last``
+    and the LM partial's ``masked_attention`` are kept and held against
+    their twins on the same tensors with phase 2's tolerances;
+    (c) ``HTTPRecognitionServer``
+    with 8 stream slots: phase 3's burst through ``/v1/recognize`` equal
+    to the Pipeline, 8 concurrent ``/v1/stream`` clients equal to the
+    pool; (d) ``export_pipeline`` greedy at (1, 8) x (512, 1600) and beam
+    at (8, 1600), ``export_e2e`` greedy at (8, 512) (one e2e entry point,
+    for the phase's time), each program's export wall, ``load_artifact``
+    in a fresh process (no ``models`` / ``train`` module) equal to the
+    live paths on phases 3 and 7's inputs by the margin rule, with the
+    launches of ``log_mel``, ``cmvn``, ``masked_attention``,
+    ``topk_last``, ``beam_search`` and ``dual_axis_attention`` there and
+    the artifact's ms per batch beside the live Pipeline's at (8, 1600);
+    ``infer-artifact`` and ``serve --artifact --max-requests 2`` through
+    the CLI.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -200,6 +226,7 @@ CUDA the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -3266,6 +3293,750 @@ def phase_gates(results):
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------- phase 16: streaming and exported serving
+
+STREAM_SECONDS, STREAM_CHUNK_S = 15.9, 1.28
+STREAM_PUSHES_S = (0.32, 1.28, 4.0)           # running-CMVN invariance
+POOL_SLOTS, HTTP_STREAMS = 16, 8
+ARTIFACT_BATCHES, ARTIFACT_BUCKETS = (1, 8), (512, 1600)
+ARTIFACT_BEAM = ((8,), (1600,))
+E2E_ARTIFACT = ((8,), (512,))    # one e2e entry point: phase 16's budget
+STREAMED = ("log_mel", "masked_attention", "topk_last")   # the pool's run
+ARTIFACT_KERNELS = ("log_mel", "cmvn", "masked_attention", "topk_last",
+                    "beam_search", "dual_axis_attention")
+
+
+def cuda_timed(fn, log: list):
+    """``fn`` with the device time of each call (CUDA events around it,
+    the host's copies in and out included) appended to ``log`` in ms."""
+    import torch
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        log.append(start.elapsed_time(end))
+        return out
+    return timed
+
+
+@contextlib.contextmanager
+def wrapping(patches):
+    """Within the block, each (module, name, wrap) of ``patches`` has its
+    attribute ``name`` replaced by ``wrap(attribute)``; restored after."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    try:
+        for m, n, wrap in patches:
+            setattr(m, n, wrap(getattr(m, n)))
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def _cloned(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cloned(a) for a in x)
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    return x
+
+
+def recorded(store: list, keep: int):
+    """A wrapper of a kernel's wrapper that keeps the inputs and the output
+    of its first ``keep`` calls in ``store`` (cloned)."""
+    def wrap(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if len(store) < keep:
+                store.append((_cloned(args), _cloned(kw), _cloned(out)))
+            return out
+        return call
+    return wrap
+
+
+#: calls of each kernel a streamed run keeps: every log_mel and topk_last
+#: call, and one LM pass's attention (12 layers)
+STREAM_KEEP = {"log_mel": 10 ** 6, "topk_last": 10 ** 6,
+               "masked_attention": 12}
+
+
+def stream_recording(calls: dict):
+    """The patches (for ``wrapping``) that keep the streamed path's calls
+    of ``log_mel`` (in ``infer.streaming``), ``topk_last`` (in the stream
+    beam's ``ops.ctc_decode``) and ``masked_attention`` (in the LM's
+    ``models.layers``) in ``calls`` ({kernel: [(args, kwargs, out)]})."""
+    from asr_dfcnn_transformer_torch.infer import streaming
+    from asr_dfcnn_transformer_torch.models import layers
+    from asr_dfcnn_transformer_torch.ops import ctc_decode
+    sites = {"log_mel": streaming, "topk_last": ctc_decode,
+             "masked_attention": layers}
+    return [(mod, name, recorded(calls.setdefault(name, []),
+                                 STREAM_KEEP[name]))
+            for name, mod in sites.items()]
+
+
+def check_streamed_calls(label: str, calls: dict, names) -> None:
+    """Hold each kept call of the kernels ``names`` against its twin on the
+    same tensors, with phase 2's tolerances: ``log_mel`` within rtol 1e-4,
+    atol 1e-3; ``topk_last`` values and ids equal; ``masked_attention``
+    within 2e-2 in bf16 (1e-5 in f32). Fails on any miss, or when a kernel
+    of ``names`` was not called."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import (
+        log_mel_reference, masked_attention_reference, topk_last_reference)
+    for name in names:
+        rec = calls.get(name, [])
+        require(len(rec) > 0, f"{label}: no call of {name} was kept")
+        shapes, worst, bad = set(), 0.0, 0
+        for args, kw, out in rec:
+            if name == "log_mel":
+                sig, lens, n_frames, cfg = args
+                shapes.add(f"{list(sig.shape)} preemph {cfg.preemph}, "
+                           f"lengths {sorted(set(lens.tolist()))}")
+                ok, err = close_enough(
+                    out, log_mel_reference(sig, lens, n_frames, cfg),
+                    1e-4, 1e-3)
+            elif name == "topk_last":
+                x, k = args
+                shapes.add(f"{list(x.shape)} k {k}")
+                want_v, want_i = topk_last_reference(x, k)
+                ok = torch.equal(out[0], want_v) and torch.equal(out[1],
+                                                                 want_i)
+                err = float((out[0] - want_v).abs().max())
+            else:
+                q, k, v, k_valid = args
+                if k_valid is None:
+                    k_valid = torch.ones(k.shape[0], k.shape[2],
+                                         dtype=torch.bool, device=k.device)
+                causal = kw.get("causal", False)
+                shapes.add(f"{list(q.shape)}/{list(k.shape)} {q.dtype} "
+                           f"causal {causal}")
+                tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-5
+                want = masked_attention_reference(
+                    q, k, v, k_valid, causal, kw.get("keep_mask"),
+                    kw.get("keep_prob", 1.0))
+                ok, err = close_enough(out, want, tol, tol)
+                ok &= bool(torch.isfinite(out.float()).all())
+            worst, bad = max(worst, err), bad + (not ok)
+        print(f"{label}: {name} on the streamed path's own inputs "
+              f"({'; '.join(sorted(shapes))}): {len(rec)} calls against the "
+              f"twin, max abs err {worst:.3g}, "
+              f"{'ok' if bad == 0 else f'{bad} FAIL'}")
+        require(bad == 0, f"{label}: {bad} of {len(rec)} {name} calls "
+                "disagree with the twin")
+
+
+def stream_stats(sig, nfilt: int = 200):
+    """(mean', std) with which the streaming CMVN's single centring gives
+    the offline double-centred features (tests/test_torch_streaming.py),
+    from the card's log-mel."""
+    import torch
+    from asr_dfcnn_transformer_torch.audio.fbank import FbankConfig, logfbank
+    raw = logfbank(torch.from_numpy(sig).to(DEVICE),
+                   FbankConfig(nfilt=nfilt)).double().cpu().numpy()
+    mean, std = raw.mean(axis=0), raw.std(axis=0)
+    std = np.where(std == 0.0, 1.0, std)
+    mean2 = ((raw - mean) / std).mean(axis=0)
+    return (mean + std * mean2).astype(np.float32), std.astype(np.float32)
+
+
+def push_all(rec, sig, seconds: float, times=None):
+    """Push ``sig`` in chunks of ``seconds``, reading the partial after
+    each push (as ``infer --streaming`` does); the wall of each push +
+    partial goes to ``times``. Returns the final hypothesis."""
+    import torch
+    step = int(seconds * SAMPLE_RATE)
+    for i in range(0, len(sig), step):
+        t0 = time.perf_counter()
+        rec.push(sig[i: i + step])
+        rec.partial()
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append(1e3 * (time.perf_counter() - t0))
+    return rec.finalize()
+
+
+def agreement(want, got) -> float:
+    from asr_dfcnn_transformer_torch.ops.edit_distance import edit_distance
+    err = sum(edit_distance(w, g) for w, g in zip(want, got))
+    return 1.0 - err / max(sum(len(w) for w in want), 1)
+
+
+def keras_pipelines():
+    """{decode: Pipeline} over the full-width ``KerasDFCNN`` in f32 (conv
+    only: the streamed tokens are exact) -> the default bf16 LM."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.infer import Pipeline
+    from asr_dfcnn_transformer_torch.models import (KerasDFCNN,
+                                                    KerasDFCNNConfig,
+                                                    TransformerLM,
+                                                    TransformerLMConfig)
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    gen = torch.Generator().manual_seed(SEED + 16)
+    am = KerasDFCNN(KerasDFCNNConfig(av.size, dtype=torch.float32),
+                    device=DEVICE, generator=gen)
+    lm = TransformerLM(TransformerLMConfig(av.size, lv.size), device=DEVICE,
+                       generator=gen)
+    return {d: Pipeline(am, lm, acoustic_vocab=av, language_vocab=lv,
+                        decode=d, beam_width=BEAM_WIDTH)
+            for d in ("greedy", "beam")}
+
+
+def stream_one(results):
+    """(a) One stream: streamed equals offline, running CMVN does not
+    depend on the push size, SE's agreement, and the per-push wall."""
+    import torch
+    from asr_dfcnn_transformer_torch.infer import Pipeline, streaming
+    from asr_dfcnn_transformer_torch.infer.streaming import (
+        IncrementalRecognizer)
+    rng = np.random.default_rng(SEED + 16)
+    sig = tone_utterance(rng, int(STREAM_SECONDS * SAMPLE_RATE))
+    stats = stream_stats(sig)
+    pipes = keras_pipelines()
+    for decode, pipe in pipes.items():
+        want = pipe.recognize_signal(sig)
+        rec = IncrementalRecognizer(pipe, cmvn="global", global_stats=stats)
+        split = {"log_mel": [], "am": [], "lm": []}
+        programs = {"feature_groups": "log_mel", "am_argmax": "am",
+                    "am_log_probs": "am", "lm_prefix": "lm"}
+        push_all(IncrementalRecognizer(pipe, cmvn="global",
+                                       global_stats=stats), sig[:32000],
+                 STREAM_CHUNK_S)                                # warm-up
+        times, calls = [], {}
+        with wrapping([(streaming, fn, lambda f, log=split[part]:
+                        cuda_timed(f, log))
+                       for fn, part in programs.items()]
+                      + stream_recording(calls)):
+            got = push_all(rec, sig, STREAM_CHUNK_S, times)
+        print(f"stream {decode}: KerasDFCNN f32 -> LM, {STREAM_SECONDS} s in "
+              f"{STREAM_CHUNK_S} s pushes: {len(got[0])} pinyin, streamed "
+              f"== offline: {got == want}")
+        require(got == want, f"stream {decode}: streamed {got[0][:8]} != "
+                f"offline {want[0][:8]}")
+        require(len(got[0]) > 0, "the stream decoded nothing")
+        t = sorted(times)
+        n_push = len(times)
+        rtf = sum(times) / 1e3 / STREAM_SECONDS
+        print(f"stream {decode}: wall per push (push + partial) p50 "
+              f"{t[n_push // 2]:.2f} ms, max {t[-1]:.2f} ms over {n_push} "
+              f"pushes; real-time factor {rtf:.4f}")
+        print(f"stream {decode}: CUDA-event ms, total (calls): " + ", ".join(
+            f"{k} {sum(v):.2f} ({len(v)})" for k, v in split.items()))
+        check_streamed_calls(f"stream {decode}", calls,
+                             STREAMED if decode == "beam" else STREAMED[:2])
+    finals = []
+    for push_s in STREAM_PUSHES_S:
+        rec = IncrementalRecognizer(pipes["greedy"], cmvn="running")
+        push_all(rec, sig, push_s)
+        finals.append(rec.pinyin_ids)
+    equal = finals[0] == finals[1] == finals[2]
+    print(f"stream running CMVN: {[len(f) for f in finals]} pinyin at "
+          f"{STREAM_PUSHES_S} s pushes, equal: {equal}")
+    require(equal,
+            "running-CMVN tokens depend on the push size")
+    am, lm, av, lv = build_models(torch.bfloat16, DEVICE)
+    se = Pipeline(am, lm, acoustic_vocab=av, language_vocab=lv)
+    offline, streamed = [], []
+    for sec in (4.5, 9.0, 15.9):
+        u = tone_utterance(rng, int(sec * SAMPLE_RATE))
+        offline.append(se.recognize_signal(u)[0])
+        rec = IncrementalRecognizer(se, cmvn="global",
+                                    global_stats=stream_stats(u))
+        streamed.append(push_all(rec, u, STREAM_CHUNK_S)[0])
+    print(f"stream SE-DFCNN (default config, bf16): token agreement with "
+          f"the offline decode {agreement(offline, streamed):.4f} over "
+          f"{sum(len(o) for o in offline)} tokens (the SE squeeze sees each "
+          "window, not the utterance)")
+    return pipes
+
+
+def stream_pool(results, pipes):
+    """(b) StreamPool(16) equals 16 independent recognizers; the wall per
+    round and the real-time streams the card carries."""
+    import torch
+    from asr_dfcnn_transformer_torch.infer.stream_pool import StreamPool
+    from asr_dfcnn_transformer_torch.infer.streaming import (
+        IncrementalRecognizer)
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    rng = np.random.default_rng(SEED + 17)
+    utts = [tone_utterance(rng, int(sec * SAMPLE_RATE))
+            for sec in SERVED_SECONDS]
+    step = int(STREAM_CHUNK_S * SAMPLE_RATE)
+    for decode in ("greedy", "beam"):
+        pipe = pipes[decode]
+        want = []
+        for u in utts:
+            rec = IncrementalRecognizer(pipe)
+            for i in range(0, len(u), step):
+                rec.push(u[i: i + step])
+            want.append(rec.finalize())
+        pool = StreamPool(pipe, n_slots=POOL_SLOTS)
+        slots = [pool.open() for _ in utts]
+        torch.cuda.synchronize()
+        reset_launches()
+        rounds, got, calls = [], {}, {}
+        with wrapping(stream_recording(calls)):
+            for r in range(-(-max(len(u) for u in utts) // step)):
+                t0 = time.perf_counter()
+                live = [k for k, u in enumerate(utts) if r * step < len(u)]
+                for k in live:
+                    pool.push(slots[k], utts[k][r * step:(r + 1) * step],
+                              step=False)
+                pool.step()
+                pool.partials()
+                torch.cuda.synchronize()
+                rounds.append((1e3 * (time.perf_counter() - t0), len(live)))
+                for k, u in enumerate(utts):
+                    if k not in got and (r + 1) * step >= len(u):
+                        got[k] = pool.finalize(slots[k])
+        counts = dict(LAUNCHES)
+        got = [got[k] for k in range(len(utts))]
+        same = sum(g == w for g, w in zip(got, want))
+        ms = sorted(m for m, _ in rounds)
+        per = sum(m for m, _ in rounds) / sum(n for _, n in rounds)
+        print(f"pool {decode}: {POOL_SLOTS} slots over {len(utts)} streams "
+              f"of 0.5-15.9 s in {STREAM_CHUNK_S} s chunks, {len(rounds)} "
+              f"rounds: equal to independent recognizers {same}/{len(utts)}")
+        print(f"pool {decode}: wall per round (pushes, one step, one LM "
+              f"partial) p50 {ms[len(ms) // 2]:.2f} ms, max {ms[-1]:.2f} ms; "
+              f"{per:.2f} ms per stream and chunk over the run, so "
+              f"{STREAM_CHUNK_S * 1e3 / per:.0f} streams in real time")
+        print(f"pool {decode}: launch counts {counts}")
+        require(same == len(utts), f"pool {decode}: {len(utts) - same} "
+                "streams differ from their independent recognizer")
+        check_streamed_calls(f"pool {decode}", calls,
+                             STREAMED if decode == "beam" else STREAMED[:2])
+        # greedy: log_mel and the LM's attention; beam adds topk_last
+        for name in STREAMED if decode == "beam" else STREAMED[:2]:
+            require(counts.get(name, 0) > 0,
+                    f"{name} was never launched by the pool ({decode})")
+            results[name].setdefault("stream_launches", {})[decode] = \
+                counts[name]
+    return utts
+
+
+def http_server(results, pipes, utts):
+    """(c) HTTPRecognitionServer: phase 3's burst through /v1/recognize
+    equals the Pipeline's; 8 concurrent /v1/stream clients equal the
+    pool."""
+    import http.client
+    import threading
+
+    import torch
+    from asr_dfcnn_transformer_torch.infer import (HTTPRecognitionServer,
+                                                   Pipeline)
+    from asr_dfcnn_transformer_torch.infer.stream_pool import StreamPool
+    am, lm, av, lv = build_models(torch.bfloat16, DEVICE)
+    pipe = Pipeline(am, lm, acoustic_vocab=av, language_vocab=lv)
+    burst = served_utterances(SEED + 1, skip_warm_up=True)
+
+    def request(port, method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/octet-stream"})
+        r = conn.getresponse()
+        out = r.status, json.loads(r.read().decode())
+        conn.close()
+        return out
+
+    srv = HTTPRecognitionServer(pipe, port=0, max_batch=MAX_BATCH,
+                                max_wait_ms=20.0, bucket_bounds=BUCKETS,
+                                streams=HTTP_STREAMS)
+    with srv:
+        port = srv.port
+        for b in BUCKETS:        # one batch of each bucket's shape first
+            request(port, "POST", "/v1/recognize",
+                    np.zeros((b - 20) * 160, "<f4").tobytes())
+        outs, lat = [None] * len(burst), [0.0] * len(burst)
+
+        def client(k):
+            t0 = time.perf_counter()
+            outs[k] = request(port, "POST", "/v1/recognize",
+                              burst[k].astype("<f4").tobytes())
+            lat[k] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(len(burst))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        for s, _ in outs:
+            require(s == 200, f"/v1/recognize answered {s}")
+        # each row's result depends only on its bucket's shapes: the same
+        # batch as the server's padded rows gives the same ids
+        want = []
+        for u in burst:
+            bucket = srv._backend._srv._bucket_of(len(u))
+            s_max = (bucket - 1) * 160 + 400
+            rows = np.zeros((MAX_BATCH, s_max), np.float32)
+            lens = np.full((MAX_BATCH,), 400, np.int32)
+            n = min(len(u), s_max)
+            rows[0, :n], lens[0] = u[:n], n
+            ids, ln, han = pipe.recognize_batch(rows, lens, bucket)
+            k = int(ln[0])
+            want.append((av.decode(ids[0][:k]),
+                         "".join(lv.decode(han[0][:k]))))
+        same = sum((o["pinyin"], o["hanzi"]) == w
+                   for (_, o), w in zip(outs, want))
+        lat = sorted(lat)
+        print(f"http: /v1/recognize burst of {len(burst)}: "
+              f"{len(burst) / wall:.2f} req/s, latency p50 "
+              f"{1e3 * lat[len(lat) // 2]:.1f} ms, max {1e3 * lat[-1]:.1f} "
+              f"ms; equal to the Pipeline {same}/{len(burst)}")
+        require(same == len(burst), "HTTP results differ from the Pipeline")
+
+        streams = utts[:HTTP_STREAMS]
+        step = int(STREAM_CHUNK_S * SAMPLE_RATE)
+        got = [None] * len(streams)
+
+        def stream_client(k):
+            _, out = request(port, "POST", "/v1/stream", b"")
+            tok, u = out["stream"], streams[k]
+            for i in range(0, len(u), step):
+                request(port, "POST", f"/v1/stream/{tok}?partial=0",
+                        u[i: i + step].astype("<f4").tobytes())
+            got[k] = request(port, "POST", f"/v1/stream/{tok}/finish", b"")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=stream_client, args=(k,))
+                   for k in range(len(streams))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        stats = request(port, "GET", "/v1/stats")[1]["streams"]
+    pool = StreamPool(pipe, n_slots=HTTP_STREAMS)
+    slots = [pool.open() for _ in streams]
+    for k, u in enumerate(streams):
+        for i in range(0, len(u), step):
+            pool.push(slots[k], u[i: i + step])
+    want = [pool.finalize(s) for s in slots]
+    same = sum(g[0] == 200 and (g[1]["pinyin"], g[1]["hanzi"]) == w
+               for g, w in zip(got, want))
+    print(f"http: {len(streams)} concurrent /v1/stream clients "
+          f"({stats['pushes']} pushes in {stats['rounds']} rounds) in "
+          f"{wall:.2f} s; equal to the pool {same}/{len(streams)}")
+    require(same == len(streams), "HTTP streams differ from the pool")
+    return pipe, burst
+
+
+def served_utterances(seed: int, skip_warm_up: bool = False):
+    """The 16 utterances of ``SERVED_SECONDS`` from ``seed``: phase 3's
+    burst (after its warm-up utterances, ``skip_warm_up``) or phase 7's."""
+    rng = np.random.default_rng(seed)
+    if skip_warm_up:
+        for b in BUCKETS:
+            tone_utterance(rng, (b - 20) * 160)
+    return [tone_utterance(rng, int(sec * SAMPLE_RATE))
+            for sec in SERVED_SECONDS]
+
+
+def artifact_inputs():
+    """Phase 3's and phase 7's 16 utterances, padded: (signals, lengths)
+    each."""
+    out = []
+    for utts in (served_utterances(SEED + 1, skip_warm_up=True),
+                 served_utterances(SEED + 5)):
+        lens = np.array([len(u) for u in utts], np.int32)
+        sig = np.zeros((len(utts), int(lens.max())), np.float32)
+        for i, u in enumerate(utts):
+            sig[i, :len(u)] = u
+        out.append((sig, lens))
+    return out
+
+
+LOAD_SCRIPT = """
+import json, sys, time, numpy as np, torch
+t0 = time.perf_counter()
+from asr_dfcnn_transformer_torch.infer.export_serving import load_artifact
+from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+greedy, beam, e2e = (load_artifact(p) for p in sys.argv[1:4])
+d = np.load(sys.argv[4])
+t1 = time.perf_counter()
+reset_launches()
+out = dict(zip(("pny", "pny_len", "han"),
+               greedy.recognize_batch(d["sig3"], d["len3"])))
+beam.recognize_batch(d["sig3"][:8], d["len3"][:8])
+out["e2e"], out["e2e_len"] = e2e.recognize_batch(d["sig7"], d["len7"])
+torch.cuda.synchronize()
+counts = dict(LAUNCHES)
+t2 = time.perf_counter()
+np.savez(sys.argv[5], **out)
+bad = sorted(m for m in sys.modules if m.startswith((
+    "asr_dfcnn_transformer_torch.models", "asr_dfcnn_transformer_torch.train",
+    "asr_dfcnn_transformer_tpu", "jax")))
+print(json.dumps({"bad": bad, "load_s": t1 - t0, "run_s": t2 - t1,
+                  "launches": counts}))
+"""
+
+
+def margin_rows(logits, lengths):
+    """[B] whether every valid row of ``logits`` has a top-2 margin >=
+    MARGIN (phases 4 and 8's rule: ids must agree there)."""
+    import torch
+    m = top2_margin(logits.float().cpu())
+    valid = torch.arange(m.shape[1])[None, :] < lengths.cpu()[:, None]
+    return ((m >= MARGIN) | ~valid).all(dim=1).numpy()
+
+
+def am_margins(pipe, sig, lens, bucket):
+    import torch
+    from asr_dfcnn_transformer_torch.audio.fbank import batched_fbank
+    from asr_dfcnn_transformer_torch.models import (frames_from_samples,
+                                                    logit_lengths)
+    with torch.inference_mode():
+        x = torch.from_numpy(sig).to(DEVICE)
+        n = torch.from_numpy(lens).to(DEVICE)
+        feats, _ = batched_fbank(x, n, out_frames=bucket)
+        logits = pipe.am_model(feats[:, None])
+        return margin_rows(logits, logit_lengths(frames_from_samples(n),
+                                                 logits.shape[1]))
+
+
+def live_chunks(sig, lens, buckets, fn):
+    """``fn(signals, lengths, bucket)`` over chunks of 8 with the
+    artifact's bucket choice (the smallest exported bucket that holds the
+    chunk's longest signal; the largest truncates)."""
+    from asr_dfcnn_transformer_torch.audio.fbank import (frames_for_samples,
+                                                         samples_for_frames)
+    outs = []
+    for i in range(0, len(lens), MAX_BATCH):
+        s, n = sig[i:i + MAX_BATCH], lens[i:i + MAX_BATCH]
+        frames = frames_for_samples(int(n.max()))
+        bucket = next((b for b in buckets if frames <= b), buckets[-1])
+        smp = samples_for_frames(bucket)
+        buf = np.zeros((len(n), smp), np.float32)
+        buf[:, :min(smp, s.shape[1])] = s[:, :smp]
+        outs.append(fn(buf, np.minimum(n, smp).astype(np.int32), bucket))
+    return [np.concatenate(parts) for parts in zip(*outs)]
+
+
+def artifacts(results, pipe):
+    """(d) export_pipeline (greedy and beam) and export_e2e; in a fresh
+    process, load_artifact against the live paths by the margin rule and
+    the launches of the custom ops' kernels; the artifact's ms beside the
+    live Pipeline's; infer-artifact and serve through the CLI."""
+    import torch
+    from asr_dfcnn_transformer_torch.audio.wav import write_wav
+    from asr_dfcnn_transformer_torch.infer import (E2EServing, Pipeline,
+                                                   export_e2e,
+                                                   export_pipeline,
+                                                   load_artifact)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_artifacts_"))
+    try:
+        walls = {}
+        paths = {k: str(work / f"{k}.zip") for k in ("greedy", "beam", "e2e")}
+        meta = export_pipeline(pipe, paths["greedy"],
+                               batch_sizes=ARTIFACT_BATCHES,
+                               buckets=ARTIFACT_BUCKETS)
+        walls.update({f"pipeline greedy {k}": v
+                      for k, v in meta["export_seconds"].items()})
+        beam_pipe = Pipeline(pipe.am_model, pipe.lm_model,
+                             acoustic_vocab=pipe.av, language_vocab=pipe.lv,
+                             decode="beam", beam_width=BEAM_WIDTH)
+        meta = export_pipeline(beam_pipe, paths["beam"],
+                               batch_sizes=ARTIFACT_BEAM[0],
+                               buckets=ARTIFACT_BEAM[1])
+        walls.update({f"pipeline beam {k}": v
+                      for k, v in meta["export_seconds"].items()})
+        e2e_model, ev = build_e2e(torch.bfloat16, DEVICE)
+        meta = export_e2e(e2e_model, paths["e2e"], vocab=ev,
+                          feature_dim=E2E_NFILT, lfr_m=E2E_LFR[0],
+                          lfr_n=E2E_LFR[1], max_len=E2E_MAX_LEN,
+                          batch_sizes=E2E_ARTIFACT[0],
+                          buckets=E2E_ARTIFACT[1])
+        walls.update({f"e2e greedy {k}": v
+                      for k, v in meta["export_seconds"].items()})
+        for name, sec in walls.items():
+            print(f"artifact export wall: {name}: {sec:.2f} s")
+        print("artifact sizes: " + ", ".join(
+            f"{k} {os.path.getsize(p) / 2**20:.1f} MiB"
+            for k, p in paths.items()))
+
+        (sig3, len3), (sig7, len7) = artifact_inputs()
+        inputs = work / "inputs.npz"
+        np.savez(inputs, sig3=sig3, len3=len3, sig7=sig7, len7=len7)
+        r = subprocess.run(
+            [sys.executable, "-c", LOAD_SCRIPT, paths["greedy"],
+             paths["beam"], paths["e2e"], str(inputs),
+             str(work / "ids.npz")],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(Path(__file__).parent)))
+        require(r.returncode == 0, f"load_artifact subprocess failed:\n"
+                f"{r.stderr[-3000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        require(res["bad"] == [], f"load_artifact loaded {res['bad']}")
+        got = np.load(work / "ids.npz")
+        with torch.inference_mode():
+            want = live_chunks(sig3, len3, ARTIFACT_BUCKETS,
+                               pipe.recognize_batch)
+            ok = np.concatenate(live_chunks(
+                sig3, len3, ARTIFACT_BUCKETS,
+                lambda s, n, b: (am_margins(pipe, s, n, b),)))
+        same = [bool((got[k][ok] == w[ok]).all())
+                for k, w in zip(("pny", "pny_len", "han"), want)]
+        every = [bool((got[k] == w).all())
+                 for k, w in zip(("pny", "pny_len", "han"), want)]
+        print(f"artifact in a fresh process (loads {res['load_s']:.1f} s, "
+              f"runs {res['run_s']:.1f} s; no models / train module) vs "
+              f"live Pipeline on phase 3's inputs: {int(ok.sum())}/{len(ok)} "
+              f"rows with every margin >= 1e-3, ids / lengths / hanzi "
+              f"equal there {same}, on every row {every}")
+        require(all(same), "artifact ids differ from the live Pipeline")
+        live_e2e = E2EServing(e2e_model, ev, feature_dim=E2E_NFILT,
+                              lfr_m=E2E_LFR[0], lfr_n=E2E_LFR[1],
+                              max_len=E2E_MAX_LEN,
+                              batch_sizes=E2E_ARTIFACT[0],
+                              buckets=E2E_ARTIFACT[1])
+        w_ids, w_len = live_e2e.recognize_batch(sig7, len7)
+        e2e_ok = e2e_margin_rows(e2e_model, sig7, len7)
+        same = bool((got["e2e"][e2e_ok] == w_ids[e2e_ok]).all()
+                    and (got["e2e_len"][e2e_ok] == w_len[e2e_ok]).all())
+        print(f"artifact e2e vs live E2EServing on phase 7's inputs: "
+              f"{int(e2e_ok.sum())}/{len(e2e_ok)} rows with every step's "
+              f"margin >= 1e-3, equal there {same}, on every row "
+              f"{bool((got['e2e'] == w_ids).all())}")
+        require(same, "e2e artifact ids differ from the live E2EServing")
+        counts = res["launches"]
+        print(f"artifact launch counts (greedy + beam + e2e): {counts}")
+        for name in ARTIFACT_KERNELS:
+            require(counts.get(name, 0) > 0,
+                    f"{name} was never launched by an artifact")
+            results[name]["artifact_launches"] = counts[name]
+        served = load_artifact(paths["greedy"])
+        runs = {"live": lambda: live_chunks(sig3[8:], len3[8:],
+                                            ARTIFACT_BUCKETS,
+                                            pipe.recognize_batch),
+                "artifact": lambda: served.recognize_batch(sig3[8:],
+                                                           len3[8:])}
+        runs["artifact"]()                          # loads its program
+        ms = {k: [] for k in runs}
+        for name in ("live", "artifact", "artifact", "live") * 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+        med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+        print(f"artifact ms per batch at (8, 1600), greedy, in turns with "
+              f"the live Pipeline: artifact {med['artifact']:.2f}, live "
+              f"{med['live']:.2f} (p50 of 6 each; ranges "
+              f"{min(ms['artifact']):.2f}-{max(ms['artifact']):.2f} and "
+              f"{min(ms['live']):.2f}-{max(ms['live']):.2f})")
+
+        wav = str(work / "utt.wav")
+        write_wav(wav, sig3[3][:len3[3]])
+        run_cli(results, "infer-artifact",
+                ["infer-artifact", "--artifact", paths["greedy"], "--wav",
+                 wav])
+        serve_cli(paths["greedy"], wav)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def e2e_margin_rows(model, sig, lens):
+    """[B] whether every greedy step of the live cached decode had a top-2
+    margin >= MARGIN, per utterance (bucket 512, as the artifact)."""
+    import torch
+    from asr_dfcnn_transformer_torch.audio.fbank import FbankConfig
+    from asr_dfcnn_transformer_torch.infer.e2e_serving import e2e_start
+    from asr_dfcnn_transformer_torch.models import speech_transformer as st
+    smp = (E2E_ARTIFACT[1][-1] - 1) * 160 + 400
+    buf = np.zeros((len(lens), smp), np.float32)
+    buf[:, :min(smp, sig.shape[1])] = sig[:, :smp]
+    n = np.minimum(lens, smp).astype(np.int32)
+    margins = []
+    with torch.inference_mode():
+        state, consts = e2e_start(
+            model, torch.from_numpy(buf).to(DEVICE),
+            torch.from_numpy(n).to(DEVICE), E2E_ARTIFACT[1][-1],
+            fbank_cfg=FbankConfig(nfilt=E2E_NFILT), lfr_m=E2E_LFR[0],
+            lfr_n=E2E_LFR[1], decode="greedy", beam_width=E2E_BEAM,
+            max_len=E2E_MAX_LEN)
+        for i in range(E2E_MAX_LEN):
+            state, logits = st.greedy_step(model, state, consts, i)
+            margins.append(top2_margin(logits.float().cpu()))
+    return (torch.stack(margins).min(dim=0).values >= MARGIN).numpy()
+
+
+def serve_cli(artifact: str, wav: str):
+    """``serve --artifact --max-requests 2`` through the CLI's ``main`` on
+    a free port, in a thread of this process: two POSTs of ``wav``
+    answered, then the command returns."""
+    import http.client
+    import socket
+    import threading
+
+    from asr_dfcnn_transformer_torch.train import cli
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    errors = []
+
+    def serve():
+        try:
+            cli.main(["serve", "--artifact", artifact, "--port", str(port),
+                      "--max-requests", "2"])
+        except BaseException as e:   # surfaced below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    with open(wav, "rb") as f:
+        body = f.read()
+    answers = []
+    deadline = time.monotonic() + 300
+    while len(answers) < 2:
+        require(not errors, f"serve failed: {errors}")
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            conn.request("POST", "/v1/recognize", body=body)
+            r = conn.getresponse()
+            answers.append((r.status, json.loads(r.read().decode())))
+            conn.close()
+        except ConnectionRefusedError:
+            require(time.monotonic() < deadline, "serve never listened")
+            time.sleep(0.2)
+    thread.join(timeout=120)
+    require(not thread.is_alive() and not errors,
+            f"serve did not return after 2 requests: {errors}")
+    for status, out in answers:
+        require(status == 200 and isinstance(out.get("pinyin"), list),
+                f"serve answered {status}: {out}")
+    print(f"cli serve --artifact --max-requests 2: two answers "
+          f"({len(answers[0][1]['pinyin'])} pinyin) in "
+          f"{time.perf_counter() - t0:.1f} s, then returned")
+
+
+def phase_serving(results):
+    """Phase 16: streaming, the stream pool, the HTTP server and the
+    serving artifacts at full width."""
+    t0 = time.perf_counter()
+    pipes = stream_one(results)
+    t1 = time.perf_counter()
+    utts = stream_pool(results, pipes)
+    t2 = time.perf_counter()
+    pipe, _ = http_server(results, pipes, utts)
+    t3 = time.perf_counter()
+    artifacts(results, pipe)
+    t4 = time.perf_counter()
+    print(f"phase 16: {t4 - t0:.1f} s (stream {t1 - t0:.1f}, pool "
+          f"{t2 - t1:.1f}, http {t3 - t2:.1f}, artifacts {t4 - t3:.1f})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3295,11 +4066,14 @@ def main() -> int:
     phase_cli(results)
     phase_am_family(results)
     phase_gates(results)
+    phase_serving(results)
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in results.values()]}))
+    extra = ("stream_launches", "artifact_launches")   # phase 16's counts
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
+        for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

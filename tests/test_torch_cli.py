@@ -321,3 +321,123 @@ def test_jax_cli_workdir_evaluated_by_the_port_cli(tmp_path, capsys):
         for ext in (".index", ".data-00000-of-00001"):
             with open(out + ext, "rb") as a, open(ref + ext, "rb") as b:
                 assert a.read() == b.read(), what + ext
+
+
+# ---- streaming and serving commands ------------------------------------
+
+def _wav(workdir):
+    return os.path.join(workdir, "synthetic", "wav", "test", "utt_0.wav")
+
+
+def _ns(workdir):
+    """The parsed arguments of ``infer`` on the workdir, as main() gives
+    them to a command."""
+    args = cli._build_parser().parse_args(
+        ["infer", "--workdir", workdir, "--wav", "x"] + SMALL)
+    args.device = torch.device("cpu")
+    args.cfg = cli._apply_config(args)
+    return args
+
+
+def _result_lines(out):
+    return [ln for ln in out.splitlines() if ln.startswith(("拼音:", "汉字:"))]
+
+
+def test_cli_infer_streaming(workdir, capsys):
+    """infer --streaming prints a partial per pushed chunk, then the final
+    hypothesis of the incremental recognizer."""
+    from asr_dfcnn_transformer_torch.audio.wav import read_wav
+    from asr_dfcnn_transformer_torch.infer.streaming import (
+        IncrementalRecognizer)
+    cli.main(["infer", "--workdir", workdir, "--wav", _wav(workdir),
+              "--streaming", "--chunk-seconds", "0.4"] + SMALL)
+    out = capsys.readouterr().out
+    sig, sr = read_wav(_wav(workdir))
+    partials = [ln for ln in out.splitlines() if ln.startswith("[")]
+    assert len(partials) == -(-len(sig) // int(0.4 * sr))
+    assert partials[-1].startswith(f"[{len(sig) / sr:6.2f}s]")
+    pipe, _, _ = cli._load_pipeline(_ns(workdir))
+    rec = IncrementalRecognizer(pipe)
+    rec.push(sig)
+    pinyin, hanzi = rec.finalize()
+    assert _result_lines(out) == ["拼音: " + " ".join(pinyin),
+                                  "汉字: " + hanzi]
+
+
+def test_cli_export_serving_and_infer_artifact(workdir, capsys, tmp_path):
+    """export-serving writes the pipeline artifact from the workdir's
+    checkpoints; infer-artifact recognizes a wav from it alone, as infer
+    does from the workdir (the artifact holds infer's bucket)."""
+    from asr_dfcnn_transformer_torch.audio.fbank import frames_for_samples
+    from asr_dfcnn_transformer_torch.audio.wav import read_wav
+    from asr_dfcnn_transformer_torch.infer import infer_bucket_frames
+    bucket = infer_bucket_frames(frames_for_samples(len(read_wav(
+        _wav(workdir))[0])))
+    path = str(tmp_path / "served.zip")
+    cli.main(["export-serving", "--workdir", workdir, "--out", path,
+              "--serve-batch-sizes", "1", "--serve-buckets", str(bucket)]
+             + SMALL)
+    out = capsys.readouterr().out
+    assert "kind=am_lm, 1 entry points" in out and "device=cpu" in out
+    cli.main(["infer-artifact", "--artifact", path, "--wav", _wav(workdir),
+              "--platform", "cpu"])
+    got = _result_lines(capsys.readouterr().out)
+    cli.main(["infer", "--workdir", workdir, "--wav", _wav(workdir)]
+             + SMALL)
+    assert got == _result_lines(capsys.readouterr().out)
+    assert len(got) == 2
+    with pytest.raises(SystemExit, match="runs on cpu"):
+        cli.main(["infer-artifact", "--artifact", path, "--wav",
+                  _wav(workdir), "--platform", "cuda"])
+
+
+def test_cli_export_serving_refusals(workdir, tmp_path):
+    with pytest.raises(SystemExit, match="exported on"):
+        cli.main(["export-serving", "--workdir", workdir, "--out",
+                  str(tmp_path / "x.zip"), "--serve-platforms", "tpu"]
+                 + SMALL)
+    with pytest.raises(FileNotFoundError):
+        cli.main(["export-serving", "--workdir", str(tmp_path / "none"),
+                  "--out", str(tmp_path / "x.zip")] + SMALL)
+
+
+def test_cli_export_serving_e2e_and_serve(workdir, capsys, tmp_path):
+    """The e2e artifact through infer-artifact; then serve --artifact
+    --max-requests 2 in a fresh process answers two POSTs and exits."""
+    e2e = str(tmp_path / "e2e.zip")
+    cli.main(["export-serving", "--workdir", workdir, "--out", e2e,
+              "--what", "e2e", "--serve-batch-sizes", "1",
+              "--serve-buckets", "512"] + SMALL)
+    assert "kind=e2e, 1 entry points" in capsys.readouterr().out
+    cli.main(["infer-artifact", "--artifact", e2e, "--wav", _wav(workdir),
+              "--platform", "cpu"])
+    lines = _result_lines(capsys.readouterr().out)
+    assert len(lines) == 1 and lines[0].startswith("汉字:")
+
+    import http.client
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "asr_dfcnn_transformer_torch.train.cli",
+         "serve", "--artifact", e2e, "--platform", "cpu", "--port", "0",
+         "--max-requests", "2"], env=dict(os.environ, PYTHONPATH=REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        first = proc.stdout.readline()
+        m = re.search(r"serving on http://127.0.0.1:(\d+) \(backend: "
+                      r"artifact-e2e\)", first)
+        assert m, (first, proc.stderr.read() if proc.poll() else "")
+        with open(_wav(workdir), "rb") as f:
+            body = f.read()
+        for _ in range(2):
+            conn = http.client.HTTPConnection("127.0.0.1", int(m.group(1)),
+                                              timeout=120)
+            conn.request("POST", "/v1/recognize", body=body)
+            r = conn.getresponse()
+            out = json.loads(r.read().decode())
+            conn.close()
+            assert r.status == 200
+            assert "汉字: " + out["hanzi"] == lines[0]
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

@@ -3,12 +3,14 @@
 ``test_synthetic_{cer,fast,e2e}_gate.py`` with their corpus, seeds, widths,
 steps, learning rates and thresholds, and the beam gate on the cer gate's
 weights. Every test is marked slow: the three gates take about 1.5, 1
-and 2 minutes of CPU each.
+and 2 minutes of CPU each. The check that each gate trains under
+PyTorch's deterministic algorithms is not slow.
 
     python -m pytest tests/test_torch_gates.py -m slow
 """
 
 import pytest
+import torch
 
 from asr_dfcnn_transformer_torch import gates
 from tests._torch_cpu import use_two_threads
@@ -74,3 +76,26 @@ def test_misses_name_each_failed_condition():
     assert gates.e2e_misses(e2e) == []
     assert len(gates.e2e_misses(dict(e2e, teacher_forced=0.95,
                                       hanzi=0.85, utterances=99))) == 3
+
+
+@pytest.mark.parametrize("gate", gates.GATES)
+def test_gates_train_under_deterministic_algorithms(gate, monkeypatch):
+    """Each gate runs under ``torch.use_deterministic_algorithms`` (on the
+    card cuDNN's default convolution backward and ``scatter_add_`` do not
+    repeat from run to run) and restores the setting afterwards, also when
+    the gate raises."""
+    seen = []
+
+    def corpus(*args):
+        seen.append((torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled()))
+        raise RuntimeError("stop")
+
+    monkeypatch.setattr(gates, "corpus", corpus)
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    with pytest.raises(RuntimeError, match="stop"):
+        gates.run(gate, "cpu")
+    assert seen == [(True, True)]
+    assert (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled()) == before
