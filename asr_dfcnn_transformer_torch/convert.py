@@ -8,7 +8,9 @@ Flax tree's names, so a path maps onto a state_dict key one to one; only
 the leaves change:
 
 - conv ``kernel`` HWIO [kh, kw, in, out] -> ``weight`` OIHW;
-- dense ``kernel`` [in, out] -> ``weight`` [out, in];
+- dense ``kernel`` [in, out] -> ``weight`` [out, in] (also the Keras GRU's
+  fused ``kernel`` [F, 3H]), and the Keras GRU's ``recurrent_kernel``
+  [H, 3H] -> ``recurrent_weight`` [3H, H];
 - BatchNorm / LayerNorm ``scale`` -> ``weight``; batch_stats ``mean`` /
   ``var`` -> ``running_mean`` / ``running_var``;
 - ``bias`` and ``embedding`` as they are.
@@ -39,6 +41,8 @@ def _leaf(name: str, value: np.ndarray) -> tuple:
         if a.ndim == 2:
             return "weight", a.T
         raise ValueError(f"unexpected kernel rank {a.ndim}")
+    if name == "recurrent_kernel":
+        return "recurrent_weight", a.T
     if name == "scale":
         return "weight", a
     if name in ("bias", "embedding"):
@@ -96,15 +100,49 @@ def e2e_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return flax_to_state_dict(variables)
 
 
-_KINDS = ("am", "lm", "e2e")
+def bigru_state_dict(variables: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """``BiGRUCTC`` variables (params only), either recurrence: the Flax
+    ``GRUCell_{i}`` Dense layers (``ir`` / ``iz`` / ``in`` / ``hr`` /
+    ``hz`` / ``hn``) of the default path, or the Keras ``gru_{fwd,bwd}_{i}``
+    ``kernel`` / ``recurrent_kernel`` / ``bias`` of ``keras_parity`` (what
+    ``infer/hdf5_import.load_keras_bigru_hdf5`` gives) -> the port's
+    ``BiGRUCTC`` state_dict (load with ``strict=True``)."""
+    if "batch_stats" in variables:
+        raise ValueError("BiGRU variables hold no batch statistics")
+    return flax_to_state_dict(variables)
+
+
+def atten_state_dict(variables: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """``CTCAttention`` variables (params + the conv cells' batch_stats)
+    -> the port's ``CTCAttention`` state_dict (load with ``strict=True``)."""
+    if "batch_stats" not in variables:
+        raise ValueError("CTC-attention variables need batch_stats")
+    return flax_to_state_dict(variables)
+
+
+def joint_state_dict(variables: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """``AMLMJoint`` variables (``am`` / ``lm`` params + the AM's
+    batch_stats) -> the port's ``AMLMJoint`` state_dict (load with
+    ``strict=True``)."""
+    if "batch_stats" not in variables:
+        raise ValueError("joint variables need the AM's batch_stats")
+    return flax_to_state_dict(variables)
+
+
+_KINDS = ("am", "lm", "e2e", "bigru", "atten", "joint")
+_NO_STATS = ("lm", "bigru")
 _FLAX_STATS = {v: k for k, v in _STAT_NAMES.items()}
 
 
 def state_dict_to_flax(sd: Mapping[str, torch.Tensor], kind: str
                        ) -> Dict[str, Any]:
     """The exact inverse of :func:`flax_to_state_dict` for a model of
-    ``kind`` ("am", "lm" or "e2e"): f32 numpy leaves, OIHW conv weights
-    back to HWIO ``kernel``, [out, in] dense weights to [in, out],
+    ``kind`` ("am", "lm", "e2e", "bigru", "atten" or "joint"): f32 numpy
+    leaves, OIHW conv weights back to HWIO ``kernel``, [out, in] dense
+    weights to [in, out], ``recurrent_weight`` to ``recurrent_kernel``,
     1-D ``weight`` to ``scale``, ``running_mean`` / ``running_var`` to
     batch_stats ``mean`` / ``var``."""
     if kind not in _KINDS:
@@ -120,6 +158,8 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor], kind: str
                                           1: "scale"}[a.ndim]
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else \
                 a.T if a.ndim == 2 else a
+        elif name == "recurrent_weight":
+            collection, leaf, a = "params", "recurrent_kernel", a.T
         elif name in ("bias", "embedding"):
             collection, leaf = "params", name
         else:
@@ -128,9 +168,9 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor], kind: str
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(a)
-    if kind == "lm" and "batch_stats" in out:
-        raise ValueError("LM state_dicts hold no batch statistics")
-    if kind != "lm" and "batch_stats" not in out:
+    if kind in _NO_STATS and "batch_stats" in out:
+        raise ValueError(f"{kind} state_dicts hold no batch statistics")
+    if kind not in _NO_STATS and "batch_stats" not in out:
         raise ValueError(f"{kind} state_dicts need batch statistics")
     return out
 

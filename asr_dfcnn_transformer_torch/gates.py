@@ -1,10 +1,10 @@
 """The synthetic-corpus accuracy gates: train small models from scratch on
 the tone corpus and score them on its unseen test split.
 
-The port of the JAX package's ``tests/test_synthetic_{cer,fast,e2e}_gate.py``
-with their corpus, seeds, widths, steps, learning rates and thresholds, plus
-the beam gate (the cer gate's trained weights decoded with the prefix beam
-search). They are the one check that catches an accuracy fault end to end:
+The port of the JAX package's
+``tests/test_synthetic_{cer,fast,e2e,atten,joint,bigru}_gate.py`` with their
+corpora, seeds, widths, steps, learning rates and thresholds, plus the beam
+gate (the cer gate's trained weights decoded with the prefix beam search). They are the one check that catches an accuracy fault end to end:
 a CTC gradient that is wrong but finite, a decode or an LM that loses
 tokens. The initial weights come from ``torch.Generator`` s, so they differ
 from the JAX package's, but follow the same initializers.
@@ -31,6 +31,9 @@ E2E_MIN_TEACHER_FORCED = 0.95    # the last training step's accuracy
 E2E_MIN_ACCURACY = 0.85          # cached greedy hanzi on the test split
 E2E_MIN_UTTERANCES = 100
 BEAM_SLACK = 0.01                # beam >= greedy - this, pinyin and hanzi
+ATTEN_MIN_ACCURACY = 0.8         # held-out hanzi, 1 - LER
+JOINT_MIN_LM_ACC = 0.92          # held-out lm_acc through the AM's decode
+BIGRU_MIN_ACCURACY = 0.65        # held-out pinyin, 1 - LER
 
 
 @contextlib.contextmanager
@@ -56,21 +59,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def corpus(root: str, num_utts: int):
+def corpus(root: str, num_utts: int, syllables=(2, 4), tone_ms: int = 250,
+           bucket: int = 128):
     """(train loader, test loader, acoustic vocab, language vocab) over the
     gates' synthetic corpus: ``num_utts`` utterances a split, 4 tone
-    classes, 2-4 syllables of 250 ms, seed 42, bucket 128."""
+    classes, ``syllables`` syllables of ``tone_ms`` (2-4 of 250 ms but in
+    the BiGRU gate), seed 42, one bucket of ``bucket`` frames."""
     from asr_dfcnn_transformer_torch.core import vocab
     from asr_dfcnn_transformer_torch.data import (DataLoader, load_manifests,
                                                   make_synthetic_corpus)
     data_dir, wav_root, _, _ = make_synthetic_corpus(
         os.path.join(root, "corpus"), num_utts=num_utts, num_classes=4,
-        syllables_per_utt=(2, 4), tone_ms=250, seed=42)
+        syllables_per_utt=syllables, tone_ms=tone_ms, seed=42)
     av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
 
     def mk(mode):
         return DataLoader(load_manifests(data_dir, mode, corpora=("thchs",)),
-                          av, lv, speech_root=wav_root, bucket_bounds=(128,))
+                          av, lv, speech_root=wav_root,
+                          bucket_bounds=(bucket,))
 
     return mk("train"), mk("test"), av, lv
 
@@ -258,7 +264,103 @@ def e2e_misses(out: Dict[str, float]) -> list:
     return bad
 
 
-GATES = ("cer", "fast", "e2e")
+def _train_and_score(trainer, train_dl, test_dl, steps: int, device,
+                     key: str) -> Dict[str, float]:
+    """``steps`` train steps over the train split's batches of 8 in order
+    (the dropout generator seeded 1), then the weight-aware dev mean of
+    the eval steps' ``key`` over the test split."""
+    from asr_dfcnn_transformer_torch.train.trainer import _dev_mean
+    trainer.restore_or_init()
+    gen = torch.Generator(device=device).manual_seed(1)
+    batches = list(train_dl.am_batches(8, shuffle=False))
+    t0 = time.perf_counter()
+    for step in range(steps):
+        m = trainer.train_step(batches[step % len(batches)], gen)
+    _sync(device)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evals = [trainer.eval_step(b)
+             for b in test_dl.am_batches(8, shuffle=False)]
+    return {key: _dev_mean(evals, key), "last_loss": float(m["loss"]),
+            "train_s": t_train, "eval_s": time.perf_counter() - t0}
+
+
+@_reproducible()
+def atten_gate(root: str, device) -> Dict[str, float]:
+    """The CTC-attention gate: an f32 ``CTCAttention`` (d 64, 4 heads, 2
+    blocks, dropout 0, the reference's ``ceil(T/4)`` lengths) over
+    40-filter fbank (LFR 4 / 3) for 400 steps at lr 1e-3, batch 8 over 96
+    utterances; ``accuracy`` = 1 - the held-out hanzi LER."""
+    from asr_dfcnn_transformer_torch.models import (CTCAttention,
+                                                    CTCAttentionConfig)
+    from asr_dfcnn_transformer_torch.train import AttenTrainer
+    device = torch.device(device)
+    train_dl, test_dl, _, lv = corpus(root, 96)
+    model = CTCAttention(CTCAttentionConfig(
+        lv.size, d_model=64, num_heads=4, num_blocks=2, dropout_rate=0.0,
+        parity_lengths=True, dtype=torch.float32), feature_dim=4 * 40,
+        device=device, generator=torch.Generator().manual_seed(0))
+    tr = AttenTrainer(model, os.path.join(root, "work"), lr=1e-3,
+                      feature_dim=40)
+    out = _train_and_score(tr, train_dl, test_dl, 400, device, "ler")
+    out["accuracy"] = 1.0 - out["ler"]
+    return out
+
+
+@_reproducible()
+def joint_gate(root: str, device) -> Dict[str, float]:
+    """The joint gate: the small f32 ``AMLMJoint`` over 40-filter fbank for
+    450 steps at lr 1.5e-3, batch 8 over 96 utterances; ``lm_acc`` is the
+    held-out hanzi accuracy of the LM on the AM's own greedy pinyin."""
+    from asr_dfcnn_transformer_torch.models import AMLMJoint, AMLMJointConfig
+    from asr_dfcnn_transformer_torch.train import JointTrainer
+    device = torch.device(device)
+    train_dl, test_dl, av, lv = corpus(root, 96)
+    model = AMLMJoint(AMLMJointConfig(av.size, lv.size, small=True,
+                                      dtype=torch.float32),
+                      feature_dim=40, device=device,
+                      generator=torch.Generator().manual_seed(0))
+    tr = JointTrainer(model, os.path.join(root, "work"), lr=1.5e-3,
+                      feature_dim=40)
+    return _train_and_score(tr, train_dl, test_dl, 450, device, "lm_acc")
+
+
+@_reproducible()
+def bigru_gate(root: str, device) -> Dict[str, float]:
+    """The BiGRU gate: an f32 ``BiGRUCTC`` (hidden 48, 1 layer, dropout 0.1)
+    through ``AMTrainer`` over 40-filter fbank for 700 steps at lr 2e-3,
+    batch 8 over 160 utterances of 2-3 syllables of 200 ms in 64-frame
+    buckets; ``accuracy`` = 1 - the held-out pinyin LER."""
+    from asr_dfcnn_transformer_torch.models import BiGRUCTC, BiGRUCTCConfig
+    from asr_dfcnn_transformer_torch.train import AMTrainer
+    device = torch.device(device)
+    train_dl, test_dl, av, _ = corpus(root, 160, (2, 3), 200, 64)
+    model = BiGRUCTC(BiGRUCTCConfig(av.size, hidden=48, num_layers=1,
+                                    dropout_rate=0.1, dtype=torch.float32),
+                     feature_dim=40, device=device,
+                     generator=torch.Generator().manual_seed(0))
+    tr = AMTrainer(model, os.path.join(root, "work"), lr=2e-3,
+                   feature_dim=40)
+    out = _train_and_score(tr, train_dl, test_dl, 700, device, "ler")
+    out["accuracy"] = 1.0 - out["ler"]
+    return out
+
+
+#: gate -> (its function, the key it is scored by, the floor above which
+#: that key must lie)
+SCORED_GATES = {"atten": (atten_gate, "accuracy", ATTEN_MIN_ACCURACY),
+                "joint": (joint_gate, "lm_acc", JOINT_MIN_LM_ACC),
+                "bigru": (bigru_gate, "accuracy", BIGRU_MIN_ACCURACY)}
+
+
+def scored_misses(gate: str, out: Dict[str, float]) -> list:
+    """A scored gate's failed condition (empty: passed)."""
+    _, key, floor = SCORED_GATES[gate]
+    return [] if out[key] > floor else [f"{gate} {key} {out[key]:.4f} <= "
+                                        f"{floor}"]
+
+
+GATES = ("cer", "fast", "e2e") + tuple(SCORED_GATES)
 
 
 def run(gate: str, device) -> Tuple[Dict[str, float], list]:
@@ -268,6 +370,11 @@ def run(gate: str, device) -> Tuple[Dict[str, float], list]:
         if gate == "e2e":
             out = e2e_gate(root, device)
             return out, e2e_misses(out)
+        if gate in SCORED_GATES:
+            t0 = time.perf_counter()
+            out = SCORED_GATES[gate][0](root, device)
+            out["wall_s"] = time.perf_counter() - t0
+            return out, scored_misses(gate, out)
         out = am_lm_gate(root, device, fast=gate == "fast",
                          beam=gate == "cer")
         return out, am_lm_misses(out)

@@ -1,6 +1,6 @@
-"""Keras ``.hdf5`` weights of the reference's ``cnn_ctc`` acoustic model, in
-and out: the port's own copy of ``infer/hdf5_import.py`` (numpy and h5py
-only, as there).
+"""Keras ``.hdf5`` weights of the reference's ``cnn_ctc`` and ``cnn_rnn_ctc``
+acoustic models, in and out: the port's own copy of
+``infer/hdf5_import.py`` (numpy and h5py only, as there).
 
 The reference ships its best acoustic models as Keras weight files
 (``model_05.7.64.hdf5``, ``model_04-14.91.hdf5``, README.md:21-23), loaded
@@ -9,6 +9,8 @@ Flax variable tree of ``KerasDFCNN`` (``{"params": ..., "batch_stats":
 ...}`` of numpy arrays), which ``convert.am_state_dict`` turns into the
 port's ``KerasDFCNN`` state_dict; :func:`save_keras_dfcnn_hdf5` writes such
 a tree (``convert.state_dict_to_flax``) back as a Keras weights file.
+:func:`load_keras_bigru_hdf5` / :func:`save_keras_bigru_hdf5` do the same
+for ``BiGRUCTC(keras_parity=True)`` (``convert.bigru_state_dict``).
 
 Layout facts used:
 
@@ -22,8 +24,7 @@ Layout facts used:
 - The Keras model's softmax output is dropped: the head emits raw logits.
 
 ``h5py`` is imported inside the functions, so the package imports where it
-is missing; there they raise an ``ImportError`` that names it. The BiGRU
-(``cnn_rnn_ctc``) pair waits for ROADMAP Queue A 11.
+is missing; there they raise an ``ImportError`` that names it.
 """
 
 from __future__ import annotations
@@ -125,6 +126,111 @@ def load_keras_dfcnn_hdf5(path: str, vocab_size: int,
         raise ValueError(f"checkpoint dense width {denses[0][0].shape[1]} "
                          f"!= expected {dense_units}")
     return {"params": params, "batch_stats": batch_stats}
+
+
+def _sorted_by_index(layers: Dict[str, List[np.ndarray]], prefix: str):
+    """Layers named ``prefix`` / ``prefix_N`` (TF2, 0-based) or
+    ``prefix_1..`` (Keras 2, 1-based), sorted by creation index."""
+    keys = [k for k in layers
+            if k == prefix or (k.startswith(prefix + "_")
+                               and k[len(prefix) + 1:].isdigit())]
+    return [layers[k] for k in sorted(
+        keys, key=lambda k: int(k.split("_")[-1]) if k[-1].isdigit() else -1)]
+
+
+def hdf5_bigru_hidden(path: str) -> int:
+    """The hidden width of a cnn_rnn_ctc weight file (its first GRU's
+    kernel is [F, 3H])."""
+    h5py = _h5py()
+    with h5py.File(path, "r") as f:
+        grus = _sorted_by_index(_collect_layers(f), "gru")
+    if not grus:
+        raise ValueError(f"{path!r} holds no GRU layer")
+    return grus[0][0].shape[1] // 3
+
+
+def load_keras_bigru_hdf5(path: str, vocab_size: int,
+                          hidden: int | None = None):
+    """Load a cnn_rnn_ctc-layout Keras weight file into
+    ``BiGRUCTC(keras_parity=True)`` variables ({"params": ...} of numpy
+    arrays, for ``convert.bigru_state_dict``).
+
+    Creation order (cnn_rnn_ctc.py:37-47): Dense 512 x2, then per layer a
+    forward GRU and a ``go_backwards`` GRU, then Dense 512 and Dense
+    vocab. Each Keras GRU stores [kernel [F, 3H], recurrent_kernel
+    [H, 3H], bias [3H]], gates [z | r | h], taken as they are. ``hidden``
+    None reads the width from the file.
+    """
+    h5py = _h5py()
+    with h5py.File(path, "r") as f:
+        layers = _collect_layers(f)
+    denses = _sorted_by_index(layers, "dense")
+    grus = _sorted_by_index(layers, "gru")
+    if len(denses) != 4 or len(grus) != 6:
+        raise ValueError(
+            f"unexpected cnn_rnn_ctc layout: {len(denses)} denses, "
+            f"{len(grus)} GRUs (want 4/6)")
+    if denses[3][0].shape[1] != vocab_size:
+        raise ValueError(f"checkpoint vocab {denses[3][0].shape[1]} != "
+                         f"expected {vocab_size}")
+    if hidden is None:
+        hidden = grus[0][0].shape[1] // 3
+    if grus[0][0].shape[1] != 3 * hidden:
+        raise ValueError(f"checkpoint hidden {grus[0][0].shape[1] // 3} != "
+                         f"expected {hidden}")
+    params: Dict = {}
+    for i, d in enumerate(denses):
+        params[f"Dense_{i}"] = {"kernel": d[0], "bias": d[1]}
+    for layer in range(3):
+        for j, kind in enumerate(("fwd", "bwd")):
+            kernel, rec, bias = grus[2 * layer + j]
+            params[f"gru_{kind}_{layer}"] = {
+                "kernel": kernel, "recurrent_kernel": rec, "bias": bias}
+    return {"params": params}
+
+
+def save_keras_bigru_hdf5(path: str, variables, vocab_size: int,
+                          hidden: int = 512) -> None:
+    """Inverse of :func:`load_keras_bigru_hdf5` (Keras 2's 1-based layer
+    names, as the reference's ``model.save_weights`` writes them)."""
+    h5py = _h5py()
+    p = variables["params"]
+    if np.asarray(p["Dense_3"]["kernel"]).shape[1] != vocab_size:
+        raise ValueError("vocab mismatch")
+    if np.asarray(p["gru_fwd_0"]["kernel"]).shape[1] != 3 * hidden:
+        raise ValueError("hidden mismatch")
+    with h5py.File(path, "w") as f:
+        mw = f.create_group("model_weights")
+        layer_names = []
+
+        def put(lname: str, names_arrays):
+            g = mw.create_group(lname)
+            wnames = []
+            for suffix, arr in names_arrays:
+                wname = f"{lname}/{suffix}:0"
+                g.create_dataset(wname, data=np.asarray(arr, np.float32))
+                wnames.append(wname)
+            g.attrs["weight_names"] = np.array([n.encode() for n in wnames])
+            layer_names.append(lname)
+
+        def put_dense(idx: int, flax_name: str):
+            put(f"dense_{idx}", [("kernel", p[flax_name]["kernel"]),
+                                 ("bias", p[flax_name]["bias"])])
+
+        def put_gru(idx: int, flax_name: str):
+            put(f"gru_{idx}",
+                [("kernel", p[flax_name]["kernel"]),
+                 ("recurrent_kernel", p[flax_name]["recurrent_kernel"]),
+                 ("bias", p[flax_name]["bias"])])
+
+        put_dense(1, "Dense_0")
+        put_dense(2, "Dense_1")
+        for layer in range(3):
+            put_gru(2 * layer + 1, f"gru_fwd_{layer}")
+            put_gru(2 * layer + 2, f"gru_bwd_{layer}")
+        put_dense(3, "Dense_2")
+        put_dense(4, "Dense_3")
+        mw.attrs["layer_names"] = np.array([n.encode() for n in layer_names])
 
 
 def save_keras_dfcnn_hdf5(path: str, variables, vocab_size: int,

@@ -17,8 +17,10 @@ from its ``dropout`` rng.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+import threading
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -360,6 +362,31 @@ def attention_mask(q_valid: torch.Tensor, k_valid: torch.Tensor,
     return torch.where(mask, 0.0, BIG_NEG)
 
 
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capture_attention(model: nn.Module):
+    """Record the attention probabilities of every
+    :class:`MultiHeadAttention` in ``model`` while the context is open:
+    yields a dict {Flax module path ("block_0_attn",
+    "encoder/block_0/self_attn", ...): [B, H, Tq, Tk] probabilities in
+    the module's dtype, before dropout}, filled by the forwards run inside
+    it (the first call of each module). While capturing, each module takes
+    its plain branch, as the JAX module leaves its kernels under
+    ``capture_intermediates``; outside a capture nothing changes."""
+    names = {mod: name.replace(".", "/")
+             for name, mod in model.named_modules()
+             if isinstance(mod, MultiHeadAttention)}
+    maps: Dict[str, torch.Tensor] = {}
+    prev = getattr(_CAPTURE, "active", None)
+    _CAPTURE.active = (names, maps)
+    try:
+        yield maps
+    finally:
+        _CAPTURE.active = prev
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with residual + LayerNorm (layers.py:203-383).
     ``parity``: ReLU'd, bias-free Q/K/V/out projections. The head split is
@@ -441,8 +468,14 @@ class MultiHeadAttention(nn.Module):
         dropout_on = self.training and self.dropout_rate > 0.0
         q = self.project_q(queries)
         k, v = self._act(self.k(keys)), self._act(self.v(values))
-        if self.fused == "einsum" or self.d_model // self.num_heads > MAX_DH:
-            out = self._plain(q, k, v, k_valid, causal, generator)
+        capture = getattr(_CAPTURE, "active", None)
+        record = None
+        if capture is not None and self in capture[0]:
+            name, maps = capture[0][self], capture[1]
+            record = lambda p: maps.setdefault(name, p)   # noqa: E731
+        if (record is not None or self.fused == "einsum"
+                or self.d_model // self.num_heads > MAX_DH):
+            out = self._plain(q, k, v, k_valid, causal, generator, record)
             return self._finish(out, queries)
         grad = torch.is_grad_enabled() and any(x.requires_grad
                                                for x in (q, k, v))
@@ -463,11 +496,11 @@ class MultiHeadAttention(nn.Module):
         out = out.transpose(1, 2).reshape(b, tq, self.d_model)
         return self._finish(out, queries)
 
-    def _plain(self, q, k, v, k_valid, causal, generator):
+    def _plain(self, q, k, v, k_valid, causal, generator, record=None):
         """The JAX module's einsum branch on projected q [B, Tq, D], k / v
         [B, Tk, D]: f32 scores divided by sqrt(Dh), the additive
-        ``attention_mask``, f32 softmax, probabilities in the dtype, then
-        dropped, then P.V -> [B, Tq, D]."""
+        ``attention_mask``, f32 softmax, probabilities in the dtype (handed
+        to ``record`` when given), then dropped, then P.V -> [B, Tq, D]."""
         b, tq, _ = q.shape
         dh = self.d_model // self.num_heads
         q, k, v = self._heads(q), self._heads(k), self._heads(v)
@@ -480,6 +513,8 @@ class MultiHeadAttention(nn.Module):
                 torch.ones((b, tq), dtype=torch.bool, device=q.device), kv,
                 causal)
         probs = torch.softmax(scores, dim=-1).to(self.dtype)
+        if record is not None:
+            record(probs)
         probs = self.dropout(probs, generator)
         out = torch.matmul(probs.float(), v.float()).to(self.dtype)
         return out.transpose(1, 2).reshape(b, tq, self.d_model)

@@ -11,7 +11,9 @@ card, their twins on the CPU); around them is plain PyTorch:
   matmul at HIGHEST precision);
 - the alpha_0 row, the log P readout with its zero-frame case, the beta
   init row;
-- the backward: gamma by ``scatter_add`` over classes, then
+- the backward: gamma, the class sums of xi, a product with the one-hot
+  of the extended labels so that it repeats bit for bit on the card
+  (:func:`_class_sums`), then
   ``dlogits = exp(lp) * sum_s xi - gamma`` (or ``-gamma`` for log-prob
   inputs), scaled by the incoming gradient.
 
@@ -87,10 +89,26 @@ def _beta_init(valid, label_lengths):
     return torch.where(end & valid, 0.0, NEG_INF)
 
 
+def _class_sums(xi_b: torch.Tensor, ext: torch.Tensor,
+                v: int) -> torch.Tensor:
+    """gamma [B, T, V]: xi_b [B, T, S] summed over the states of each class,
+    as a product with the extended labels' one-hot [B, S, V] (the JAX
+    package's arithmetic). A product adds in an order that does not change
+    from run to run, where an atomic ``scatter_add_`` adds in whatever order
+    the card's threads arrive. It runs in f64, so that no matmul precision
+    setting (TF32) reaches it. Ids out of [0, V) (label padding) receive
+    nothing."""
+    b, s = ext.shape
+    idx, ok = _in_vocab(ext, v)
+    one_hot = torch.zeros((b, s, v), dtype=torch.float64, device=ext.device)
+    one_hot.scatter_(2, idx[:, :, None], ok[:, :, None].to(torch.float64))
+    return torch.bmm(xi_b.to(torch.float64), one_hot).to(torch.float32)
+
+
 class CTCLoss(torch.autograd.Function):
     """Forward: the alpha DP kernel. Backward: the fused beta/xi kernel,
-    then gamma by scatter over classes. Saves lp, the emissions, the
-    alphas [T, B, S] f32 and the loss."""
+    then gamma, the class sums of xi (:func:`_class_sums`). Saves lp, the
+    emissions, the alphas [T, B, S] f32 and the loss."""
 
     @staticmethod
     def forward(ctx, logits, logit_lengths, labels, label_lengths, blank,
@@ -120,11 +138,7 @@ class CTCLoss(torch.autograd.Function):
                          skip_from.contiguous(), valid, logit_lengths,
                          -loss)                                  # [T, B, S]
         xi_b = xi.permute(1, 0, 2)                               # [B, T, S]
-        b, t, v = lp.shape
-        idx, ok = _in_vocab(ext, v)
-        gamma = torch.zeros_like(lp).scatter_add_(
-            2, idx[:, None, :].expand(b, t, idx.shape[1]),
-            torch.where(ok[:, None, :], xi_b, 0.0))              # [B, T, V]
+        gamma = _class_sums(xi_b, ext, lp.shape[-1])             # [B, T, V]
         if ctx.logits_are_log_probs:
             dlp = -gamma
         else:

@@ -2,12 +2,15 @@
 
     python -m asr_dfcnn_transformer_torch.train.cli am       --workdir W [...]
     python -m asr_dfcnn_transformer_torch.train.cli lm       --workdir W [...]
+    python -m asr_dfcnn_transformer_torch.train.cli atten    --workdir W [...]
     python -m asr_dfcnn_transformer_torch.train.cli e2e      --workdir W [...]
+    python -m asr_dfcnn_transformer_torch.train.cli joint    --workdir W [...]
     python -m asr_dfcnn_transformer_torch.train.cli eval     --workdir W [...]
     python -m asr_dfcnn_transformer_torch.train.cli eval-lm  --workdir W [...]
     python -m asr_dfcnn_transformer_torch.train.cli eval-e2e --workdir W [...]
+    python -m asr_dfcnn_transformer_torch.train.cli eval-atten --workdir W [...]
     python -m asr_dfcnn_transformer_torch.train.cli infer    --workdir W --wav f.wav [--streaming]
-    python -m asr_dfcnn_transformer_torch.train.cli export   --workdir W --out P [--what am|lm] [--format tf1|hdf5]
+    python -m asr_dfcnn_transformer_torch.train.cli export   --workdir W --out P [--what am|lm|bigru] [--format tf1|hdf5]
     python -m asr_dfcnn_transformer_torch.train.cli export-serving --workdir W --out A.zip [--what pipeline|e2e]
     python -m asr_dfcnn_transformer_torch.train.cli infer-artifact --artifact A.zip --wav f.wav
     python -m asr_dfcnn_transformer_torch.train.cli serve    (--workdir W | --artifact A.zip) [--streams N]
@@ -20,17 +23,18 @@ models are built through ``train/factory.py`` from the resolved config, so
 ``--config`` reaches their kernel selectors (``fused_ffn="pallas"``); with
 the default config they are the JAX CLI's models field for field, and
 ``--small`` builds the JAX CLI's small models. ``--synthetic N`` writes the
-JAX CLI's tone corpus under ``<workdir>/synthetic``.
+JAX CLI's tone corpus under ``<workdir>/synthetic``. ``atten`` and
+``joint`` build the JAX CLI's CTC-attention and joint models as it does,
+outside the config tree; ``--tensorboard`` on the five training commands
+writes TensorBoard event files under ``<workdir>/tb/<name>`` (e2e: with
+attention images).
 
 A serving artifact (``export-serving``) runs on the device it was exported
 on: ``infer-artifact`` and ``serve --artifact`` take ``--platform cpu`` for
 one exported with ``--platform cpu``, and ``--serve-platforms`` can only
 name the exporting device.
 
-Not ported yet, each with its ROADMAP Queue A item: ``atten``, ``joint``
-and ``eval-atten`` (A 11), ``--model bigru`` and the BiGRU's ``.hdf5``
-(``export --what bigru``, ``eval --am-hdf5 --model bigru``; A 11),
-``--tensorboard`` (A 5.7), ``--distributed`` (A 12).
+Not ported yet: ``--distributed`` (ROADMAP Queue A 12).
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import torch
 
 AM_NAMES = ["dfcnn", "se_dfcnn", "se_dfcnn_pre", "se_dfcnn_fast",
             "keras_dfcnn", "bigru"]
-TRAIN_COMMANDS = ("am", "lm", "e2e")
+TRAIN_COMMANDS = ("am", "lm", "atten", "e2e", "joint")
 
 
 def _build_parser():
@@ -81,14 +85,14 @@ def _build_parser():
                              "architecture differs STRUCTURALLY from the "
                              "requested model (train/identity.py)")
 
-    for name in ("am", "lm", "e2e", "eval", "eval-lm", "eval-e2e"):
+    for name in ("am", "lm", "atten", "e2e", "joint", "eval", "eval-lm",
+                 "eval-e2e", "eval-atten"):
         sp = sub.add_parser(name)
         common(sp)
         if name in ("am", "eval"):
             sp.add_argument("--model", default="se_dfcnn", choices=AM_NAMES,
                             help="acoustic model architecture; eval must "
-                                 "match what `am` trained (the port builds "
-                                 "all but bigru)")
+                                 "match what `am` trained")
             sp.add_argument("--logits-matmul", default="f32",
                             choices=["f32", "bf16"],
                             help="final vocab-projection matmul: f32 "
@@ -101,6 +105,12 @@ def _build_parser():
             sp.add_argument("--augment-spec", action="store_true",
                             help="SpecAugment time/freq masking in the "
                                  "train step (e2e: before LFR stacking)")
+        if name in TRAIN_COMMANDS:
+            sp.add_argument("--tensorboard", action="store_true",
+                            help="also write TensorBoard event files to "
+                                 "<workdir>/tb/<name> (utils/tb_events.py); "
+                                 "e2e also writes each dev sweep's "
+                                 "attention maps as images")
         if name in ("eval", "eval-e2e"):
             sp.add_argument("--decode", default="greedy",
                             choices=["greedy", "beam"])
@@ -111,8 +121,9 @@ def _build_parser():
                             help="load the acoustic model from a Keras "
                                  ".hdf5 weight file instead of the "
                                  "workdir's checkpoint (cnn_ctc layout, "
-                                 "e.g. the reference's model_05.7.64.hdf5; "
-                                 "needs h5py)")
+                                 "e.g. the reference's model_05.7.64.hdf5, "
+                                 "or the cnn_rnn_ctc layout with --model "
+                                 "bigru; needs h5py)")
             sp.add_argument("--am-tf-ckpt", default=None,
                             help="load the SE-DFCNN acoustic model from a "
                                  "TF1 tensor_bundle checkpoint prefix "
@@ -145,13 +156,13 @@ def _build_parser():
     sp.add_argument("--format", default="tf1", choices=["tf1", "hdf5"],
                     help="tf1 = tensor_bundle (Saver) files for SE-DFCNN "
                          "(--what am) or the Transformer LM (--what lm); "
-                         "hdf5 = Keras cnn_ctc weights (keras_dfcnn only; "
-                         "needs h5py)")
+                         "hdf5 = Keras cnn_ctc weights (keras_dfcnn) or "
+                         "cnn_rnn_ctc weights (--what bigru); needs h5py")
     sp.add_argument("--what", default="am", choices=["am", "lm", "bigru"],
                     help="which trained model to export: the acoustic "
-                         "model (am, default) or the language model (lm, "
-                         "tf1 only); bigru is not ported yet (ROADMAP "
-                         "Queue A 11)")
+                         "model (am, default), the language model (lm, "
+                         "tf1 only), or a keras_parity BiGRU AM (bigru, "
+                         "hdf5 only)")
     sp.add_argument("--use-latest", action="store_true",
                     help="export the latest checkpoint instead of the "
                          "metric-gated best")
@@ -245,7 +256,7 @@ def _apply_config(args):
     else:
         cfg = Config()
     # CLI flags win; config fills the gaps
-    if args.lr is None and args.cmd == "am":
+    if args.lr is None and args.cmd in ("am", "atten", "joint"):
         args.lr = cfg.am.lr
     if args.lr is None and args.cmd == "lm":
         args.lr = cfg.lm.lr
@@ -320,13 +331,16 @@ def _am_model(args, name: str, vocab_size: int):
     lg = getattr(args, "logits_matmul", "f32")
     if args.small:
         kw = dict(logits_matmul=lg, dtype=torch.float32)
-        if name == "dfcnn":
+        if name == "bigru":
+            model, cfg = models.BiGRUCTC, models.BiGRUCTCConfig(
+                vocab_size, hidden=32, num_layers=1, **kw)
+        elif name == "dfcnn":
             model, cfg = models.DFCNN, models.DFCNNConfig(vocab_size, **kw)
         elif name == "keras_dfcnn":
             model, cfg = models.KerasDFCNN, models.KerasDFCNNConfig(
                 vocab_size, dense_units=16, **kw)
         else:
-            factory.am_architecture(name)        # bigru raises
+            factory.am_architecture(name)        # unknown names raise
             model, cfg = models.SEDFCNN, models.SEDFCNNConfig(
                 vocab_size, stage_features=(4, 4, 8, 8, 8), head_features=8,
                 se_first=name == "se_dfcnn_pre", **kw)
@@ -373,6 +387,8 @@ def _step_generator(args) -> torch.Generator:
 
 def _trainer_flags(tr, args):
     tr.allow_model_mismatch = getattr(args, "force_model_mismatch", False)
+    if getattr(args, "tensorboard", False):
+        tr.enable_tensorboard()
     return tr
 
 
@@ -406,6 +422,91 @@ def cmd_lm(args):
                  lambda: dev_dl.lm_batches(bsz, shuffle=False),
                  epochs=args.epochs or 100, generator=_step_generator(args))
     print("lm training done:", out)
+
+
+def _atten_trainer(args, lv, **kw):
+    """The JAX CLI's CTC-attention model (``--small``: d 32, 4 heads, one
+    block, f32) over LFR rows of 4 x 200 fbank filters, and its trainer."""
+    from asr_dfcnn_transformer_torch.models import (CTCAttention,
+                                                    CTCAttentionConfig)
+    from asr_dfcnn_transformer_torch.train import AttenTrainer
+    cfg = (CTCAttentionConfig(lv.size, d_model=32, num_heads=4, num_blocks=1,
+                              dropout_rate=0.0, dtype=torch.float32)
+           if args.small else CTCAttentionConfig(lv.size))
+    model = CTCAttention(cfg, feature_dim=4 * 200, device=args.device,
+                         generator=_init_generator(args))
+    return _trainer_flags(AttenTrainer(model, args.workdir, **kw), args)
+
+
+def cmd_atten(args):
+    """CTC-attention: LFR fbank -> hanzi CTC (train_atten.py capability)."""
+    from asr_dfcnn_transformer_torch.data import prefetch
+    bsz = args.batch_size or 16
+    loader, _, lv = _data(args, bsz, _bounds(args))
+    train_dl, dev_dl = loader("train", True), loader("dev", False)
+    tr = _atten_trainer(args, lv, lr=args.lr or 7e-4)
+    tr.restore_or_init()
+    out = tr.fit(lambda: prefetch(train_dl.am_batches(bsz, seed=args.seed)),
+                 lambda: dev_dl.am_batches(bsz, shuffle=False),
+                 epochs=args.epochs or 100, generator=_step_generator(args))
+    print("ctc-attention training done:", out)
+
+
+def cmd_eval_atten(args):
+    """Decode the test set with the CTC-attention model (greedy, at most 64
+    hanzi an utterance) and print the hanzi accuracy under the
+    clipped-edit-distance protocol."""
+    from asr_dfcnn_transformer_torch.ops.ctc_decode import ctc_greedy_decode
+    from asr_dfcnn_transformer_torch.ops.edit_distance import edit_distance
+    bsz = args.batch_size or 16
+    loader, _, lv = _data(args, bsz, _bounds(args))
+    test_dl = loader("test", False)
+    tr = _atten_trainer(args, lv)
+    _require_ckpt(tr, "CTC-attention", args.workdir)
+    tr.restore_or_init()
+    tr.model.eval()
+    err = tot = n_utts = 0
+    for batch in test_dl.am_batches(bsz, shuffle=False):
+        with torch.inference_mode():
+            sig, sig_len = tr._to_device(batch.signals, batch.signal_lengths)
+            feats, valid = tr.features(sig, sig_len, batch.bucket_frames)
+            logits, in_len = tr.model(feats, valid)
+            ids, lens = ctc_greedy_decode(logits, in_len, blank_id=-1,
+                                          max_output_len=64)
+        ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
+        for j in range(ids.shape[0]):
+            if batch.weights[j] == 0:
+                continue
+            n_utts += 1
+            gt = list(batch.hanzi[j][: batch.hanzi_lengths[j]])
+            d = edit_distance(gt, list(ids[j][: lens[j]]))
+            err += min(d, len(gt))
+            tot += len(gt)
+    acc = 1.0 - err / max(tot, 1)
+    print(f"*[Test Result] atten 汉字 word accuracy ratio: "
+          f"{acc * 100:.2f}% ({n_utts} utts)")
+
+
+def cmd_joint(args):
+    """Jointly trained AM -> LM (the working am_lm_train.py capability):
+    the JAX CLI's ``AMLMJoint`` (``--small``: its reduced sizes, f32)."""
+    from asr_dfcnn_transformer_torch.data import prefetch
+    from asr_dfcnn_transformer_torch.models import AMLMJoint, AMLMJointConfig
+    from asr_dfcnn_transformer_torch.train import JointTrainer
+    bsz = args.batch_size or 16
+    loader, av, lv = _data(args, bsz, _bounds(args))
+    train_dl, dev_dl = loader("train", True), loader("dev", False)
+    model = AMLMJoint(AMLMJointConfig(
+        av.size, lv.size, small=args.small,
+        dtype=torch.float32 if args.small else torch.bfloat16),
+        device=args.device, generator=_init_generator(args))
+    tr = _trainer_flags(JointTrainer(model, args.workdir,
+                                     lr=args.lr or 7e-4), args)
+    tr.restore_or_init()
+    out = tr.fit(lambda: prefetch(train_dl.am_batches(bsz, seed=args.seed)),
+                 epochs=args.epochs or 10, generator=_step_generator(args),
+                 dev_batches=lambda: dev_dl.am_batches(bsz, shuffle=False))
+    print("joint training done:", out)
 
 
 def _e2e_trainer(args, ev, **kw):
@@ -493,11 +594,13 @@ def _require_ckpt(trainer, what: str, workdir: str) -> None:
 
 def _load_pipeline(args, decode="greedy", beam_width=8, need_am=True):
     from asr_dfcnn_transformer_torch.convert import (am_state_dict,
+                                                     bigru_state_dict,
                                                      lm_state_dict)
     from asr_dfcnn_transformer_torch.infer import Pipeline
     from asr_dfcnn_transformer_torch.infer.tf_ckpt import (load_tf1_lm,
                                                            load_tf1_sedfcnn)
-    from asr_dfcnn_transformer_torch.models import (KerasDFCNN,
+    from asr_dfcnn_transformer_torch.models import (BiGRUCTC, BiGRUCTCConfig,
+                                                    KerasDFCNN,
                                                     KerasDFCNNConfig, SEDFCNN,
                                                     SEDFCNNConfig)
     from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer
@@ -514,15 +617,20 @@ def _load_pipeline(args, decode="greedy", beam_width=8, need_am=True):
         _require_ckpt(lmt, "LM", args.workdir)
         lmt.restore_or_init()
     if getattr(args, "am_hdf5", None):
-        from asr_dfcnn_transformer_torch.infer.hdf5_import import (
-            load_keras_dfcnn_hdf5)
+        from asr_dfcnn_transformer_torch.infer import hdf5_import
         if getattr(args, "model", "se_dfcnn") == "bigru":
-            raise SystemExit("error: the BiGRU's .hdf5 (cnn_rnn_ctc) is not "
-                             "ported yet (ROADMAP Queue A 11)")
-        am = KerasDFCNN(KerasDFCNNConfig(av.size), device=args.device,
-                        generator=_init_generator(args))
-        am.load_state_dict(am_state_dict(load_keras_dfcnn_hdf5(args.am_hdf5,
-                                                               av.size)))
+            # the hidden width is the file's (its first GRU's kernel)
+            raw = hdf5_import.load_keras_bigru_hdf5(args.am_hdf5, av.size)
+            hidden = raw["params"]["gru_fwd_0"]["kernel"].shape[1] // 3
+            am = BiGRUCTC(BiGRUCTCConfig(av.size, hidden=hidden,
+                                         keras_parity=True),
+                          device=args.device, generator=_init_generator(args))
+            am.load_state_dict(bigru_state_dict(raw))
+        else:
+            am = KerasDFCNN(KerasDFCNNConfig(av.size), device=args.device,
+                            generator=_init_generator(args))
+            am.load_state_dict(am_state_dict(
+                hdf5_import.load_keras_dfcnn_hdf5(args.am_hdf5, av.size)))
     elif getattr(args, "am_tf_ckpt", None):
         am = SEDFCNN(SEDFCNNConfig(av.size), device=args.device,
                      generator=_init_generator(args))
@@ -578,30 +686,40 @@ def cmd_infer(args):
 def cmd_export(args):
     """Hand a trained model back to the reference stack: a TF1
     tensor_bundle (the AM Saver's names, train.py:38, or the LM's,
-    train.py:148) or Keras .hdf5 weights (cnn_ctc.py:85)."""
+    train.py:148) or Keras .hdf5 weights (cnn_ctc.py:85, or the
+    cnn_rnn_ctc layout of a keras_parity BiGRU)."""
     from asr_dfcnn_transformer_torch.convert import state_dict_to_flax
     from asr_dfcnn_transformer_torch.infer import Pipeline
     from asr_dfcnn_transformer_torch.infer.tf_ckpt import (export_tf1_lm,
                                                            export_tf1_sedfcnn,
                                                            write_tf_checkpoint)
-    if args.what == "bigru":
-        raise SystemExit("error: the BiGRU's export (Keras cnn_rnn_ctc) is "
-                         "not ported yet (ROADMAP Queue A 11)")
     if args.what == "lm" and args.format != "tf1":
         raise SystemExit("error: the LM has no Keras layout; use --format "
                          "tf1")
-    state = Pipeline._restore(args.workdir, args.what,
+    if args.what == "bigru" and args.format != "hdf5":
+        raise SystemExit("error: the BiGRU maps to the Keras cnn_rnn_ctc "
+                         "layout; use --format hdf5")
+    ckpt_name = "lm" if args.what == "lm" else "am"
+    state = Pipeline._restore(args.workdir, ckpt_name,
                               use_best=not args.use_latest)
     if state is None:
-        raise SystemExit(f"error: no {args.what.upper()} checkpoint under "
+        raise SystemExit(f"error: no {ckpt_name.upper()} checkpoint under "
                          f"{args.workdir!r}")
-    variables = state_dict_to_flax(state["model"], args.what)
     try:
+        variables = state_dict_to_flax(state["model"], args.what)
         if args.what == "lm":
             nb = sum(k.startswith("block0_") and k.endswith("_attn")
                      for k in variables["params"])
             write_tf_checkpoint(args.out,
                                 export_tf1_lm(variables, num_blocks=nb))
+        elif args.what == "bigru":
+            from asr_dfcnn_transformer_torch.infer.hdf5_import import (
+                save_keras_bigru_hdf5)
+            p = variables["params"]
+            save_keras_bigru_hdf5(
+                args.out, variables,
+                vocab_size=p["Dense_3"]["kernel"].shape[1],
+                hidden=p["gru_fwd_0"]["kernel"].shape[1] // 3)
         elif args.format == "tf1":
             write_tf_checkpoint(args.out, export_tf1_sedfcnn(variables))
         else:
@@ -612,11 +730,11 @@ def cmd_export(args):
                 args.out, variables,
                 vocab_size=p["Dense_1"]["kernel"].shape[1],
                 dense_units=p["Dense_0"]["kernel"].shape[1])
-    except KeyError as e:
+    except (KeyError, ValueError) as e:
         raise SystemExit(
             f"error: checkpoint layout does not match the {args.what}/"
             f"{args.format} export mapping (tf1 = se_dfcnn family or lm, "
-            f"hdf5 = keras_dfcnn); missing {e}")
+            f"hdf5 = keras_dfcnn or keras_parity bigru); missing {e}")
     print(f"exported {args.what} {args.format} -> {args.out}")
 
 
@@ -746,8 +864,9 @@ def cmd_serve(args):
         srv.close()
 
 
-COMMANDS = {"am": cmd_am, "lm": cmd_lm, "e2e": cmd_e2e, "eval": cmd_eval,
-            "eval-lm": cmd_eval_lm, "eval-e2e": cmd_eval_e2e,
+COMMANDS = {"am": cmd_am, "lm": cmd_lm, "atten": cmd_atten, "e2e": cmd_e2e,
+            "joint": cmd_joint, "eval": cmd_eval, "eval-lm": cmd_eval_lm,
+            "eval-e2e": cmd_eval_e2e, "eval-atten": cmd_eval_atten,
             "infer": cmd_infer, "export": cmd_export,
             "export-serving": cmd_export_serving,
             "infer-artifact": cmd_infer_artifact, "serve": cmd_serve}

@@ -26,11 +26,8 @@ def _dtype(name: str) -> torch.dtype:
 
 def am_architecture(name: str) -> dict:
     """The ``SEDFCNN`` fields that an SE-DFCNN name (``AmConfig.model``,
-    the CLI's ``--model``) selects; ``bigru`` raises, naming its ROADMAP
-    item, and so does any name the JAX factory does not build."""
-    if name == "bigru":
-        raise ValueError("am model 'bigru' is not ported yet: ROADMAP "
-                         "Queue A 11 (BiGRUCTC)")
+    the CLI's ``--model``) selects; any other name raises, as the JAX
+    factory does for a name it does not build."""
     if name == "se_dfcnn_fast":       # SEDFCNN.fast: space-to-depth
         return dict(stage_pool=(True, True, False, False, False),
                     space_to_depth=True)
@@ -42,15 +39,20 @@ def am_architecture(name: str) -> dict:
 def build_am_model(cfg: Config, device=None,
                    generator: Optional[torch.Generator] = None,
                    logits_matmul: str = "f32"):
-    """The AM that ``cfg.am.model`` names, as the JAX factory builds it;
-    ``logits_matmul`` selects the logits head's product (the JAX CLI's
-    ``--logits-matmul``; the JAX factory leaves it at "f32")."""
+    """The AM that ``cfg.am.model`` names, as the JAX factory builds it
+    (``bigru``: ``BiGRUCTC`` at its own defaults, the config's dropout rate
+    unused, as in JAX); ``logits_matmul`` selects the logits head's product
+    (the JAX CLI's ``--logits-matmul``; the JAX factory leaves it at
+    "f32")."""
     from asr_dfcnn_transformer_torch import models
     av = vocab_mod.acoustic_vocab()
     am = cfg.am
     kw = dict(dropout_rate=am.dropout_rate, logits_matmul=logits_matmul,
               dtype=_dtype(am.dtype))
-    if am.model == "dfcnn":
+    if am.model == "bigru":
+        model, config = models.BiGRUCTC, models.BiGRUCTCConfig(
+            av.size, logits_matmul=logits_matmul, dtype=_dtype(am.dtype))
+    elif am.model == "dfcnn":
         model, config = models.DFCNN, models.DFCNNConfig(av.size, **kw)
     elif am.model == "keras_dfcnn":
         model, config = models.KerasDFCNN, models.KerasDFCNNConfig(

@@ -16,8 +16,9 @@ to its checkpoints, and every restore path compares it with the model:
 The stamp is the JAX package's, byte for byte, for the same architecture:
 ``class`` is the Flax module's name (the port's model classes carry it),
 ``fields`` are the model's config dataclass (``SEDFCNNConfig``,
-``DFCNNConfig``, ``KerasDFCNNConfig``, ``TransformerLMConfig``,
-``SpeechTransformerConfig``), whose field names
+``DFCNNConfig``, ``KerasDFCNNConfig``, ``BiGRUCTCConfig``,
+``TransformerLMConfig``, ``SpeechTransformerConfig``,
+``CTCAttentionConfig``, ``AMLMJointConfig``), whose field names
 are the Flax module's, and ``torch.float32`` / ``torch.bfloat16`` are
 written as JAX writes ``jnp.float32`` / ``jnp.bfloat16``. The port's
 ``feature_dim`` argument lies outside the config (Flax infers that width

@@ -1,6 +1,7 @@
-"""Train loops for the AM, the LM and the e2e speech Transformer: the port
-of ``train/trainer.py`` (``AMTrainer`` :236, ``LMTrainer`` :524,
-``E2ETrainer`` :753).
+"""Train loops for the AM, the LM, CTC-attention, the joint AM -> LM and the
+e2e speech Transformer: the port of ``train/trainer.py`` (``AMTrainer``
+:236, ``AttenTrainer`` :394, ``LMTrainer`` :524, ``JointTrainer`` :621,
+``E2ETrainer`` :753). The BiGRU trains through ``AMTrainer``, as in JAX.
 
 One step: batch to the device, (AM, when asked for) colored noise on the
 raw signals, (AM, e2e) fbank through the ``log_mel`` / ``cmvn`` kernels,
@@ -16,9 +17,13 @@ Around the steps: JSONL metrics, a non-finite-loss guard, per-epoch dev
 sweeps with a metric-gated best checkpoint, and resume from the latest
 checkpoint (the e2e trainer: step-numbered checkpoints and an epoch
 marker), with the model's identity stamp written beside the checkpoints
-and checked before a restore. Not ported yet: the device mesh,
-``remat_stages``, TensorBoard (with the e2e attention images) and
-profiling.
+and checked before a restore. ``enable_tensorboard`` tees the numeric
+metrics into TensorBoard event files under ``<workdir>/tb/<name>``
+(``utils/tb_events.py``), and the e2e trainer then writes each dev sweep's
+attention maps as images; ``profile_steps`` > 0 traces the first steps of
+``AMTrainer.fit`` with ``torch.profiler`` into ``<workdir>/profile``. Not
+ported yet: the device mesh (ROADMAP Queue A 12) and ``remat_stages``
+(A 5.5).
 """
 
 from __future__ import annotations
@@ -57,11 +62,29 @@ from asr_dfcnn_transformer_torch.train.schedule import (
 
 
 class MetricWriter:
-    """Appends one JSON line per record to ``<workdir>/<name>_metrics.jsonl``."""
+    """Appends one JSON line per record to ``<workdir>/<name>_metrics.jsonl``.
+
+    :meth:`enable_tensorboard` also tees every finite float metric of each
+    later record into TensorBoard event files (``utils/tb_events.py``),
+    tagged ``<name>/<split>/<key>`` (``<name>/<key>`` without a split), so
+    ``tensorboard --logdir <workdir>/tb`` reads them."""
 
     def __init__(self, workdir: str, name: str):
         os.makedirs(workdir, exist_ok=True)
         self.path = os.path.join(workdir, f"{name}_metrics.jsonl")
+        self._workdir = workdir
+        self._name = name
+        self.tb = None
+
+    def enable_tensorboard(self, logdir: Optional[str] = None):
+        """Create (or return) the event-file writer, under
+        ``<workdir>/tb/<name>`` unless ``logdir`` is given."""
+        if self.tb is None:
+            from asr_dfcnn_transformer_torch.utils.tb_events import (
+                TBEventWriter)
+            self.tb = TBEventWriter(
+                logdir or os.path.join(self._workdir, "tb", self._name))
+        return self.tb
 
     def write(self, step: int, **metrics):
         rec = {"step": int(step), "time": time.time()}
@@ -69,6 +92,15 @@ class MetricWriter:
                     for k, v in metrics.items()})
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self.tb is not None:
+            split = metrics.get("split")
+            prefix = f"{self._name}/{split}/" if split else f"{self._name}/"
+            for k, v in rec.items():
+                if k in ("step", "time", "split", "epoch"):
+                    continue
+                if isinstance(v, float) and np.isfinite(v):
+                    self.tb.scalar(prefix + k, v, rec["step"])
+            self.tb.flush()
 
 
 def _weighted_mean(values: torch.Tensor, weights: torch.Tensor):
@@ -107,6 +139,39 @@ class _TrainerBase:
     def _to_device(self, *arrays):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in arrays)
+
+    def enable_tensorboard(self):
+        """Tee the metrics into TensorBoard event files under
+        ``<workdir>/tb/<name>`` (CLI ``--tensorboard``)."""
+        return self.metrics.enable_tensorboard()
+
+    #: > 0: trace the first ``profile_steps`` steps of a ``fit`` with
+    #: ``torch.profiler`` (CPU, and CUDA where present)
+    profile_steps: int = 0
+    _profiler = None
+
+    def maybe_profile(self, global_count: int):
+        """Start the trace before step 1, stop it after step
+        ``profile_steps`` and write it as a Chrome trace
+        (``<workdir>/profile/trace.json``, for chrome://tracing or
+        Perfetto)."""
+        if not self.profile_steps:
+            return
+        if global_count == 1 and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.__enter__()
+        elif global_count == 1 + self.profile_steps and \
+                self._profiler is not None:
+            prof, self._profiler = self._profiler, None
+            prof.__exit__(None, None, None)
+            out = os.path.join(self.workdir, "profile")
+            os.makedirs(out, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(out, "trace.json"))
+            self.profile_steps = 0
 
     def nan_guard(self, loss: float, limit: int = 5):
         """Abort after ``limit`` consecutive non-finite losses instead of
@@ -280,6 +345,7 @@ class AMTrainer(_TrainerBase):
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
             for i, batch in enumerate(train_batches()):
+                self.maybe_profile(self.step + 1)
                 m = self.train_step(batch, generator)
                 if i % log_every == 0:
                     self.nan_guard(float(m["loss"]))
@@ -298,6 +364,90 @@ class AMTrainer(_TrainerBase):
                 best_ler = ler
                 self.save_best(metric=ler)
             last = {"epoch": epoch, "dev_loss": loss, "dev_wer": ler}
+        return last
+
+
+class AttenTrainer(_TrainerBase):
+    """CTC-attention trainer (train_atten.py semantics): the AM trainer's
+    loop on LFR features (fbank, then LFR with ``lfr_m`` / ``lfr_n``, then
+    a trailing channel) and hanzi CTC targets; the eval step's greedy
+    decode gives the hanzi ``ler``, and ``fit`` keeps the best checkpoint
+    by the lowest dev ``wer``."""
+
+    def __init__(self, model, workdir: str, lr: float = 7e-4,
+                 decay_steps: int = 5000, min_lr: float = 1e-6,
+                 feature_dim: int = 200, lfr_m: int = 4, lfr_n: int = 3,
+                 max_to_keep: int = 5):
+        super().__init__(model, workdir, "atten", lr, decay_steps, min_lr,
+                         max_to_keep)
+        self.fbank_cfg = FbankConfig(nfilt=feature_dim)
+        self.lfr_m, self.lfr_n = lfr_m, lfr_n
+
+    def features(self, signals: torch.Tensor, signal_lengths: torch.Tensor,
+                 bucket_frames: int):
+        """(LFR features [B, T', m*F, 1], valid LFR rows [B]) of a batch,
+        the fbank through the ``log_mel`` / ``cmvn`` kernels."""
+        feats, valid = batched_fbank(signals, signal_lengths,
+                                     cfg=self.fbank_cfg,
+                                     out_frames=bucket_frames)
+        lfr, lfr_valid = batched_lfr(feats, valid, self.lfr_m, self.lfr_n)
+        return lfr[..., None], lfr_valid
+
+    def _forward(self, batch: AMBatch, generator=None):
+        """(per-example CTC losses, logits, logit lengths, hanzi, hanzi
+        lengths, weights) on the device."""
+        sig, sig_len, hz, hz_len, w = self._to_device(
+            batch.signals, batch.signal_lengths, batch.hanzi,
+            batch.hanzi_lengths, batch.weights)
+        feats, valid = self.features(sig, sig_len, batch.bucket_frames)
+        logits, in_len = self.model(feats, valid, generator=generator)
+        losses = ctc_loss(logits, in_len, hz, hz_len, blank_id=-1)
+        return losses, logits, in_len, hz, hz_len, w
+
+    def train_step(self, batch: AMBatch,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, object]:
+        self.model.train()
+        losses, _, _, _, _, w = self._forward(batch, generator)
+        loss = _weighted_mean(losses, w)
+        lr = self._backward_and_update(loss)
+        return {"loss": loss.detach(), "lr": lr}
+
+    @torch.no_grad()
+    def eval_step(self, batch: AMBatch) -> Dict[str, torch.Tensor]:
+        self.model.eval()
+        losses, logits, in_len, hz, hz_len, w = self._forward(batch)
+        decoded, dec_len = ctc_greedy_decode(logits, in_len, blank_id=-1,
+                                             max_output_len=hz.shape[1])
+        dist = batched_edit_distance(decoded, dec_len, hz, hz_len)
+        ler = dist.float() / torch.clamp_min(hz_len.float(), 1.0)
+        return {"loss": _weighted_mean(losses, w),
+                "ler": _weighted_mean(ler, w), "weight": w.sum()}
+
+    def fit(self, train_batches: Callable[[], Iterator[AMBatch]],
+            dev_batches: Callable[[], Iterator[AMBatch]], epochs: int,
+            generator: Optional[torch.Generator] = None,
+            log_every: int = 2) -> Dict[str, float]:
+        """Epoch loop with the dev-``wer``-gated best save."""
+        best_wer = self._best_gate("min")
+        last = {}
+        start_epoch = (self.ckpt.latest_step() or -1) + 1
+        for epoch in range(start_epoch, epochs):
+            for i, batch in enumerate(train_batches()):
+                m = self.train_step(batch, generator)
+                if i % log_every == 0:
+                    self.nan_guard(float(m["loss"]))
+                    self.metrics.write(self.step, epoch=epoch,
+                                       split="train", **m)
+            evals = [self.eval_step(b) for b in dev_batches()]
+            wer = _dev_mean(evals, "ler")
+            self.metrics.write(self.step, epoch=epoch, split="dev", wer=wer)
+            print(f"[atten] epoch {epoch}: dev_wer {wer:.3f}", flush=True)
+            self.save(epoch)
+            if evals and wer < best_wer:
+                best_wer = wer
+                self.save_best(metric=wer)
+            last = {"epoch": epoch, "dev_wer": wer}
         return last
 
 
@@ -359,6 +509,89 @@ class LMTrainer(_TrainerBase):
                 best_acc = acc
                 self.save_best(metric=acc)
             last = {"epoch": epoch, "dev_loss": loss, "dev_acc": acc}
+        return last
+
+
+class JointTrainer(_TrainerBase):
+    """Trainer for ``models.AMLMJoint`` (the working form of the reference's
+    am_lm_train.py): one step optimises CTC(AM) + CE(LM on the AM's greedy
+    pinyin). The AM reads fbank of ``feature_dim`` filters; the lengths
+    are ``frames_from_samples`` of the signal lengths. ``fit`` keeps the
+    best checkpoint by the highest dev ``lm_acc`` and saves each epoch."""
+
+    def __init__(self, model, workdir: str, lr: float = 7e-4,
+                 decay_steps: int = 5000, min_lr: float = 1e-6,
+                 feature_dim: int = 200, max_to_keep: int = 5):
+        super().__init__(model, workdir, "joint", lr, decay_steps, min_lr,
+                         max_to_keep)
+        self.fbank_cfg = FbankConfig(nfilt=feature_dim)
+
+    def features(self, signals: torch.Tensor, signal_lengths: torch.Tensor,
+                 bucket_frames: int) -> torch.Tensor:
+        """Normalised fbank features [B, 1, T, F] (NCHW)."""
+        feats, _ = batched_fbank(signals, signal_lengths, cfg=self.fbank_cfg,
+                                 out_frames=bucket_frames)
+        return feats[:, None]
+
+    def _forward(self, batch: AMBatch, generator=None):
+        sig, sig_len, pny, pny_len, hz, w = self._to_device(
+            batch.signals, batch.signal_lengths, batch.pinyin,
+            batch.pinyin_lengths, batch.hanzi, batch.weights)
+        feats = self.features(sig, sig_len, batch.bucket_frames)
+        out = self.model(feats, frames_from_samples(sig_len), pny, pny_len,
+                         hz.long(), w, generator=generator)
+        return out, w
+
+    def train_step(self, batch: AMBatch,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, object]:
+        self.model.train()
+        out, _ = self._forward(batch, generator)
+        lr = self._backward_and_update(out["loss"])
+        m = {k: out[k].detach() for k in ("loss", "am_loss", "lm_loss",
+                                          "lm_acc")}
+        m["lr"] = lr
+        return m
+
+    @torch.no_grad()
+    def eval_step(self, batch: AMBatch) -> Dict[str, torch.Tensor]:
+        self.model.eval()
+        out, w = self._forward(batch)
+        m = {k: out[k] for k in ("loss", "am_loss", "lm_loss", "lm_acc")}
+        m["weight"] = w.sum()
+        return m
+
+    def fit(self, train_batches: Callable[[], Iterator[AMBatch]],
+            epochs: int, generator: Optional[torch.Generator] = None,
+            dev_batches: Optional[Callable[[], Iterator[AMBatch]]] = None,
+            log_every: int = 2) -> Dict[str, float]:
+        """Epoch loop; with ``dev_batches`` a dev sweep and the
+        ``lm_acc``-gated best save."""
+        best_acc = self._best_gate("max")
+        last = {}
+        start_epoch = (self.ckpt.latest_step() or -1) + 1
+        for epoch in range(start_epoch, epochs):
+            for i, batch in enumerate(train_batches()):
+                m = self.train_step(batch, generator)
+                if i % log_every == 0:
+                    self.nan_guard(float(m["loss"]))
+                    self.metrics.write(self.step, epoch=epoch,
+                                       split="train", **m)
+                last = {"epoch": epoch, "loss": float(m["loss"]),
+                        "lm_acc": float(m["lm_acc"])}
+            if dev_batches is not None:
+                evals = [self.eval_step(b) for b in dev_batches()]
+                acc = _dev_mean(evals, "lm_acc")
+                loss = _dev_mean(evals, "loss")
+                self.metrics.write(self.step, epoch=epoch, split="dev",
+                                   loss=loss, lm_acc=acc)
+                print(f"[joint] epoch {epoch}: dev_loss {loss:.3f} "
+                      f"dev_lm_acc {acc:.3f}", flush=True)
+                last.update(dev_loss=loss, dev_lm_acc=acc)
+                if evals and acc > best_acc:
+                    best_acc = acc
+                    self.save_best(metric=acc)
+            self.save(epoch)
         return last
 
 
@@ -447,6 +680,25 @@ class E2ETrainer(_TrainerBase):
     def _epoch_marker_path(self) -> str:
         return os.path.join(self.workdir, "e2e_epochs_completed.json")
 
+    def _write_attention_images(self, batch: AMBatch, step: int):
+        """One dev batch's attention maps as TensorBoard images, tagged
+        ``e2e/attention/<module path>``: each attention module's first
+        utterance and first head, from an evaluation-mode forward with the
+        probabilities captured (the reference's heatmap summary,
+        end2end/transformer.py:105-106)."""
+        from asr_dfcnn_transformer_torch.utils.introspect import (
+            attention_maps)
+        self.model.eval()
+        dec_in, _ = self.make_decoder_io(batch.hanzi, batch.hanzi_lengths)
+        sig, sig_len, dec_in = self._to_device(batch.signals,
+                                               batch.signal_lengths, dec_in)
+        with torch.no_grad():
+            feats, valid = self.features(sig, sig_len, batch.bucket_frames)
+        maps = attention_maps(self.model, feats, valid, dec_in)
+        for path, probs in maps.items():
+            img = probs[0, 0].float().cpu().numpy()
+            self.metrics.tb.image(f"e2e/attention/{path}", img, step)
+
     def fit(self, train_batches: Callable[[], Iterator[AMBatch]],
             epochs: int, generator: Optional[torch.Generator] = None,
             log_every: int = 10, ckpt_every: int = 1000,
@@ -483,6 +735,10 @@ class E2ETrainer(_TrainerBase):
                 print(f"[e2e] epoch {epoch}: dev_loss {loss:.3f} "
                       f"dev_acc {acc:.3f}", flush=True)
                 last.update(dev_loss=loss, dev_acc=acc)
+                if self.metrics.tb is not None:
+                    first_dev = next(iter(dev_batches()), None)
+                    if first_dev is not None:
+                        self._write_attention_images(first_dev, self.step)
                 if evals and acc > best_acc:
                     best_acc = acc
                     self.save_best(metric=acc)

@@ -187,11 +187,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     utterance card against CPU (``compute_fbank_from_signal`` one
     ``log_mel`` and one ``cmvn``).
 15. The accuracy gates (``asr_dfcnn_transformer_torch/gates.py``) trained
-    and scored on the card: cer (with the beam gate on its weights), fast
-    and e2e, with the JAX gates' thresholds; each gate's accuracies, wall
-    and launch counts (the CTC, masked and dual-axis attention kernels
-    forward and backward, ``topk_last`` and ``beam_search``). A miss
-    fails the run.
+    and scored on the card: cer (with the beam gate on its weights), fast,
+    e2e, CTC-attention, joint AM -> LM and BiGRU, with the JAX gates'
+    thresholds; each gate's accuracies, wall and launch counts (the CTC,
+    masked and dual-axis attention kernels forward and backward,
+    ``topk_last`` and ``beam_search``). A miss fails the run.
 16. Streaming and exported serving at full width: (a) one 15.9 s stream
     through ``IncrementalRecognizer`` on the ``KerasDFCNN`` (f32) -> LM in
     1.28 s pushes, greedy and beam, equal to the offline
@@ -218,6 +218,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the artifact's ms per batch beside the live Pipeline's at (8, 1600);
     ``infer-artifact`` and ``serve --artifact --max-requests 2`` through
     the CLI.
+17. The last three model families at full width, bf16 compute: (a) 4
+    ``AttenTrainer`` steps on ``CTCAttention(6345)`` (d 512, 12 blocks, 8
+    heads, dropout 0.1) at batch 16, bucket 1600 (LFR 534 rows, 66 logit
+    rows), then eval-atten's greedy decode of the batch; (b) 4
+    ``JointTrainer`` steps on ``AMLMJoint(1536, 6345)`` at batch 16,
+    bucket 1600; (c) 3 ``AMTrainer`` steps on ``BiGRUCTC(1536)`` (hidden
+    512, 3 layers; 1600 logit rows) at batch 16, bucket 1600, then a
+    ``keras_parity`` BiGRU written by ``save_keras_bigru_hdf5`` and read
+    back (through the Keras tree where the machine has no h5py) serving
+    through ``Pipeline`` into the 12-block LM at batch 8, bucket 1600,
+    greedy and beam; each with finite losses, ms a step and peak memory,
+    the launch counters reset before and read after; (d) each run's own
+    calls of the masked attention forward (keep mask, no key mask) and
+    backward, the CTC pair (V 6345; T 1600), ``topk_last`` and
+    ``beam_search`` (T 1600) held against their twins with phase 2's
+    tolerances; (e) one small f32 step of each model (the BiGRU both
+    ways) card against CPU by phase 6's rule; (f) the CTC gradient twice
+    at the AM step's, CTC-attention's and the BiGRU's shapes, equal bit
+    for bit; (g) ``e2e --small --synthetic 16 --tensorboard`` through the
+    CLI, its event file read back with its CRCs checked: scalars and
+    attention images. Each part's wall on its own line.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -1820,10 +1841,11 @@ def lm_batch(rng, batch, length, in_vocab, out_vocab):
     return LMBatch(pinyin, hanzi, lens, weights)
 
 
-def train_steps(name, tr, batch, gen):
-    """TRAIN_STEPS steps on one batch, then one eval step; the checks of
-    phases 5 and 9; returns the losses, ms/step over the steps after
-    WARMUP_STEPS, peak memory, and the launch counts just after the
+def train_steps(name, tr, batch, gen, steps: int = TRAIN_STEPS,
+                warmup: int = WARMUP_STEPS):
+    """``steps`` steps on one batch, then one eval step; the checks of
+    phases 5, 9 and 17; returns the losses, ms/step over the steps after
+    ``warmup``, peak memory, and the launch counts just after the
     steps."""
     import torch
     from asr_dfcnn_transformer_torch.kernels import LAUNCHES
@@ -1831,23 +1853,23 @@ def train_steps(name, tr, batch, gen):
     torch.cuda.reset_peak_memory_stats()
     losses = [tr.train_step(batch, gen)["loss"]]
     require_finite_grads(f"{name} after step 1", tr.model)
-    for _ in range(WARMUP_STEPS - 1):
+    for _ in range(warmup - 1):
         losses.append(tr.train_step(batch, gen)["loss"])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(TRAIN_STEPS - WARMUP_STEPS):
+    for _ in range(steps - warmup):
         losses.append(tr.train_step(batch, gen)["loss"])
     end.record()
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    ms = start.elapsed_time(end) / (TRAIN_STEPS - WARMUP_STEPS)
+    ms = start.elapsed_time(end) / (steps - warmup)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
-    print(f"{name}: {TRAIN_STEPS} steps, losses "
+    print(f"{name}: {steps} steps, losses "
           f"{' '.join(f'{x:.4f}' for x in losses)}")
-    print(f"{name}: {ms:.2f} ms/step over steps {WARMUP_STEPS + 1}-"
-          f"{TRAIN_STEPS} (CUDA events), peak memory {peak / 2**30:.2f} GiB")
+    print(f"{name}: {ms:.2f} ms/step over steps {warmup + 1}-{steps} "
+          f"(CUDA events), peak memory {peak / 2**30:.2f} GiB")
     require(all(np.isfinite(losses)), f"{name}: a loss is not finite")
     require(losses[-1] < losses[0], f"{name}: the loss did not fall")
     ev = {k: float(v) for k, v in tr.eval_step(batch).items()}
@@ -2643,6 +2665,7 @@ CLI_KERNELS = {   # what each of phase 13's commands must launch
     "e2e": E2E_TRAINED,
     "eval-e2e": E2E_SERVED,
     "eval fused_ffn": ("log_mel", "cmvn", "masked_attention", "fused_ffn"),
+    "e2e tensorboard": ("log_mel", "cmvn"),
 }
 
 
@@ -3252,14 +3275,20 @@ GATE_KERNELS = {   # what each gate's run must launch
              "masked_attention", "masked_attention_bwd"),
     "e2e": ("log_mel", "cmvn", "masked_attention", "masked_attention_bwd",
             "dual_axis_attention", "dual_axis_attention_bwd"),
+    "atten": ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi",
+              "masked_attention", "masked_attention_bwd"),
+    "joint": ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi",
+              "masked_attention", "masked_attention_bwd"),
+    "bigru": ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi"),
 }
 
 
 def phase_gates(results):
     """Phase 15: the synthetic-corpus accuracy gates (``gates.py``: the
-    JAX package's cer, fast and e2e gates, and the beam gate inside the
-    cer run) trained and scored on the card, the launch counters reset
-    before and read after each. A miss fails the run."""
+    JAX package's cer, fast, e2e, atten, joint and bigru gates, and the
+    beam gate inside the cer run) trained and scored on the card, the
+    launch counters reset before and read after each. A miss fails the
+    run."""
     import torch
     from asr_dfcnn_transformer_torch import gates
     from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
@@ -3277,7 +3306,11 @@ def phase_gates(results):
             require(counts.get(name, 0) > 0,
                     f"gate {gate} never launched {name}")
             results[name].setdefault("launches", counts[name])
-        if gate == "e2e":
+        if gate in gates.SCORED_GATES:
+            _, key, floor = gates.SCORED_GATES[gate]
+            print(f"gate {gate}: {key} {out[key]:.4f} (> {floor}); "
+                  f"{out['wall_s']:.1f} s")
+        elif gate == "e2e":
             print(f"gate e2e: teacher-forced {out['teacher_forced']:.4f} "
                   f"(> {gates.E2E_MIN_TEACHER_FORCED}), cached greedy hanzi "
                   f"{out['hanzi']:.4f} (> {gates.E2E_MIN_ACCURACY}) over "
@@ -3382,19 +3415,24 @@ def stream_recording(calls: dict):
             for name, mod in sites.items()]
 
 
-def check_streamed_calls(label: str, calls: dict, names) -> None:
+def check_kept_calls(label: str, calls: dict, names) -> None:
     """Hold each kept call of the kernels ``names`` against its twin on the
     same tensors, with phase 2's tolerances: ``log_mel`` within rtol 1e-4,
     atol 1e-3; ``topk_last`` values and ids equal; ``masked_attention``
-    within 2e-2 in bf16 (1e-5 in f32). Fails on any miss, or when a kernel
-    of ``names`` was not called."""
+    within 2e-2 in bf16 (1e-5 in f32), its backward's dq, dk and dv each
+    within 2e-2 (1e-5) of the twin's largest entry; the CTC pair equal
+    bit for bit; ``beam_search``'s prefixes and lengths equal, pb / pnb
+    within 1e-5. Fails on any miss, or when a kernel of ``names`` was not
+    called."""
     import torch
     from asr_dfcnn_transformer_torch.kernels import (
-        log_mel_reference, masked_attention_reference, topk_last_reference)
+        alpha_stack_reference, beam_search_reference, beta_xi_reference,
+        log_mel_reference, masked_attention_bwd_reference,
+        masked_attention_reference, topk_last_reference)
     for name in names:
         rec = calls.get(name, [])
         require(len(rec) > 0, f"{label}: no call of {name} was kept")
-        shapes, worst, bad = set(), 0.0, 0
+        shapes, worst, bad, rel, tops = set(), 0.0, 0, 0.0, []
         for args, kw, out in rec:
             if name == "log_mel":
                 sig, lens, n_frames, cfg = args
@@ -3410,6 +3448,40 @@ def check_streamed_calls(label: str, calls: dict, names) -> None:
                 ok = torch.equal(out[0], want_v) and torch.equal(out[1],
                                                                  want_i)
                 err = float((out[0] - want_v).abs().max())
+            elif name in ("ctc_alpha", "ctc_beta_xi"):
+                shapes.add(f"[T, B, S] {list(args[0].shape)}")
+                twin = (alpha_stack_reference if name == "ctc_alpha"
+                        else beta_xi_reference)
+                want = twin(*args)
+                ok = torch.equal(out, want)
+                err = float((out - want).abs().max())
+            elif name == "beam_search":
+                shapes.add(f"{list(args[0].shape)} W {kw['beam_width']} "
+                           f"K {kw['topk']} L {kw['max_decode_len']}")
+                want = beam_search_reference(*args, **kw)
+                ok = torch.equal(out[0], want[0]) and torch.equal(out[1],
+                                                                  want[1])
+                ok_b, err_b = close_enough(out[2], want[2], 0.0, 1e-5)
+                ok_n, err_n = close_enough(out[3], want[3], 0.0, 1e-5)
+                ok, err = ok and ok_b and ok_n, max(err_b, err_n)
+            elif name == "masked_attention_bwd":
+                # dq, dk, dv of a training loss are small (1e-5 to 1e-3):
+                # each is held within tol of its own largest entry, which
+                # must not be 0
+                q, k = args[0], args[1]
+                shapes.add(f"{list(q.shape)}/{list(k.shape)} {q.dtype} "
+                           f"causal {args[5]} keep mask {args[6] is not None}")
+                tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-5
+                ok, err = True, 0.0
+                for got, want in zip(out,
+                                     masked_attention_bwd_reference(*args)):
+                    top = float(want.float().abs().max())
+                    good, e = close_enough(got, want, 0.0, tol * top)
+                    ok &= top > 0 and good \
+                        and bool(torch.isfinite(got.float()).all())
+                    err = max(err, e)
+                    rel = max(rel, e / top if top > 0 else float("inf"))
+                    tops.append(top)
             else:
                 q, k, v, k_valid = args
                 if k_valid is None:
@@ -3417,7 +3489,8 @@ def check_streamed_calls(label: str, calls: dict, names) -> None:
                                          dtype=torch.bool, device=k.device)
                 causal = kw.get("causal", False)
                 shapes.add(f"{list(q.shape)}/{list(k.shape)} {q.dtype} "
-                           f"causal {causal}")
+                           f"causal {causal} keep mask "
+                           f"{kw.get('keep_mask') is not None}")
                 tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-5
                 want = masked_attention_reference(
                     q, k, v, k_valid, causal, kw.get("keep_mask"),
@@ -3425,9 +3498,12 @@ def check_streamed_calls(label: str, calls: dict, names) -> None:
                 ok, err = close_enough(out, want, tol, tol)
                 ok &= bool(torch.isfinite(out.float()).all())
             worst, bad = max(worst, err), bad + (not ok)
-        print(f"{label}: {name} on the streamed path's own inputs "
+        scaled = (f" (max |twin| of dq, dk, dv {min(tops):.3g} to "
+                  f"{max(tops):.3g}; max err / max |twin| {rel:.3g}, limit "
+                  f"{tol:g})") if tops else ""
+        print(f"{label}: {name} on the path's own inputs "
               f"({'; '.join(sorted(shapes))}): {len(rec)} calls against the "
-              f"twin, max abs err {worst:.3g}, "
+              f"twin, max abs err {worst:.3g}{scaled}, "
               f"{'ok' if bad == 0 else f'{bad} FAIL'}")
         require(bad == 0, f"{label}: {bad} of {len(rec)} {name} calls "
                 "disagree with the twin")
@@ -3530,7 +3606,7 @@ def stream_one(results):
               f"pushes; real-time factor {rtf:.4f}")
         print(f"stream {decode}: CUDA-event ms, total (calls): " + ", ".join(
             f"{k} {sum(v):.2f} ({len(v)})" for k, v in split.items()))
-        check_streamed_calls(f"stream {decode}", calls,
+        check_kept_calls(f"stream {decode}", calls,
                              STREAMED if decode == "beam" else STREAMED[:2])
     finals = []
     for push_s in STREAM_PUSHES_S:
@@ -3612,7 +3688,7 @@ def stream_pool(results, pipes):
         print(f"pool {decode}: launch counts {counts}")
         require(same == len(utts), f"pool {decode}: {len(utts) - same} "
                 "streams differ from their independent recognizer")
-        check_streamed_calls(f"pool {decode}", calls,
+        check_kept_calls(f"pool {decode}", calls,
                              STREAMED if decode == "beam" else STREAMED[:2])
         # greedy: log_mel and the LM's attention; beam adds topk_last
         for name in STREAMED if decode == "beam" else STREAMED[:2]:
@@ -4037,6 +4113,492 @@ def phase_serving(results):
           f"{t2 - t1:.1f}, http {t3 - t2:.1f}, artifacts {t4 - t3:.1f})")
 
 
+# ------------------------------- phase 17: CTC-attention, joint, BiGRU
+
+ATTEN_BATCH, ATTEN_BUCKET, ATTEN_LABELS = 16, 1600, (24, 64)
+ATTEN_STEPS, JOINT_STEPS, BIGRU_STEPS = 4, 4, 3
+BIGRU_SERVE_BATCH = 8
+FAMILY17 = {   # what each of phase 17's runs must launch
+    "atten": ("log_mel", "cmvn", "masked_attention_drop",
+              "masked_attention_bwd", "ctc_alpha", "ctc_beta_xi"),
+    "joint": ("log_mel", "cmvn", "masked_attention_drop",
+              "masked_attention_bwd", "ctc_alpha", "ctc_beta_xi"),
+    "bigru": ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi"),
+    "bigru greedy": ("log_mel", "cmvn", "masked_attention"),
+    "bigru beam": ("log_mel", "cmvn", "masked_attention", "topk_last",
+                   "beam_search"),
+}
+#: calls of each kernel a phase-17 run keeps: one pass of the 12 blocks'
+#: attention forward and backward, the CTC pair of one step, the beam
+#: decode's one batch
+KEEP17 = {"masked_attention": 12, "masked_attention_bwd": 12,
+          "ctc_alpha": 1, "ctc_beta_xi": 1, "topk_last": 1,
+          "beam_search": 1}
+#: the kernels whose kept calls each run holds against their twins
+CHECKED17 = {
+    "atten": ("masked_attention", "masked_attention_bwd", "ctc_alpha",
+              "ctc_beta_xi"),
+    "joint": ("masked_attention", "masked_attention_bwd", "ctc_alpha",
+              "ctc_beta_xi"),
+    "bigru": ("ctc_alpha", "ctc_beta_xi"),
+    "bigru greedy": ("masked_attention",),
+    "bigru beam": ("topk_last", "beam_search"),
+}
+
+
+def recording17(calls: dict):
+    """The patches (for ``wrapping``) that keep phase 17's kernel calls in
+    ``calls``: the masked attention forward where the models call it
+    (``models.layers``) and its backward where the autograd Function calls
+    it (``kernels.attention._backward``), the CTC pair where ``ops.ctc``
+    calls it and the beam decode's ``topk_last`` and ``beam_search`` where
+    ``ops.ctc_decode`` calls them."""
+    from asr_dfcnn_transformer_torch.kernels import attention
+    from asr_dfcnn_transformer_torch.models import layers
+    from asr_dfcnn_transformer_torch.ops import ctc, ctc_decode
+    sites = {"masked_attention": (layers, "masked_attention"),
+             "masked_attention_bwd": (attention, "_backward"),
+             "ctc_alpha": (ctc, "ctc_alpha"),
+             "ctc_beta_xi": (ctc, "ctc_beta_xi"),
+             "topk_last": (ctc_decode, "topk_last"),
+             "beam_search": (ctc_decode, "beam_search")}
+    return [(mod, attr, recorded(calls.setdefault(name, []), KEEP17[name]))
+            for name, (mod, attr) in sites.items()]
+
+
+def launched17(results, label, names):
+    """The launch counts since the last reset: each kernel of ``names``
+    must have run; the counts go into the result line where it has none
+    yet."""
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES
+    counts = dict(LAUNCHES)
+    print(f"{label}: launch counts {counts}")
+    for name in names:
+        require(counts.get(name, 0) > 0, f"{label}: {name} was never "
+                "launched")
+        results[name].setdefault("launches", counts[name])
+    return counts
+
+
+def atten17(results, calls):
+    """(a) ``AttenTrainer`` on the full-width ``CTCAttention(6345)`` (d 512,
+    12 blocks, 8 heads, dropout 0.1) in bf16: ATTEN_STEPS steps at batch
+    16, bucket 1600, then eval-atten's greedy decode (at most 64 hanzi) of
+    the batch."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.kernels import reset_launches
+    from asr_dfcnn_transformer_torch.models import (CTCAttention,
+                                                    CTCAttentionConfig)
+    from asr_dfcnn_transformer_torch.ops.ctc_decode import ctc_greedy_decode
+    from asr_dfcnn_transformer_torch.train import AttenTrainer
+    lv = vocab.language_vocab()
+    model = CTCAttention(CTCAttentionConfig(lv.size), feature_dim=4 * 200,
+                         device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED))
+    batch = am_batch(np.random.default_rng(SEED + 17), ATTEN_BATCH,
+                     ATTEN_BUCKET, ATTEN_LABELS, lv.size)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_atten_")
+    try:
+        tr = AttenTrainer(model, workdir)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        torch.cuda.synchronize()
+        reset_launches()
+        with wrapping(recording17(calls.setdefault("atten", {}))):
+            stats = train_steps("atten", tr, batch, gen, ATTEN_STEPS)
+        launched17(results, "atten", FAMILY17["atten"])
+        model.eval()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            sig, sig_len = tr._to_device(batch.signals, batch.signal_lengths)
+            feats, valid = tr.features(sig, sig_len, batch.bucket_frames)
+            logits, in_len = model(feats, valid)
+            ids, lens = ctc_greedy_decode(logits, in_len, blank_id=-1,
+                                          max_output_len=64)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"atten eval: LFR {list(feats.shape)}, logits "
+          f"{list(logits.shape)}, lengths {in_len.tolist()}; greedy "
+          f"decode lengths {lens.tolist()}; {dt * 1e3:.1f} ms")
+    require(logits.shape[1] == 66 and bool(torch.isfinite(logits).all()),
+            "atten eval: logits not [16, 66, 6345] and finite")
+    require(ids.shape == (ATTEN_BATCH, 64) and int(lens.max()) <= 64,
+            "atten eval: the decode is not [16, 64]")
+    return stats
+
+
+def joint17(results, calls):
+    """(b) ``JointTrainer`` on the full-width ``AMLMJoint(1536, 6345)``
+    (SE-DFCNN and 12-block LM, bf16): JOINT_STEPS steps at batch 16,
+    bucket 1600."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.kernels import reset_launches
+    from asr_dfcnn_transformer_torch.models import AMLMJoint, AMLMJointConfig
+    from asr_dfcnn_transformer_torch.train import JointTrainer
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    model = AMLMJoint(AMLMJointConfig(av.size, lv.size), device=DEVICE,
+                      generator=torch.Generator().manual_seed(SEED))
+    batch = am_batch(np.random.default_rng(SEED + 18), AM_BATCH, AM_BUCKET,
+                     ATTEN_LABELS, av.size)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_joint_")
+    try:
+        tr = JointTrainer(model, workdir)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        torch.cuda.synchronize()
+        reset_launches()
+        with wrapping(recording17(calls.setdefault("joint", {}))):
+            stats = train_steps("joint", tr, batch, gen, JOINT_STEPS)
+        launched17(results, "joint", FAMILY17["joint"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return stats
+
+
+def bigru17(results, calls, lm):
+    """(c) The BiGRU: ``AMTrainer`` on the full-width ``BiGRUCTC(1536)``
+    (hidden 512, 3 layers, bf16) for BIGRU_STEPS steps at batch 16, bucket
+    1600; then a ``keras_parity`` BiGRU written by ``save_keras_bigru_hdf5``
+    and read back by ``load_keras_bigru_hdf5`` serves through ``Pipeline``
+    into the 12-block LM at batch 8, bucket 1600, greedy and beam (W 8)."""
+    import importlib.util
+
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.audio.fbank import samples_for_frames
+    from asr_dfcnn_transformer_torch.convert import (bigru_state_dict,
+                                                     state_dict_to_flax)
+    from asr_dfcnn_transformer_torch.infer import Pipeline
+    from asr_dfcnn_transformer_torch.infer import hdf5_import
+    from asr_dfcnn_transformer_torch.kernels import reset_launches
+    from asr_dfcnn_transformer_torch.models import BiGRUCTC, BiGRUCTCConfig
+    from asr_dfcnn_transformer_torch.train import AMTrainer
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    model = BiGRUCTC(BiGRUCTCConfig(av.size), device=DEVICE,
+                     generator=torch.Generator().manual_seed(SEED))
+    batch = am_batch(np.random.default_rng(SEED + 19), AM_BATCH, AM_BUCKET,
+                     AM_LABELS, av.size)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_bigru_")
+    try:
+        tr = AMTrainer(model, os.path.join(workdir, "am"))
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        torch.cuda.synchronize()
+        reset_launches()
+        with wrapping(recording17(calls.setdefault("bigru", {}))):
+            stats = train_steps("bigru", tr, batch, gen, BIGRU_STEPS)
+        launched17(results, "bigru", FAMILY17["bigru"])
+        del tr, model
+
+        keras = BiGRUCTC(BiGRUCTCConfig(av.size, keras_parity=True),
+                         device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED + 1))
+        tree = state_dict_to_flax(keras.state_dict(), "bigru")
+        path = os.path.join(workdir, "cnn_rnn_ctc.hdf5")
+        if importlib.util.find_spec("h5py") is not None:
+            hdf5_import.save_keras_bigru_hdf5(path, tree, av.size)
+            hidden = hdf5_import.hdf5_bigru_hidden(path)
+            back = hdf5_import.load_keras_bigru_hdf5(path, av.size)
+            how = f"through {path} (hidden {hidden} read from the file)"
+        else:
+            back = tree
+            how = ("through the Keras layout's tree: this machine has no "
+                   "h5py, so the .hdf5 file itself is not written here")
+        served = BiGRUCTC(BiGRUCTCConfig(av.size, keras_parity=True),
+                          device=DEVICE,
+                          generator=torch.Generator().manual_seed(SEED + 2))
+        served.load_state_dict(bigru_state_dict(back), strict=True)
+        same = all(torch.equal(a, served.state_dict()[k])
+                   for k, a in keras.state_dict().items())
+        print(f"bigru keras_parity weights {how}: bit for bit {same}")
+        require(same, "bigru: the Keras round trip changed the weights")
+        served.eval()
+        rng = np.random.default_rng(SEED + 20)
+        n = samples_for_frames(AM_BUCKET)
+        lens = rng.integers(int(0.5 * n), n + 1,
+                            size=BIGRU_SERVE_BATCH).astype(np.int32)
+        lens[0] = n
+        sig = np.zeros((BIGRU_SERVE_BATCH, n), np.float32)
+        for i, m in enumerate(lens):
+            sig[i, :m] = tone_utterance(rng, int(m))
+        out = {}
+        for decode in ("greedy", "beam"):
+            pipe = Pipeline(served, lm, acoustic_vocab=av, language_vocab=lv,
+                            decode=decode, beam_width=BEAM_WIDTH)
+            pipe.recognize_batch(sig[:1], lens[:1], bucket_frames=AM_BUCKET)
+            torch.cuda.synchronize()
+            reset_launches()
+            kept = calls.setdefault(f"bigru {decode}", {})
+            with wrapping(recording17(kept)):
+                t0 = time.perf_counter()
+                res = pipe.recognize_batch(sig, lens,
+                                           bucket_frames=AM_BUCKET)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launched17(results, f"bigru {decode}",
+                       FAMILY17[f"bigru {decode}"])
+            out[decode] = wall
+            print(f"bigru serving ({decode}): batch {BIGRU_SERVE_BATCH} at "
+                  f"bucket {AM_BUCKET}, {wall * 1e3:.1f} ms wall; pinyin "
+                  f"lengths {res[1].tolist()}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    stats["serve_s"] = out
+    return stats
+
+
+#: seeded cases phase 17e may draw for a model before it finds one whose
+#: non-smooth ops decide alike on the card and the CPU
+CASES17 = 8
+
+
+def kink_log():
+    """A ``TorchFunctionMode`` that changes nothing and keeps, on the CPU,
+    each decision of the non-smooth ops it sees while gradients are
+    recorded (the forward pass; a backward runs on the card's own thread,
+    out of the mode, but on the CPU's under it): the active set of
+    ``relu``, the inside set of a floating ``clamp(x, lo, hi)``, and the
+    winner of each 2 x 2 ``max_pool2d`` window (the first of equal
+    entries)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class KinkLog(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.decisions = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if torch.is_grad_enabled():
+                self.note(func, args, kwargs)
+            return func(*args, **kwargs)
+
+        def note(self, func, args, kwargs):
+            if func in (F.relu, torch.relu):
+                self.decisions.append((args[0].detach() > 0).cpu())
+            elif func is torch.clamp and len(args) == 3 \
+                    and args[0].is_floating_point():
+                x = args[0].detach()
+                self.decisions.append(((x > args[1]) & (x < args[2])).cpu())
+            elif func is F.max_pool2d:
+                require(args[1] == 2 and kwargs["stride"] == 2
+                        and kwargs["padding"] == 0,
+                        "kink_log: a max_pool2d other than 2 x 2, stride 2")
+                x = args[0].detach().cpu()
+                b, c, h, w = x.shape
+                win = x[:, :, :h // 2 * 2, :w // 2 * 2].reshape(
+                    b, c, h // 2, 2, w // 2, 2).permute(0, 1, 2, 4, 3, 5)
+                self.decisions.append(
+                    win.reshape(b, c, h // 2, w // 2, 4).argmax(-1))
+
+    return KinkLog()
+
+
+def case17(name: str, k: int):
+    """(batch, trainer class, fbank filters, model on the CPU) of phase
+    17e's ``k``-th seeded case for ``name``."""
+    import torch
+    from asr_dfcnn_transformer_torch.models import (AMLMJoint,
+                                                    AMLMJointConfig,
+                                                    BiGRUCTC, BiGRUCTCConfig,
+                                                    CTCAttention,
+                                                    CTCAttentionConfig)
+    from asr_dfcnn_transformer_torch.train import (AMTrainer, AttenTrainer,
+                                                   JointTrainer)
+    rng = np.random.default_rng(SEED + 21 + 1000 * k)
+    gen = torch.Generator().manual_seed(SEED + k)
+    if name == "atten":
+        return (am_batch(rng, 4, 200, (3, 4), 64), AttenTrainer, 16,
+                CTCAttention(CTCAttentionConfig(
+                    64, d_model=64, num_heads=4, num_blocks=2,
+                    dropout_rate=0.0, dtype=torch.float32),
+                    feature_dim=4 * 16, device="cpu", generator=gen))
+    batch = am_batch(rng, 4, 128, (6, 8), 48)
+    if name == "joint":
+        return batch, JointTrainer, 40, AMLMJoint(
+            AMLMJointConfig(48, 64, small=True, dtype=torch.float32),
+            feature_dim=40, device="cpu", generator=gen)
+    return batch, AMTrainer, 40, BiGRUCTC(
+        BiGRUCTCConfig(48, hidden=32, num_layers=2, dropout_rate=0.0,
+                       keras_parity=name == "bigru keras_parity",
+                       dtype=torch.float32),
+        feature_dim=40, device="cpu", generator=gen)
+
+
+def card_vs_cpu17():
+    """(e) One training step of each new model at small widths, f32,
+    dropout 0, the same weights on the card (kernels) and the CPU
+    (twins), both reading the CPU's features: the loss and every gradient
+    by phase 6's rule.
+
+    Where a ReLU or clamp input, or the gap between a max pool window's two
+    largest entries, lies within rounding of zero, the two devices may
+    decide it each its own way, and one such decision moves the gradients
+    upstream of it by percents (CTC-attention's conv stack meets such
+    inputs in about one seeded case in three). Each step therefore runs
+    under ``kink_log``, which observes and changes nothing; a case whose
+    decisions differ anywhere is set aside, printed, and the next seeded
+    case is drawn, up to ``CASES17``. The case compared is one where both
+    devices take every decision alike, held by phase 6's rule."""
+    import torch
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cmp17_")
+    try:
+        for name in ("atten", "joint", "bigru", "bigru keras_parity"):
+            for k in range(CASES17):
+                batch, make, nfilt, model = case17(name, k)
+                feats = make(copy.deepcopy(model), workdir,
+                             feature_dim=nfilt).features(
+                    torch.from_numpy(batch.signals),
+                    torch.from_numpy(batch.signal_lengths),
+                    batch.bucket_frames)
+                out, kinks = {}, {}
+                for where in (DEVICE, "cpu"):
+                    tr = make(copy.deepcopy(model).to(where),
+                              os.path.join(workdir, f"{name}_{k}_{where}"),
+                              feature_dim=nfilt)
+                    tr.features = lambda *a, _d=where: (
+                        tuple(x.to(_d) for x in feats)
+                        if isinstance(feats, tuple) else feats.to(_d))
+                    with kink_log() as log:
+                        out[where] = step_and_grads(tr, batch)
+                    kinks[where] = log.decisions
+                a, b = kinks[DEVICE], kinks["cpu"]
+                require(len(a) == len(b) and all(
+                    x.shape == y.shape for x, y in zip(a, b)),
+                    f"{name}: the card and the CPU steps ran other ops")
+                differ = sum(int((x != y).sum()) for x, y in zip(a, b))
+                print(f"{name} case {k}: {sum(x.numel() for x in a)} "
+                      f"decisions of {len(a)} ReLU / clamp / max-pool "
+                      f"calls, {differ} differ between card and CPU")
+                if differ == 0:
+                    compare_steps(f"{name} (case {k})", out["cpu"],
+                                  out[DEVICE])
+                    break
+            else:
+                require(False, f"{name}: no case of {CASES17} took every "
+                        "non-smooth decision alike on the card and the CPU")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def ctc_repeats17():
+    """(f) The CTC gradient computed twice on the same logits is the same
+    bit for bit: at the AM step's shape ([16, 200, 1536], 48 labels of
+    64), at CTC-attention's ([16, 66, 6345], 24 of 64, repeats of a class
+    within an utterance) and at the BiGRU's 1600 emission rows."""
+    import torch
+    from asr_dfcnn_transformer_torch.ops.ctc import ctc_loss
+    rng = np.random.default_rng(SEED + 22)
+    for label, (b, t, v), (n_tok, width), cap in (
+            ("AM step", (16, 200, 1536), (48, 64), 200),
+            ("CTC-attention", (16, 66, 6345), (24, 64), 66),
+            ("BiGRU", (16, 1600, 1536), (48, 64), 201)):
+        x = torch.from_numpy((2.0 * rng.standard_normal((b, t, v)))
+                             .astype(np.float32)).to(DEVICE)
+        labels = rng.integers(1, min(v - 1, 40), size=(b, width))
+        labels[:, n_tok:] = 0
+        lab = torch.from_numpy(labels.astype(np.int32)).to(DEVICE)
+        lab_len = torch.full((b,), n_tok, dtype=torch.int32, device=DEVICE)
+        x_len = torch.from_numpy(rng.integers(int(0.6 * cap), cap + 1,
+                                              size=b).astype(np.int32)
+                                 ).to(DEVICE)
+        grads = []
+        for _ in range(2):
+            xi = x.clone().requires_grad_(True)
+            loss = ctc_loss(xi, x_len, lab, lab_len).mean()
+            (g,) = torch.autograd.grad(loss, xi)
+            grads.append(g)
+        same = torch.equal(grads[0], grads[1])
+        print(f"ctc gradient twice at {label} [{b}, {t}, {v}], {n_tok} "
+              f"labels of {width} (classes repeat within an utterance): "
+              f"bit for bit {same}, loss {float(loss.detach()):.4f}")
+        require(same, f"the CTC gradient does not repeat at {label}")
+
+
+def tensorboard17(results):
+    """(g) ``e2e --small --synthetic 16 --tensorboard`` through the CLI on
+    the card; its event file read back with ``utils.tb_events.read_events``
+    (each record's CRCs checked): train and dev scalars and the attention
+    images."""
+    import glob
+    from asr_dfcnn_transformer_torch.utils.tb_events import read_events
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tb_")
+    try:
+        run_cli(results, "e2e tensorboard",
+                ["e2e", "--workdir", workdir, "--synthetic", "16",
+                 "--small", "--batch-size", "8", "--epochs", "1", "--lr",
+                 "1e-3", "--tensorboard"])
+        files = glob.glob(os.path.join(workdir, "tb", "e2e",
+                                       "events.out.tfevents.*"))
+        require(len(files) == 1, f"tensorboard: {len(files)} event files")
+        events = read_events(files[0])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    values = [v for e in events for v in e["values"]]
+    scalars = sorted({v["tag"] for v in values if "simple_value" in v})
+    images = {v["tag"]: v["image"] for v in values if "image" in v}
+    print(f"tensorboard: {len(events)} events (CRCs checked), scalars "
+          f"{scalars}, images "
+          + ", ".join(f"{t} {im['height']}x{im['width']}"
+                      for t, im in sorted(images.items())))
+    require(events[0]["file_version"] == "brain.Event:2",
+            "tensorboard: no file version record")
+    require(any(t.startswith("e2e/train/") for t in scalars)
+            and any(t.startswith("e2e/dev/") for t in scalars),
+            "tensorboard: train or dev scalars missing")
+    require(images and all(t.startswith("e2e/attention/") for t in images)
+            and all(im["png"].startswith(b"\x89PNG") for im in
+                    images.values()),
+            "tensorboard: no attention images")
+
+
+def phase_families(results):
+    """Phase 17: CTC-attention, the joint AM -> LM and the BiGRU at full
+    width, their kernel calls against the twins, card against CPU, the
+    CTC gradient's repeatability and the TensorBoard event files."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.models import (TransformerLM,
+                                                    TransformerLMConfig)
+    walls, calls = {}, {}
+    t = time.perf_counter()
+    atten = atten17(results, calls)
+    walls["a atten"] = time.perf_counter() - t
+    t = time.perf_counter()
+    joint = joint17(results, calls)
+    walls["b joint"] = time.perf_counter() - t
+    t = time.perf_counter()
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    lm = TransformerLM(TransformerLMConfig(av.size, lv.size,
+                                           dtype=torch.bfloat16),
+                       device=DEVICE,
+                       generator=torch.Generator().manual_seed(SEED)).eval()
+    bigru = bigru17(results, calls, lm)
+    walls["c bigru"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for run, names in CHECKED17.items():
+        check_kept_calls(f"phase 17 {run}", calls[run], names)
+    walls["d calls"] = time.perf_counter() - t
+    t = time.perf_counter()
+    card_vs_cpu17()
+    walls["e card vs cpu"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ctc_repeats17()
+    walls["f ctc repeats"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tensorboard17(results)
+    walls["g tensorboard"] = time.perf_counter() - t
+    for name, s in (("atten", atten), ("joint", joint), ("bigru", bigru)):
+        print(f"phase 17 {name}: {s['ms_per_step']:.2f} ms/step, peak "
+              f"{s['peak_bytes'] / 2**30:.2f} GiB")
+    for part, wall in walls.items():
+        print(f"phase 17 ({part}): {wall:.1f} s")
+    print(f"phase 17: {sum(walls.values()):.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4067,6 +4629,7 @@ def main() -> int:
     phase_am_family(results)
     phase_gates(results)
     phase_serving(results)
+    phase_families(results)
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

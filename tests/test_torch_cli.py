@@ -75,17 +75,14 @@ def test_cli_eval(workdir, capsys, decode):
 
 def test_cli_eval_wrong_model_fails_loudly(workdir):
     """eval --model must match what `am` trained (the identity stamp: the
-    other SE-DFCNN ordering, and the plain and Keras DFCNNs, another
-    class), and bigru, which the port does not build, fails naming its
-    ROADMAP item."""
+    other SE-DFCNN ordering, and the plain and Keras DFCNNs and the BiGRU,
+    another class)."""
     with pytest.raises(ModelIdentityError, match="se_first"):
         cli.main(["eval", "--workdir", workdir, "--model", "se_dfcnn_pre"]
                  + SMALL)
-    for name in ("dfcnn", "keras_dfcnn"):
+    for name in ("dfcnn", "keras_dfcnn", "bigru"):
         with pytest.raises(ModelIdentityError, match="class"):
             cli.main(["eval", "--workdir", workdir, "--model", name] + SMALL)
-    with pytest.raises(ValueError, match="ROADMAP Queue A 11"):
-        cli.main(["eval", "--workdir", workdir, "--model", "bigru"] + SMALL)
 
 
 def test_cli_infer(workdir, capsys):
@@ -136,7 +133,8 @@ def test_cli_export_tf1(workdir):
                                           fw[k], err_msg=str(k))
     # --format hdf5: a keras_dfcnn checkpoint as a file the JAX reader
     # loads, with the checkpoint's parameters bit for bit; the se_dfcnn
-    # checkpoint has no Keras layout; the BiGRU waits for Queue A 11
+    # checkpoint has no Keras layout, neither as cnn_ctc nor as the
+    # BiGRU's cnn_rnn_ctc (test_torch_bigru.py exports a BiGRU)
     from asr_dfcnn_transformer_tpu.infer.hdf5_import import (
         load_keras_dfcnn_hdf5)
     from asr_dfcnn_transformer_torch.models import (KerasDFCNN,
@@ -162,10 +160,13 @@ def test_cli_export_tf1(workdir):
     with pytest.raises(SystemExit, match="no Keras layout"):
         cli.main(["export", "--workdir", workdir, "--format", "hdf5",
                   "--what", "lm", "--out", os.path.join(workdir, "x.hdf5")])
-    with pytest.raises(SystemExit, match="Queue A 11"):
+    with pytest.raises(SystemExit, match="does not match the bigru/hdf5"):
         cli.main(["export", "--workdir", workdir, "--format", "hdf5",
                   "--what", "bigru", "--out",
                   os.path.join(workdir, "x.hdf5")])
+    with pytest.raises(SystemExit, match="use --format hdf5"):
+        cli.main(["export", "--workdir", workdir, "--what", "bigru",
+                  "--out", os.path.join(workdir, "x.ckpt")])
 
 
 def test_cli_eval_with_tf1_checkpoints(workdir, capsys):

@@ -161,6 +161,35 @@ def test_ctc_loss_and_grad_match_jax(backend, log_probs):
     assert np.all(got_grad[3] == 0.0)
 
 
+@pytest.mark.parametrize("v", [1536, 6345])
+def test_class_sums_with_repeats_match_jax_grad(v):
+    """The backward's class sums (a fixed-order sum in place of an atomic
+    scatter) at the pinyin and hanzi vocabularies: labels with a class
+    repeated within an utterance, twice and three times, one adjacent
+    repeat, label padding inside the vocabulary and out of it."""
+    rng = np.random.default_rng(v)
+    b, t, l = 3, 40, 8
+    logits = (3 * rng.standard_normal((b, t, v))).astype(np.float32)
+    labels = rng.integers(0, v - 1, size=(b, l)).astype(np.int32)
+    labels[0, [1, 4, 6]] = labels[0, 0]              # three repeats
+    labels[1, 2] = labels[1, 1]                      # adjacent repeat
+    labels[1, 5] = labels[1, 0]
+    labels[2, 5:] = labels[2, 0]                     # padding = a label
+    labels[1, 7] = -1                                # padding outside V
+    logit_len = np.array([t, t - 5, 30], np.int32)
+    label_len = np.array([l, 7, 5], np.int32)
+    g = np.array([1.0, 0.5, 2.0], np.float32)
+    want_loss, want_grad = _jax_loss_and_vjp(
+        logits, logit_len, labels, label_len, g, "scan", False)
+    got_loss, got_grad = _torch_loss_and_grad(
+        logits, logit_len, labels, label_len, g, False)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    np.testing.assert_allclose(got_grad, want_grad, rtol=1e-4, atol=1e-5)
+    again = _torch_loss_and_grad(logits, logit_len, labels, label_len, g,
+                                 False)[1]
+    np.testing.assert_array_equal(again, got_grad)
+
+
 @pytest.mark.parametrize("log_probs", [False, True])
 def test_zero_length_logit_row(log_probs):
     """Zero valid frames: log P is 0 for an empty label and -1e30 for any

@@ -1,8 +1,9 @@
 """The port's config tree and model / trainer builders against the JAX
 package's: the same JSON both ways, models whose config fields equal the
-JAX builders' modules' field for field (every AM name but bigru, which is
-refused with its ROADMAP item), the card as the default device, and a trainer built
-from ``LmConfig(fused_ffn="pallas")`` that takes a step."""
+JAX builders' modules' field for field (every AM name, bigru included;
+unknown names, ctc_attention among them, raise as in JAX), the card as
+the default device, and a trainer built from ``LmConfig(fused_ffn="pallas")``
+that takes a step."""
 
 import dataclasses
 
@@ -95,18 +96,24 @@ def test_lm_and_e2e_builders_match_jax(which):
                                      ("keras_dfcnn", "ROADMAP Queue A 4"),
                                      ("bigru", "ROADMAP Queue A 11")])
 def test_unported_am_names_their_roadmap_item(am, item):
-    """``item``: the ROADMAP item that ports the model. dfcnn and
-    keras_dfcnn (Queue A 4) now build with the JAX factory's fields;
-    bigru still raises naming its item; unknown names raise."""
+    """``item``: the ROADMAP item that ported the model. dfcnn and
+    keras_dfcnn (Queue A 4) and bigru (Queue A 11) build with the JAX
+    factory's fields and class; unknown names raise, ctc_attention among
+    them (the JAX factory builds no CTC-attention AM either)."""
     port, jax_cfg = _configs(am=dict(model=am, dtype="float32"))
-    if am == "bigru":
-        with pytest.raises(ValueError, match=item):
+    model = factory.build_am_model(port, device="cpu")
+    _same_fields(model, jax_factory.build_am_model(jax_cfg))
+    assert type(model).__name__ == type(
+        jax_factory.build_am_model(jax_cfg)).__name__
+    if am == "bigru":                 # BiGRUCTC's own dropout, as in JAX
+        assert model.config.dropout_rate == 0.2
+        assert model.Dense_0.weight.shape[1] == port.am.feature_dim
+    for name in ("ctc_attention", "nope"):
+        port, jax_cfg = _configs(am=dict(model=name))
+        with pytest.raises(ValueError, match="unknown am model"):
+            jax_factory.build_am_model(jax_cfg)
+        with pytest.raises(ValueError, match="unknown am model"):
             factory.build_am_model(port, device="cpu")
-    else:
-        model = factory.build_am_model(port, device="cpu")
-        _same_fields(model, jax_factory.build_am_model(jax_cfg))
-        assert type(model).__name__ == type(
-            jax_factory.build_am_model(jax_cfg)).__name__
     port, _ = _configs(am=dict(model="nope"))
     with pytest.raises(ValueError, match="unknown am model"):
         factory.build_am_model(port, device="cpu")

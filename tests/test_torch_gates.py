@@ -2,8 +2,9 @@
 (``asr_dfcnn_transformer_torch/gates.py``): the JAX package's
 ``test_synthetic_{cer,fast,e2e}_gate.py`` with their corpus, seeds, widths,
 steps, learning rates and thresholds, and the beam gate on the cer gate's
-weights. Every test is marked slow: the three gates take about 1.5, 1
-and 2 minutes of CPU each. The check that each gate trains under
+weights; and ``test_synthetic_{atten,joint,bigru}_gate.py``. Every gate
+test is marked slow: the cer, fast and e2e gates take about 1.5, 1 and 2
+minutes of CPU each. The check that each gate trains under
 PyTorch's deterministic algorithms is not slow.
 
     python -m pytest tests/test_torch_gates.py -m slow
@@ -58,11 +59,43 @@ def test_e2e_transformer_accuracy_gate(tmp_path):
 
 
 @pytest.mark.slow
+def test_ctc_attention_accuracy_gate(tmp_path):
+    """CTCAttention d 64, 2 blocks, ceil(T/4) lengths (400 steps): held-out
+    hanzi accuracy (1 - LER) > 0.8."""
+    out = gates.atten_gate(str(tmp_path), "cpu")
+    print(out)
+    assert out["accuracy"] > 0.8, out
+    assert gates.scored_misses("atten", out) == []
+
+
+@pytest.mark.slow
+def test_joint_am_lm_accuracy_gate(tmp_path):
+    """The small AMLMJoint (450 steps): held-out lm_acc through the AM's
+    own greedy decode > 0.92."""
+    out = gates.joint_gate(str(tmp_path), "cpu")
+    print(out)
+    assert out["lm_acc"] > 0.92, out
+    assert gates.scored_misses("joint", out) == []
+
+
+@pytest.mark.slow
+def test_bigru_accuracy_gate(tmp_path):
+    """BiGRUCTC hidden 48, one layer (700 steps, 64-frame buckets):
+    held-out pinyin accuracy (1 - LER) > 0.65."""
+    out = gates.bigru_gate(str(tmp_path), "cpu")
+    print(out)
+    assert out["accuracy"] > 0.65, out
+    assert gates.scored_misses("bigru", out) == []
+
+
+@pytest.mark.slow
 def test_gate_thresholds_are_the_jax_gates():
     """The thresholds phase 15 of chip_smoke.py reads are the JAX gates'."""
     assert (gates.AM_LM_MIN_ACCURACY, gates.E2E_MIN_TEACHER_FORCED,
             gates.E2E_MIN_ACCURACY, gates.E2E_MIN_UTTERANCES,
             gates.BEAM_SLACK) == (0.97, 0.95, 0.85, 100, 0.01)
+    assert (gates.ATTEN_MIN_ACCURACY, gates.JOINT_MIN_LM_ACC,
+            gates.BIGRU_MIN_ACCURACY) == (0.8, 0.92, 0.65)
 
 
 @pytest.mark.slow

@@ -205,6 +205,25 @@ def test_cli_eval_am_hdf5_prints_the_jax_cli_lines(tmp_path, capsys):
             open(tmp_path / "port" / "pred" / "pred_log",
                  encoding="utf-8") as b:
         assert a.read() == b.read()
-    with pytest.raises(SystemExit, match="Queue A 11"):
-        cli.main(["eval", "--workdir", str(tmp_path / "port"), "--platform",
-                  "cpu", "--model", "bigru"] + args)
+    # --model bigru: a cnn_rnn_ctc file of the JAX writer (its hidden width
+    # read from the file), evaluated by both CLIs the same way
+    from asr_dfcnn_transformer_tpu.models import BiGRUCTC
+    bigru = BiGRUCTC(av.size, hidden=24, keras_parity=True,
+                     dtype=jnp.float32)
+    gru_vars = jax.tree.map(np.asarray, bigru.init(
+        jax.random.PRNGKey(5), jnp.zeros((1, 8, 200), jnp.float32)))
+    gru_path = str(tmp_path / "bigru.hdf5")
+    jh.save_keras_bigru_hdf5(gru_path, gru_vars, av.size, hidden=24)
+    args[args.index("--am-hdf5") + 1] = gru_path
+    jax_cli.main(["eval", "--workdir", str(tmp_path / "jax_gru"),
+                  "--model", "bigru"] + args)
+    want = ACC.findall(capsys.readouterr().out)
+    cli.main(["eval", "--workdir", str(tmp_path / "port_gru"), "--platform",
+              "cpu", "--model", "bigru"] + args)
+    got = ACC.findall(capsys.readouterr().out)
+    assert len(want) == 2 and got == want
+    with open(tmp_path / "jax_gru" / "pred" / "pred_log",
+              encoding="utf-8") as a, \
+            open(tmp_path / "port_gru" / "pred" / "pred_log",
+                 encoding="utf-8") as b:
+        assert a.read() == b.read()

@@ -184,6 +184,14 @@ def test_vocab_and_constants_match_jax():
                  "FEATURE_MAX_LENGTH", "FEATURE_DIM", "TIME_REDUCTION",
                  "MAX_LABEL_LENGTH", "PAD_FLAG", "SOS_FLAG", "EOS_FLAG"):
         assert getattr(constants, name) == getattr(jax_constants, name), name
+    # the lexicon's dict.txt, byte for byte and as loaded
+    from asr_dfcnn_transformer_torch.core import lexicon
+    from asr_dfcnn_transformer_tpu.core import lexicon as jax_lexicon
+    with open(lexicon.LEXICON_PATH, "rb") as a, \
+            open(jax_lexicon.LEXICON_PATH, "rb") as b:
+        assert a.read() == b.read()
+    assert lexicon.LEXICON_PATH != jax_lexicon.LEXICON_PATH
+    assert lexicon.load_lexicon() == jax_lexicon.load_lexicon()
 
 
 def test_models_build_on_cuda_by_default(monkeypatch):
@@ -235,9 +243,9 @@ def test_every_c_entry_point_has_its_signature():
 
 
 def test_package_never_imports_jax():
-    """Importing every module of the port leaves jax, flax, h5py (which
-    the card's machine lacks) and every module of the JAX package out of
-    sys.modules."""
+    """Importing every module of the port leaves jax, flax, h5py,
+    matplotlib and tensorboard (which the card's machine lacks) and every
+    module of the JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import asr_dfcnn_transformer_torch as p\n"
@@ -253,12 +261,16 @@ def test_package_never_imports_jax():
         "        'audio.noise', 'audio.wav', 'audio.noise_corpus',\n"
         "        'data.manifest', 'data.synthetic', 'data.loader',\n"
         "        'train.identity', 'train.cli', 'infer.tf_ckpt',\n"
-        "        'infer.hdf5_import', 'gates']\n"
+        "        'infer.hdf5_import', 'gates', 'models.bigru',\n"
+        "        'models.ctc_attention', 'models.am_lm_joint',\n"
+        "        'core.lexicon', 'utils.phoneme', 'utils.plotting',\n"
+        "        'utils.tb_events', 'utils.introspect']\n"
         "missing = [n for n in need if p.__name__ + '.' + n"
         " not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax',"
-        " 'h5py') or m.startswith('asr_dfcnn_transformer_tpu')]\n"
+        " 'h5py', 'matplotlib', 'tensorboard')"
+        " or m.startswith('asr_dfcnn_transformer_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
