@@ -137,6 +137,27 @@ _NO_STATS = ("lm", "bigru")
 _FLAX_STATS = {v: k for k, v in _STAT_NAMES.items()}
 
 
+def flax_leaf(key: str, ndim: int) -> tuple:
+    """A port parameter's place in the Flax tree: (collection, Flax path
+    "a/b/leaf", axes) where the Flax array is the port tensor's
+    ``.permute(*axes)``, so Flax axis i is the port's axis ``axes[i]``."""
+    *path, name = key.split(".")
+    axes = tuple(range(ndim))
+    if name in _FLAX_STATS:
+        collection, leaf = "batch_stats", _FLAX_STATS[name]
+    elif name == "weight":
+        collection, leaf = "params", {4: "kernel", 2: "kernel",
+                                      1: "scale"}[ndim]
+        axes = {4: (2, 3, 1, 0), 2: (1, 0)}.get(ndim, axes)
+    elif name == "recurrent_weight":
+        collection, leaf, axes = "params", "recurrent_kernel", (1, 0)
+    elif name in ("bias", "embedding"):
+        collection, leaf = "params", name
+    else:
+        raise ValueError(f"unknown state_dict entry {key!r}")
+    return collection, "/".join(path + [leaf]), axes
+
+
 def state_dict_to_flax(sd: Mapping[str, torch.Tensor], kind: str
                        ) -> Dict[str, Any]:
     """The exact inverse of :func:`flax_to_state_dict` for a model of
@@ -149,25 +170,13 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor], kind: str
         raise ValueError(f"kind={kind!r}: expected one of {_KINDS}")
     out: Dict[str, Any] = {"params": {}}
     for key, value in sd.items():
-        *path, name = key.split(".")
         a = value.detach().cpu().to(torch.float32).numpy()
-        if name in _FLAX_STATS:
-            collection, leaf = "batch_stats", _FLAX_STATS[name]
-        elif name == "weight":
-            collection, leaf = "params", {4: "kernel", 2: "kernel",
-                                          1: "scale"}[a.ndim]
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else \
-                a.T if a.ndim == 2 else a
-        elif name == "recurrent_weight":
-            collection, leaf, a = "params", "recurrent_kernel", a.T
-        elif name in ("bias", "embedding"):
-            collection, leaf = "params", name
-        else:
-            raise ValueError(f"unknown state_dict entry {key!r}")
+        collection, path, axes = flax_leaf(key, a.ndim)
+        *path, leaf = path.split("/")
         node = out.setdefault(collection, {})
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(a)
+        node[leaf] = np.ascontiguousarray(a.transpose(axes))
     if kind in _NO_STATS and "batch_stats" in out:
         raise ValueError(f"{kind} state_dicts hold no batch statistics")
     if kind not in _NO_STATS and "batch_stats" not in out:

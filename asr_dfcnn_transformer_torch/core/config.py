@@ -120,8 +120,8 @@ class TrainConfig:
 class MeshConfig:
     """Device mesh layout: a (data, model) mesh; batch sharded over
     ``data``, the LM/e2e attention heads, FFN and vocab projection over
-    ``model``. Kept so configs stay interchangeable; the port does not read
-    it yet (ROADMAP Queue A 12, parallelism)."""
+    ``model``. ``train.factory.build_mesh`` lays it over the process group,
+    one process per device."""
 
     data_axis: str = "data"
     model_axis: str = "model"

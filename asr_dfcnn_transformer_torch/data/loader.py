@@ -2,8 +2,8 @@
 of the JAX package's ``data/loader.py`` (``DataLoader``, ``prefetch``), on
 numpy and the standard library. It yields the port's ``data/batches.py``
 ``AMBatch`` / ``LMBatch``, the same arrays for the same manifest, as the
-JAX loader's Python path gives them (wav headers and samples through
-``wave``; the native decoder, ``data/native_loader.py``, is not ported).
+JAX loader gives them (wav headers and samples through the native decoder,
+``data/native_loader.py``).
 
 - **Raw signals to the device**: batches carry padded raw audio and
   lengths; the log-filterbank front end runs inside the train and infer
@@ -28,8 +28,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-import wave
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -37,41 +36,11 @@ from asr_dfcnn_transformer_torch.audio.fbank import (frames_for_samples,
                                                      samples_for_frames)
 from asr_dfcnn_transformer_torch.audio.wav import read_wav
 from asr_dfcnn_transformer_torch.core import constants
+from asr_dfcnn_transformer_torch.data import native_loader
 from asr_dfcnn_transformer_torch.core.vocab import (Vocab, hanzi_to_ids,
                                                     pinyin_to_ids)
 from asr_dfcnn_transformer_torch.data.batches import AMBatch, LMBatch
 from asr_dfcnn_transformer_torch.data.manifest import Manifest
-
-
-def _wav_num_samples(path: str) -> int:
-    """The sample count from a wav's header; raises on a file ``wave``
-    cannot parse."""
-    with wave.open(path, "rb") as w:
-        return w.getnframes()
-
-
-def decode_batch(paths: List[str], max_samples: int,
-                 out: Optional[np.ndarray] = None
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Decode ``paths`` into a [B, max_samples] float32 array (+ lengths):
-    the JAX package's ``native_loader.decode_batch`` without its native
-    decoder. Rows of failed files come back zero with length -1, which the
-    loader drops."""
-    b = len(paths)
-    if out is None:
-        out = np.empty((b, max_samples), np.float32)
-    lengths = np.empty((b,), np.int64)
-    for i, p in enumerate(paths):
-        try:
-            sig, _ = read_wav(p)
-            n = min(len(sig), max_samples)
-            out[i, :n] = sig[:n]
-            out[i, n:] = 0
-            lengths[i] = n
-        except (OSError, EOFError, ValueError, wave.Error):
-            out[i] = 0
-            lengths[i] = -1
-    return out, lengths
 
 
 class DataLoader:
@@ -128,8 +97,8 @@ class DataLoader:
         if path is None:
             return None
         try:
-            n_samples = _wav_num_samples(path)
-        except (OSError, EOFError, wave.Error):
+            n_samples = native_loader.probe(path)[0]
+        except OSError:
             # unparseable/truncated wav: drop the row like every other
             # bad-row condition instead of aborting the epoch
             return None
@@ -187,7 +156,8 @@ class DataLoader:
         han_len = np.zeros((bsz,), np.int32)
         weights = np.zeros((bsz,), np.float32)
         paths = [rows[j % n_valid][0] for j in range(bsz)]
-        signals, dec_len = decode_batch(paths, s_max, out=signals)
+        signals, dec_len = native_loader.decode_batch(paths, s_max,
+                                                      out=signals)
         for j in range(bsz):
             path, p_ids, h_ids, n_samp, n_frm = rows[j % n_valid]
             sig_len[j] = max(int(dec_len[j]), 0)

@@ -74,6 +74,14 @@ def pipeline_program(am_model, lm_model, signals: torch.Tensor,
     return pny_ids, pny_len, han_ids
 
 
+def _gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The data ranks' rows of ``t``, all-gathered in rank order."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(t) for _ in range(mesh.shape["data"])]
+    dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
+    return torch.cat(parts)
+
+
 def infer_bucket_frames(frames: int) -> int:
     """The single-utterance bucket: frames ceil'd to 128, capped at
     FEATURE_MAX_LENGTH (shared with the JAX package's streaming finalize)."""
@@ -105,12 +113,18 @@ class Pipeline:
         (then only pinyin comes back).
       decode: "greedy" (``tf.nn.ctc_greedy_decoder`` parity) or "beam"
         (the prefix beam search, ``beam_width`` beams and extensions).
+      mesh: a ``parallel.make_mesh`` mesh (every process of it builds the
+        pipeline on the same weights and calls it with the same batch):
+        the batch is padded with zero signals to a multiple of the ``data``
+        size, each data rank runs its rows, and the results are
+        all-gathered, so every rank returns the whole batch.
     """
 
     def __init__(self, am_model, lm_model=None, *, acoustic_vocab: Vocab,
                  language_vocab: Optional[Vocab] = None,
                  feature_dim: int = 200, decode: str = "greedy",
-                 beam_width: int = 8, lm_max_len: Optional[int] = None):
+                 beam_width: int = 8, lm_max_len: Optional[int] = None,
+                 mesh=None):
         if decode not in DECODES:
             raise ValueError(f"decode={decode!r}: expected one of {DECODES}")
         self.am_model = am_model.eval()
@@ -129,6 +143,7 @@ class Pipeline:
                           else constants.MAX_LABEL_LENGTH)
         self.lm_max_len = lm_max_len
         self.device = next(am_model.parameters()).device
+        self.mesh = mesh
 
     @classmethod
     def from_checkpoints(cls, workdir: str, am_model, lm_model=None, *,
@@ -176,15 +191,27 @@ class Pipeline:
                         bucket_frames: int = constants.FEATURE_MAX_LENGTH):
         """signals [B, S] float32, lengths [B] -> (pinyin ids [B, L],
         pinyin lengths [B], hanzi ids [B, L] or None), numpy int32."""
-        sig = torch.as_tensor(np.asarray(signals, np.float32),
-                              device=self.device)
-        lens = torch.as_tensor(np.asarray(lengths, np.int32),
-                               device=self.device)
+        signals = np.asarray(signals, np.float32)
+        lengths = np.asarray(lengths, np.int32)
+        b = signals.shape[0]
+        d = self.mesh.shape["data"] if self.mesh is not None else 1
+        if d > 1:
+            from asr_dfcnn_transformer_torch.parallel import shard_batch
+            pad = -b % d
+            signals = np.concatenate(
+                [signals, np.zeros((pad,) + signals.shape[1:], np.float32)])
+            lengths = np.concatenate([lengths, np.zeros((pad,), np.int32)])
+            signals, lengths = shard_batch(self.mesh, (signals, lengths))
+        sig = torch.as_tensor(signals, device=self.device)
+        lens = torch.as_tensor(lengths, device=self.device)
         out = pipeline_program(self.am_model, self.lm_model, sig, lens,
                                bucket_frames, fbank_cfg=self.fbank_cfg,
                                decode=self.decode,
                                beam_width=self.beam_width,
                                lm_max_len=self.lm_max_len)
+        if d > 1:
+            out = tuple(None if o is None else _gather_rows(o, self.mesh)[:b]
+                        for o in out)
         return tuple(None if o is None else o.cpu().numpy() for o in out)
 
     def recognize_signal(self, signal: np.ndarray,

@@ -68,14 +68,16 @@ class AMLMJoint(nn.Module):
     def forward(self, feats: torch.Tensor, frame_lengths: torch.Tensor,
                 pinyin: torch.Tensor, pinyin_lengths: torch.Tensor,
                 hanzi: torch.Tensor, weights: Optional[torch.Tensor] = None,
-                *, generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                *, generator: Optional[torch.Generator] = None,
+                reduce=None) -> Dict[str, torch.Tensor]:
         """feats [B, 1, T, F]; frame_lengths [B] valid fbank frames; pinyin
         [B, L], pinyin_lengths [B]; hanzi [B, Lh]; ``weights`` [B] (rows of
         weight 0 leave the AM's mean and their hanzi become PAD). Returns
         ``loss``, ``am_loss``, ``lm_loss``, ``lm_acc``, ``am_logits`` and
         ``decoded_pinyin`` [B, Lh] int32. ``generator`` draws the dropout
-        masks in training."""
+        masks in training. ``reduce`` (a trainer's sum over its ``data``
+        group) makes the AM's weight and the LM's count the global
+        batch's."""
         am_logits = self.am(feats, generator=generator)
         in_len = logit_lengths(frame_lengths, am_logits.shape[1])
         losses = ctc_loss(am_logits, in_len, pinyin, pinyin_lengths,
@@ -83,15 +85,16 @@ class AMLMJoint(nn.Module):
         if weights is None:
             am_loss = losses.mean()
         else:
+            total = weights.sum()
             am_loss = torch.sum(losses * weights) / torch.clamp_min(
-                weights.sum(), 1.0)
+                total if reduce is None else reduce(total), 1.0)
             hanzi = torch.where(weights[:, None] > 0, hanzi, 0)
         with torch.no_grad():
             dec, _ = ctc_greedy_decode(am_logits.detach(), in_len,
                                        blank_id=-1,
                                        max_output_len=hanzi.shape[1])
         lm_logits = self.lm(dec.to(torch.int64), generator=generator)
-        lm_loss, lm_acc = lm_loss_and_acc(lm_logits, hanzi)
+        lm_loss, lm_acc = lm_loss_and_acc(lm_logits, hanzi, reduce=reduce)
         return {"loss": am_loss + lm_loss, "am_loss": am_loss,
                 "lm_loss": lm_loss, "lm_acc": lm_acc, "am_logits": am_logits,
                 "decoded_pinyin": dec}

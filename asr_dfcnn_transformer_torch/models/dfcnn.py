@@ -21,25 +21,31 @@ their running ones) and dropout acts before the dense layers.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from asr_dfcnn_transformer_torch.audio.fbank import FbankConfig, valid_frames
 from asr_dfcnn_transformer_torch.core.device import default_device
 from asr_dfcnn_transformer_torch.models.layers import (ConvBnCell, Dense,
                                                        Dropout, SqueezeExcite,
-                                                       logits_dense)
+                                                       logits_dense,
+                                                       recomputing)
 
 
 @dataclasses.dataclass(frozen=True)
 class SEDFCNNConfig:
     """The Flax ``SEDFCNN``'s fields, name for name. ``dropout_rate`` acts
-    in training only; ``remat_stages`` is not supported yet (it changes no
-    value, only the backward's memory); ``logits_matmul`` is "f32" or
-    "bf16"."""
+    in training only; ``remat_stages`` N recomputes the first N stages in
+    the backward instead of keeping their activations (each ``ConvBnCell``
+    and ``SqueezeExcite`` of them under ``torch.utils.checkpoint``, as
+    dfcnn.py:129-135 wraps them in ``nn.remat``): it changes no value and
+    no parameter name, only the backward's memory; ``logits_matmul`` is
+    "f32" or "bf16"."""
 
     vocab_size: int
     stage_features: Sequence[int] = (32, 64, 128, 128, 128)
@@ -103,12 +109,29 @@ class SEDFCNN(nn.Module):
             x = x.permute(0, 3, 5, 1, 2, 4).reshape(b, 4 * ch, t // 2,
                                                     f // 2)
         for idx in range(len(c.stage_features)):
-            h = getattr(self, f"ConvBnCell_{2 * idx}")(x)
+            run = _remat if idx < c.remat_stages and \
+                torch.is_grad_enabled() else _call
+            h = run(getattr(self, f"ConvBnCell_{2 * idx}"), x)
             cell2 = getattr(self, f"ConvBnCell_{2 * idx + 1}")
             se = getattr(self, f"SqueezeExcite_{idx}")
-            x = h + cell2(se(h)) if c.se_first else h + se(cell2(h))
+            x = h + run(cell2, run(se, h)) if c.se_first \
+                else h + run(se, run(cell2, h))
         x = getattr(self, f"ConvBnCell_{2 * len(c.stage_features)}")(x)
         return self.Dense_0(self.dropout(channels_last(x), generator))
+
+
+def _call(unit: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return unit(x)
+
+
+def _remat(unit: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``unit(x)`` with its activations recomputed in the backward; the
+    recompute leaves the BatchNorms' running statistics alone. The units
+    draw no dropout (a recompute would draw again from an explicit
+    generator)."""
+    return checkpoint(unit, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recomputing()))
 
 
 def channels_last(x: torch.Tensor) -> torch.Tensor:

@@ -18,11 +18,13 @@ from its ``dropout`` rng.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -64,6 +66,104 @@ def _lecun_normal(shape, fan_in: int, generator: torch.Generator,
 
 def _const(shape, value: float, device) -> torch.Tensor:
     return torch.full(shape, value, dtype=torch.float32, device=device)
+
+
+# ---- collectives with autograd (the reductions XLA derives under pjit) ----
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A module's share of a tensor-parallel ``model`` group: the group,
+    this process's rank in it and its size. ``kind`` says how a ``Dense``
+    is cut: "column" (output features; the bias is replicated and each rank
+    adds its slice), "row" (input features; the partial products are summed
+    and the bias added once after the sum) or "vocab" (output features,
+    all-gathered before the bias)."""
+
+    group: object
+    rank: int
+    size: int
+    kind: str = ""
+
+    def local(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return t.chunk(self.size, dim)[self.rank]
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over ``group`` forward; the backward sums the cotangents over the
+    group too (a quantity every rank consumes: the global statistics of a
+    BatchNorm)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _EnterSplit(torch.autograd.Function):
+    """Identity forward, all-reduce backward: the entry of a column split
+    (each rank's share of the input's gradient is partial)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _LeaveRowSplit(torch.autograd.Function):
+    """All-reduce forward, identity backward: the sum after a row split."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """All-gather along the last axis forward; the backward keeps this
+    rank's slice of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        parts = [torch.empty_like(x) for _ in range(split.size)]
+        dist.all_gather(parts, x.contiguous(), group=split.group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.local(g).contiguous(), None
+
+
+def global_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (None: ``x``), with autograd."""
+    return x if group is None else _AllReduce.apply(x, group)
+
+
+def enter_split(x: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+    return x if split is None else _EnterSplit.apply(x, split.group)
+
+
+def gather_last(x: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+    return x if split is None else _GatherLast.apply(x, split)
 
 
 class Bf16Matmul(torch.autograd.Function):
@@ -125,15 +225,32 @@ class Dense(nn.Module):
                                     in_features, generator, device)
         self.bias = (nn.Parameter(_const((out_features,), 0.0, device))
                      if bias else None)
+        #: a :class:`Split` once ``parallel.tensor.shard_model`` cuts it
+        self.split: Optional[Split] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sp = self.split
+        if sp is not None and sp.kind != "row":
+            x = enter_split(x, sp)
         if self.bf16_operands:
             y = Bf16Matmul.apply(x, self.weight)
         else:
             y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if sp is not None and sp.kind == "row":
+            y = _LeaveRowSplit.apply(y, sp.group)
+        elif sp is not None and sp.kind == "vocab":
+            y = gather_last(y, sp)
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            y = y + self.local_bias().to(self.dtype)
         return y
+
+    def local_bias(self) -> torch.Tensor:
+        """The bias this rank adds: its slice of a column split's (whose
+        gradient then sums over the group), else the whole."""
+        sp = self.split
+        if sp is not None and sp.kind == "column":
+            return sp.local(enter_split(self.bias, sp))
+        return self.bias
 
 
 def logits_dense(in_features: int, vocab_size: int, logits_matmul: str, *,
@@ -176,11 +293,19 @@ class BatchNorm(nn.Module):
     ``flax.linen.BatchNorm(use_running_average=False)`` computes them (f32,
     ``var = E[x^2] - E[x]^2`` clipped at 0), and updates the running ones
     with Flax's rule and the biased variance: ``ra = 0.99 ra + 0.01 stat``
-    (not ``F.batch_norm``'s unbiased rule or its meaning of momentum)."""
+    (not ``F.batch_norm``'s unbiased rule or its meaning of momentum).
+
+    ``group`` (set by the trainers from a mesh's ``data`` group) makes the
+    training statistics global, as under ``pjit``: the per-channel sums of
+    x and x^2 and the row counts are summed over the group, with autograd
+    through the sum, before ``var = E[x^2] - E[x]^2``; the running
+    statistics then agree on every rank. Without a group the arithmetic is
+    the single-process one."""
 
     def __init__(self, features: int, *, dtype: torch.dtype, device):
         super().__init__()
         self.dtype = dtype
+        self.group = None
         self.weight = nn.Parameter(_const((features,), 1.0, device))
         self.bias = nn.Parameter(_const((features,), 0.0, device))
         self.register_buffer("running_mean", _const((features,), 0.0, device))
@@ -191,18 +316,46 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
-                                        + (1 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var
-                                       + (1 - BN_MOMENTUM) * var)
+            if self.group is None:
+                mean = xf.mean(dim=axes)
+                sq = (xf * xf).mean(dim=axes)
+            else:
+                c = xf.shape[1]
+                count = torch.full((1,), xf.numel() // c, dtype=xf.dtype,
+                                   device=xf.device)
+                sums = global_sum(torch.cat([xf.sum(dim=axes),
+                                             (xf * xf).sum(dim=axes),
+                                             count]), self.group)
+                mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+            var = torch.clamp_min(sq - mean * mean, 0.0)
+            if not getattr(_RECOMPUTE, "on", False):
+                with torch.no_grad():
+                    self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                            + (1 - BN_MOMENTUM) * mean)
+                    self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                           + (1 - BN_MOMENTUM) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(self.dtype)
+
+
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks the forward that ``torch.utils.checkpoint`` runs again in the
+    backward (``models/dfcnn.py`` ``remat_stages``): a training BatchNorm
+    inside it leaves its running statistics alone, as Flax keeps the first
+    pass's update."""
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
 
 
 def keep_mask(shape, keep_prob: float, device,
@@ -325,11 +478,13 @@ class ScaledEmbed(nn.Module):
         self.scale = torch.tensor(features ** 0.5, dtype=dtype).item()
         self.embedding = _param((vocab_size, features),
                                 1.0 / math.sqrt(features), generator, device)
+        #: a :class:`Split` of the features (all-gathered after the lookup)
+        self.split: Optional[Split] = None
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         out = F.embedding(ids, self.embedding)
         out = out.masked_fill((ids == 0)[..., None], 0.0).to(self.dtype)
-        return out * self.scale
+        return gather_last(out * self.scale, self.split)
 
 
 class LearnedPositionEmbed(nn.Module):
@@ -343,11 +498,12 @@ class LearnedPositionEmbed(nn.Module):
         self.max_length = max_length
         self.embedding = _param((max_length, features), 0.02, generator,
                                 device)
+        self.split: Optional[Split] = None
 
     def forward(self, length: int) -> torch.Tensor:
         idx = torch.clamp(torch.arange(length, device=self.embedding.device),
                           max=self.max_length - 1)
-        return self.embedding[idx].to(self.dtype)
+        return gather_last(self.embedding[idx].to(self.dtype), self.split)
 
 
 def attention_mask(q_valid: torch.Tensor, k_valid: torch.Tensor,
@@ -433,14 +589,30 @@ class MultiHeadAttention(nn.Module):
         self.v = Dense(d_model, d_model, **kw)
         self.out = Dense(d_model, d_model, **kw)
         self.LayerNorm_0 = LayerNorm(d_model, dtype=dtype, device=device)
-        self.dropout = Dropout(dropout_rate)
+        #: a :class:`Split` of the heads once ``shard_model`` cuts q / k / v
+        #: by columns and ``out`` by rows
+        self.split: Optional[Split] = None
+
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank computes (all without a split)."""
+        return self.num_heads // (self.split.size if self.split else 1)
 
     def _act(self, y: torch.Tensor) -> torch.Tensor:
         return F.relu(y) if self.parity else y
 
     def _heads(self, y: torch.Tensor) -> torch.Tensor:
         b, t, _ = y.shape
-        return y.view(b, t, self.num_heads, -1).transpose(1, 2).contiguous()
+        return y.view(b, t, self.local_heads, -1).transpose(1, 2).contiguous()
+
+    def _keep(self, b: int, tq: int, tk: int, device, generator):
+        """The dropout keep mask [B, local heads, Tq, Tk]: drawn for every
+        head and cut to this rank's, so a split draws the masks of the
+        whole layer."""
+        keep = keep_mask((b, self.num_heads, tq, tk), 1.0 - self.dropout_rate,
+                         device, generator)
+        return keep if self.split is None else \
+            self.split.local(keep, 1).contiguous()
 
     def project_q(self, x: torch.Tensor) -> torch.Tensor:
         return self._act(self.q(x))
@@ -489,11 +661,10 @@ class MultiHeadAttention(nn.Module):
         drop, keep = None, 1.0
         if dropout_on:
             keep = 1.0 - self.dropout_rate
-            drop = keep_mask((b, self.num_heads, tq, tk), keep, q.device,
-                             generator)
+            drop = self._keep(b, tq, tk, q.device, generator)
         out = masked_attention(q, k, v, k_valid, causal=causal,
                                keep_mask=drop, keep_prob=keep)
-        out = out.transpose(1, 2).reshape(b, tq, self.d_model)
+        out = out.transpose(1, 2).reshape(b, tq, -1)
         return self._finish(out, queries)
 
     def _plain(self, q, k, v, k_valid, causal, generator, record=None):
@@ -515,9 +686,13 @@ class MultiHeadAttention(nn.Module):
         probs = torch.softmax(scores, dim=-1).to(self.dtype)
         if record is not None:
             record(probs)
-        probs = self.dropout(probs, generator)
+        if self.training and self.dropout_rate > 0.0:
+            # keep_prob rounded to the dtype first, as ``Dropout`` does
+            keep = self._keep(b, tq, k.shape[2], q.device, generator)
+            kp = torch.tensor(1.0 - self.dropout_rate, dtype=probs.dtype)
+            probs = torch.where(keep, probs / kp, 0.0)
         out = torch.matmul(probs.float(), v.float()).to(self.dtype)
-        return out.transpose(1, 2).reshape(b, tq, self.d_model)
+        return out.transpose(1, 2).reshape(b, tq, -1)
 
     def attend_step(self, query_t: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, valid_len) -> torch.Tensor:
@@ -579,7 +754,17 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.fused == "pallas":
+        split = self.Dense_1.split
+        if self.fused == "pallas" and split is not None:
+            # this rank's inner columns through the kernel with a zero b2;
+            # the partial sums are summed, then b2 is added once
+            y = ffn_kernel.fused_ffn(
+                enter_split(x.to(self.dtype), split), self.Dense_0.weight,
+                self.Dense_0.local_bias(), self.Dense_1.weight,
+                torch.zeros_like(self.Dense_1.bias))
+            y = _LeaveRowSplit.apply(y, split.group)
+            y = y + self.Dense_1.bias.to(self.dtype)
+        elif self.fused == "pallas":
             y = ffn_kernel.fused_ffn(x.to(self.dtype), self.Dense_0.weight,
                                      self.Dense_0.bias, self.Dense_1.weight,
                                      self.Dense_1.bias)

@@ -377,17 +377,19 @@ class SpeechTransformer(nn.Module):
 
 
 def e2e_loss(logits: torch.Tensor, targets: torch.Tensor,
-             epsilon: float = 0.1):
+             epsilon: float = 0.1, reduce=None):
     """Label-smoothed CE over the positions whose target is not IGNORE_ID
     (speech_transformer.py:389), and the accuracy over the same positions:
-    logits [B, L, V], targets [B, L] -> f32 scalars (loss, acc)."""
+    logits [B, L, V], targets [B, L] -> f32 scalars (loss, acc). ``reduce``
+    sums the count over a trainer's ``data`` group."""
     valid = (targets != constants.IGNORE_ID).float()
     safe = torch.clamp_min(targets.long(), 0)
     one_hot = F.one_hot(safe, logits.shape[-1]).float()
     smoothed = label_smoothing(one_hot, epsilon)
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     xent = -torch.sum(smoothed * log_probs, dim=-1)
-    denom = torch.clamp_min(torch.sum(valid), 1.0)
+    count = torch.sum(valid)
+    denom = torch.clamp_min(count if reduce is None else reduce(count), 1.0)
     loss = torch.sum(xent * valid) / denom
     acc = torch.sum((torch.argmax(logits, dim=-1) == safe).float()
                     * valid) / denom

@@ -109,17 +109,19 @@ class TransformerLM(nn.Module):
 
 
 def lm_loss_and_acc(logits: torch.Tensor, targets: torch.Tensor,
-                    epsilon: float = 0.1):
+                    epsilon: float = 0.1, reduce=None):
     """Label-smoothed softmax CE normalised by the non-PAD count, and the
     PAD-masked accuracy (transformer_lm.py:97-113). Returns f32 scalars
-    (mean loss, accuracy)."""
+    (mean loss, accuracy). ``reduce`` (a trainer's sum over its ``data``
+    group) makes the count the global batch's."""
     istarget = (targets != constants.PAD).float()
     one_hot = torch.nn.functional.one_hot(targets.long(),
                                           logits.shape[-1]).float()
     smoothed = label_smoothing(one_hot, epsilon)
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     xent = -torch.sum(smoothed * log_probs, dim=-1)
-    denom = torch.clamp_min(torch.sum(istarget), 1.0)
+    count = torch.sum(istarget)
+    denom = torch.clamp_min(count if reduce is None else reduce(count), 1.0)
     mean_loss = torch.sum(xent * istarget) / denom
     preds = torch.argmax(logits, dim=-1)
     acc = torch.sum((preds == targets).float() * istarget) / denom

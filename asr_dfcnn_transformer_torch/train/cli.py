@@ -34,7 +34,15 @@ on: ``infer-artifact`` and ``serve --artifact`` take ``--platform cpu`` for
 one exported with ``--platform cpu``, and ``--serve-platforms`` can only
 name the exporting device.
 
-Not ported yet: ``--distributed`` (ROADMAP Queue A 12).
+``--distributed`` joins a process group of one process per device before
+anything runs, from ``torchrun``'s environment or from
+``--coordinator-address`` / ``--num-processes`` / ``--process-id``; each
+process takes ``cuda:{LOCAL_RANK}`` (``--platform cpu``: the CPU, over
+gloo), and the training commands' trainers lay their data-parallel mesh
+over the group (``parallel/mesh.py``); rank 0 writes the synthetic corpus,
+the resolved config and every checkpoint:
+
+    torchrun --nproc_per_node N -m asr_dfcnn_transformer_torch.train.cli am --workdir W --distributed
 """
 
 from __future__ import annotations
@@ -75,6 +83,18 @@ def _build_parser():
         sp.add_argument("--platform", default=None,
                         help="torch device to run on (default: cuda, "
                              "which must exist; 'cpu' runs on the CPU)")
+        sp.add_argument("--distributed", action="store_true",
+                        help="multi-process run: join a torch.distributed "
+                             "process group (NCCL on cuda, gloo on the "
+                             "CPU) before any work, one process per "
+                             "device. Under torchrun the rank, world size "
+                             "and rendezvous are auto-detected; elsewhere "
+                             "pass the three flags below. The (data, "
+                             "model) mesh then spans every process.")
+        sp.add_argument("--coordinator-address", default=None,
+                        help="host:port of process 0 (outside torchrun)")
+        sp.add_argument("--num-processes", type=int, default=None)
+        sp.add_argument("--process-id", type=int, default=None)
         sp.add_argument("--config", default=None,
                         help="JSON config-tree file (core.config.Config; "
                              "see train.factory.config_to_json). CLI flags "
@@ -271,7 +291,7 @@ def _apply_config(args):
     os.makedirs(args.workdir, exist_ok=True)
     # eval / infer resolve defaults too, but the record of what training
     # used must not be overwritten by them
-    if args.cmd in TRAIN_COMMANDS:
+    if args.cmd in TRAIN_COMMANDS and _is_writer():
         eff = cfg
         if args.cmd == "am" and args.lr is not None:
             eff = eff.replace(
@@ -292,8 +312,12 @@ def _data(args, batch_size, bucket_bounds=(400, 800, 1200, 1600),
 
     if args.synthetic:
         root = os.path.join(args.workdir, "synthetic")
-        data_dir, wav_root, _, _ = make_synthetic_corpus(
-            root, num_utts=args.synthetic, num_classes=8, seed=args.seed)
+        if _is_writer():
+            make_synthetic_corpus(root, num_utts=args.synthetic,
+                                  num_classes=8, seed=args.seed)
+        _barrier()
+        data_dir, wav_root = (os.path.join(root, "data"),
+                              os.path.join(root, "wav"))
         corpora = ("thchs",)
     else:
         data_dir, wav_root = args.data_dir, args.speech_root
@@ -312,6 +336,35 @@ def _data(args, batch_size, bucket_bounds=(400, 800, 1200, 1600),
                           bucket_bounds=bucket_bounds)
 
     return loader, av, lv
+
+
+def _is_writer() -> bool:
+    """True outside a process group and on its rank 0."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _setup_distributed(args) -> torch.device:
+    """``--distributed``: join the process group and return this process's
+    device, printing the JAX CLI's line."""
+    import torch.distributed as dist
+
+    from asr_dfcnn_transformer_torch.parallel import init_distributed
+    init = (f"tcp://{args.coordinator_address}"
+            if args.coordinator_address else None)
+    device = init_distributed(args.platform, init_method=init,
+                              world_size=args.num_processes,
+                              rank=args.process_id)
+    n = dist.get_world_size()
+    print(f"[distributed] process {dist.get_rank()}/{n}, local devices 1, "
+          f"global {n}", flush=True)
+    return device
 
 
 def _bounds(args):
@@ -878,11 +931,19 @@ def main(argv=None):
     # export reads checkpoints into host memory and infer-artifact needs
     # no workdir; every other command runs on the device and resolves the
     # config (training ones snapshot it)
-    if args.cmd not in ("export", "infer-artifact"):
+    if getattr(args, "distributed", False):
+        args.device = _setup_distributed(args)
+    elif args.cmd not in ("export", "infer-artifact"):
         args.device = default_device(args.platform)
-        if getattr(args, "workdir", None):
-            args.cfg = _apply_config(args)
-    COMMANDS[args.cmd](args)
+    if args.cmd not in ("export", "infer-artifact") and \
+            getattr(args, "workdir", None):
+        args.cfg = _apply_config(args)
+    try:
+        COMMANDS[args.cmd](args)
+    finally:
+        if getattr(args, "distributed", False):
+            from asr_dfcnn_transformer_torch.parallel import destroy
+            destroy()
 
 
 if __name__ == "__main__":

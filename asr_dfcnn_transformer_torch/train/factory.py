@@ -5,7 +5,9 @@ package: ``build_lm_model(Config(lm=LmConfig(fused_ffn="pallas")))`` is how
 a user selects the ``fused_ffn`` kernel. Every builder takes ``device``
 (default ``cuda``, raising without CUDA) and an optional ``generator`` for
 the initial weights. ``build_loader`` gives the configured corpus's
-``DataLoader``. ``build_mesh`` is not ported yet (ROADMAP Queue A 12).
+``DataLoader``. ``build_mesh`` lays ``cfg.mesh``'s ``(data, model)`` grid
+over the process group (a mesh of one in a single process), and the trainer
+builders take it as ``mesh=`` (default: ``build_mesh(cfg)``), as in JAX.
 """
 
 from __future__ import annotations
@@ -98,6 +100,19 @@ def build_e2e_model(cfg: Config, device=None,
         device=device, generator=generator)
 
 
+def build_mesh(cfg: Config, device=None):
+    """``parallel.make_mesh(cfg.mesh.data_parallel,
+    cfg.mesh.model_parallel)`` for this process's ``device`` (default:
+    the current CUDA device)."""
+    from asr_dfcnn_transformer_torch.parallel import make_mesh
+    return make_mesh(cfg.mesh.data_parallel, cfg.mesh.model_parallel,
+                     device)
+
+
+def _device_of(model) -> torch.device:
+    return next(model.parameters()).device
+
+
 def build_loader(cfg: Config, mode: str, shuffle: Optional[bool] = None,
                  e2e_vocab: bool = False):
     """The ``DataLoader`` over ``cfg.data``'s manifests of ``mode``
@@ -122,35 +137,44 @@ def build_loader(cfg: Config, mode: str, shuffle: Optional[bool] = None,
 
 def build_am_trainer(cfg: Config, workdir: str, augment_noise: bool = False,
                      augment_spec=None, device=None,
-                     generator: Optional[torch.Generator] = None):
-    """The JAX builder's ``mesh`` waits for ROADMAP Queue A 12."""
+                     generator: Optional[torch.Generator] = None,
+                     mesh=None):
     from asr_dfcnn_transformer_torch.train import AMTrainer
-    return AMTrainer(build_am_model(cfg, device, generator), workdir,
+    model = build_am_model(cfg, device, generator)
+    return AMTrainer(model, workdir,
                      lr=cfg.am.lr, decay_steps=cfg.train.decay_steps,
                      min_lr=cfg.train.min_lr, feature_dim=cfg.am.feature_dim,
                      augment_noise=augment_noise, augment_spec=augment_spec,
-                     max_to_keep=cfg.train.max_to_keep)
+                     max_to_keep=cfg.train.max_to_keep,
+                     mesh=mesh or build_mesh(cfg, _device_of(model)))
 
 
 def build_lm_trainer(cfg: Config, workdir: str, device=None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     mesh=None):
+    """A ``model`` axis above 1 makes the LM tensor-parallel."""
     from asr_dfcnn_transformer_torch.train import LMTrainer
-    return LMTrainer(build_lm_model(cfg, device, generator), workdir,
+    model = build_lm_model(cfg, device, generator)
+    return LMTrainer(model, workdir,
                      lr=cfg.lm.lr, decay_steps=cfg.train.decay_steps,
                      min_lr=cfg.train.min_lr,
-                     max_to_keep=cfg.train.max_to_keep)
+                     max_to_keep=cfg.train.max_to_keep,
+                     mesh=mesh or build_mesh(cfg, _device_of(model)))
 
 
 def build_e2e_trainer(cfg: Config, workdir: str, augment_spec=None,
                       device=None,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      mesh=None):
     from asr_dfcnn_transformer_torch.train import E2ETrainer
-    return E2ETrainer(build_e2e_model(cfg, device, generator), workdir,
+    model = build_e2e_model(cfg, device, generator)
+    return E2ETrainer(model, workdir,
                       lr=cfg.e2e.lr, decay_steps=cfg.train.decay_steps,
                       min_lr=cfg.train.min_lr,
                       feature_dim=cfg.e2e.feature_dim, lfr_m=cfg.e2e.lfr_m,
                       lfr_n=cfg.e2e.lfr_n, augment_spec=augment_spec,
-                      max_to_keep=cfg.train.max_to_keep)
+                      max_to_keep=cfg.train.max_to_keep,
+                      mesh=mesh or build_mesh(cfg, _device_of(model)))
 
 
 # ---- (de)serialization ---------------------------------------------------

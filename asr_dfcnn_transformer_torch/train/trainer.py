@@ -21,9 +21,22 @@ and checked before a restore. ``enable_tensorboard`` tees the numeric
 metrics into TensorBoard event files under ``<workdir>/tb/<name>``
 (``utils/tb_events.py``), and the e2e trainer then writes each dev sweep's
 attention maps as images; ``profile_steps`` > 0 traces the first steps of
-``AMTrainer.fit`` with ``torch.profiler`` into ``<workdir>/profile``. Not
-ported yet: the device mesh (ROADMAP Queue A 12) and ``remat_stages``
-(A 5.5).
+``AMTrainer.fit`` with ``torch.profiler`` into ``<workdir>/profile``.
+
+``mesh`` (``parallel.make_mesh``; default: the process group's data mesh,
+a mesh of one without a group) keeps JAX's global semantics under
+``pjit`` by hand. Every process feeds the same global batch and takes its
+rows (``parallel.shard_batch``); each loss and metric is this rank's
+numerator over the denominator summed across ``data``, the gradients are
+summed over ``data``, and a step reports the summed loss, so the
+non-finite-loss guard, the dev gates and the best-checkpoint decision take
+the same branch on every rank. BatchNorm statistics are global. The AM's
+noise and the SpecAugment masks are drawn for the global batch from the
+step's generator on every rank, then cut to the rank's rows; dropout draws
+from a generator seeded from that generator and the data rank. Rank 0
+alone writes checkpoints (of the whole model), the identity stamp,
+metrics, TensorBoard files and traces; the others wait at a barrier.
+``LMTrainer`` splits the LM over ``model`` (``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from asr_dfcnn_transformer_torch.audio.fbank import FbankConfig, batched_fbank
 from asr_dfcnn_transformer_torch.audio.lfr import batched_lfr
@@ -43,18 +57,20 @@ from asr_dfcnn_transformer_torch.audio.noise import (add_noise_from_draws,
                                                      noise_draws)
 from asr_dfcnn_transformer_torch.audio.specaugment import (SpecAugmentConfig,
                                                            mask_features,
-                                                           spec_augment,
                                                            spec_draws)
 from asr_dfcnn_transformer_torch.core import constants
 from asr_dfcnn_transformer_torch.data.batches import AMBatch, LMBatch
 from asr_dfcnn_transformer_torch.models.dfcnn import (frames_from_samples,
                                                       logit_lengths)
+from asr_dfcnn_transformer_torch.models.layers import BatchNorm
 from asr_dfcnn_transformer_torch.models.speech_transformer import e2e_loss
 from asr_dfcnn_transformer_torch.models.transformer_lm import lm_loss_and_acc
 from asr_dfcnn_transformer_torch.ops.ctc import ctc_loss
 from asr_dfcnn_transformer_torch.ops.ctc_decode import ctc_greedy_decode
 from asr_dfcnn_transformer_torch.ops.edit_distance import (
     batched_edit_distance)
+from asr_dfcnn_transformer_torch.parallel import make_mesh, shard_batch
+from asr_dfcnn_transformer_torch.parallel import tensor as tp
 from asr_dfcnn_transformer_torch.train import identity
 from asr_dfcnn_transformer_torch.train.checkpoint import CheckpointManager
 from asr_dfcnn_transformer_torch.train.schedule import (
@@ -69,17 +85,19 @@ class MetricWriter:
     tagged ``<name>/<split>/<key>`` (``<name>/<key>`` without a split), so
     ``tensorboard --logdir <workdir>/tb`` reads them."""
 
-    def __init__(self, workdir: str, name: str):
+    def __init__(self, workdir: str, name: str, enabled: bool = True):
         os.makedirs(workdir, exist_ok=True)
         self.path = os.path.join(workdir, f"{name}_metrics.jsonl")
         self._workdir = workdir
         self._name = name
+        self.enabled = enabled      # False: writes nothing (ranks but 0)
         self.tb = None
 
     def enable_tensorboard(self, logdir: Optional[str] = None):
         """Create (or return) the event-file writer, under
-        ``<workdir>/tb/<name>`` unless ``logdir`` is given."""
-        if self.tb is None:
+        ``<workdir>/tb/<name>`` unless ``logdir`` is given (None where the
+        writer is disabled)."""
+        if self.tb is None and self.enabled:
             from asr_dfcnn_transformer_torch.utils.tb_events import (
                 TBEventWriter)
             self.tb = TBEventWriter(
@@ -87,6 +105,8 @@ class MetricWriter:
         return self.tb
 
     def write(self, step: int, **metrics):
+        if not self.enabled:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: (float(v) if hasattr(v, "__float__") else v)
                     for k, v in metrics.items()})
@@ -103,8 +123,12 @@ class MetricWriter:
             self.tb.flush()
 
 
-def _weighted_mean(values: torch.Tensor, weights: torch.Tensor):
-    return torch.sum(values * weights) / torch.clamp_min(weights.sum(), 1.0)
+def _weighted_mean(values: torch.Tensor, weights: torch.Tensor,
+                   total: Optional[torch.Tensor] = None):
+    """sum(values * weights) / max(total, 1); ``total`` (default
+    ``weights.sum()``) is the global batch's weight under a mesh."""
+    total = weights.sum() if total is None else total
+    return torch.sum(values * weights) / torch.clamp_min(total, 1.0)
 
 
 def _dev_mean(evals, key: str) -> float:
@@ -120,21 +144,80 @@ def _dev_mean(evals, key: str) -> float:
 class _TrainerBase:
     def __init__(self, model: torch.nn.Module, workdir: str, name: str,
                  lr: float, decay_steps: int, min_lr: float,
-                 max_to_keep: int = 5):
+                 max_to_keep: int = 5, mesh=None):
         self.model = model
         self.workdir = workdir
+        self.mesh = mesh if mesh is not None else make_mesh(
+            device=self.device)
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.group = self.mesh.data_group
+        #: {parameter: split axis or None} of a tensor-parallel model
+        self.shards: Optional[Dict[str, Optional[int]]] = None
         self.schedule = polynomial_decay_with_cycle(lr, decay_steps, min_lr)
         self.opt = torch.optim.Adam(model.parameters(), lr=self.schedule(0),
                                     betas=(0.9, 0.999), eps=1e-8)
         self.ckpt = CheckpointManager(os.path.join(workdir, f"ckpt_{name}"),
                                       max_to_keep)
-        self.metrics = MetricWriter(workdir, name)
+        self.metrics = MetricWriter(workdir, name,
+                                    enabled=self.mesh.is_writer)
         self.step = 0
         self._nan_count = 0
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    # ---- the global batch under a mesh ----------------------------------
+
+    def _rows(self, batch):
+        """This rank's rows of a global batch (or of draws made for it)."""
+        return None if batch is None else shard_batch(self.mesh, batch)
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the mesh's ``data`` group (no autograd)."""
+        if self.mesh.data_group is None:
+            return t.detach()
+        t = t.detach().clone()
+        dist.all_reduce(t, group=self.mesh.data_group)
+        return t
+
+    def _dropout_generator(self, generator):
+        """The generator of a step's dropout masks: ``generator`` in a
+        single data rank; under data parallelism a generator seeded from a
+        draw of ``generator`` (the same on every rank) and the data rank,
+        so the ranks' masks differ."""
+        if generator is None or self.mesh.shape["data"] == 1:
+            return generator
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device))
+        g = torch.Generator(device=generator.device)
+        return g.manual_seed(seed + self.mesh.data_rank)
+
+    def _ctc_eval(self, losses, logits, in_len, labels, label_len, w):
+        """The dev metrics of a CTC model: the weighted loss and label error
+        rate of the greedy decode over the global batch, and its weight."""
+        decoded, dec_len = ctc_greedy_decode(logits, in_len, blank_id=-1,
+                                             max_output_len=labels.shape[1])
+        d = batched_edit_distance(decoded, dec_len, labels, label_len)
+        ler = d.float() / torch.clamp_min(label_len.float(), 1.0)
+        total = self._sum(w.sum())
+        return {"loss": self._sum(_weighted_mean(losses, w, total)),
+                "ler": self._sum(_weighted_mean(ler, w, total)),
+                "weight": total}
+
+    def _sum_gradients(self):
+        """Sum every parameter's gradient over ``data`` (one flat
+        all-reduce; a missing gradient counts as zeros, as in JAX)."""
+        if self.mesh.data_group is None:
+            return
+        params = list(self.model.parameters())
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        dist.all_reduce(flat, group=self.mesh.data_group)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
 
     def _to_device(self, *arrays):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -155,7 +238,7 @@ class _TrainerBase:
         ``profile_steps`` and write it as a Chrome trace
         (``<workdir>/profile/trace.json``, for chrome://tracing or
         Perfetto)."""
-        if not self.profile_steps:
+        if not self.profile_steps or not self.mesh.is_writer:
             return
         if global_count == 1 and self._profiler is None:
             from torch.profiler import ProfilerActivity, profile
@@ -188,6 +271,7 @@ class _TrainerBase:
     def _backward_and_update(self, loss: torch.Tensor) -> float:
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        self._sum_gradients()
         return self.apply_gradients()
 
     def apply_gradients(self) -> float:
@@ -201,8 +285,13 @@ class _TrainerBase:
         return lr
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "model": self.model.state_dict(),
-                "optimizer": self.opt.state_dict()}
+        """The whole model's state (a tensor-parallel model's shards
+        gathered: every rank of its group takes part)."""
+        model_sd, opt_sd = self.model.state_dict(), self.opt.state_dict()
+        if self.shards is not None:
+            model_sd, opt_sd = tp.full_state(model_sd, opt_sd, self.shards,
+                                             self.mesh)
+        return {"step": self.step, "model": model_sd, "optimizer": opt_sd}
 
     #: set True (CLI --force-model-mismatch) to downgrade a structural
     #: identity mismatch at restore from an error to a warning
@@ -215,29 +304,47 @@ class _TrainerBase:
         first (``train/identity.py``); an unstamped checkpoint is stamped
         on this first restore. A checkpoint that holds only ``"model"``
         (``convert.flax_checkpoint_to_port``) keeps the fresh optimizer and
-        step 0."""
+        step 0. Under a mesh every rank restores the same checkpoint (a
+        tensor-parallel one cut to the rank's shards) after a barrier, and
+        rank 0 alone writes the stamp."""
+        writer = self.mesh.is_writer
+        self.mesh.barrier()
         if self.ckpt.latest_step() is None:
-            identity.write_identity(self.ckpt.directory, self.model)
+            if writer:
+                identity.write_identity(self.ckpt.directory, self.model)
+            self.mesh.barrier()
             return self.step
         identity.check_identity(self.ckpt.directory, self.model,
                                 override=self.allow_model_mismatch)
         state = self.ckpt.restore_latest()
-        self.model.load_state_dict(state["model"])
-        if "optimizer" in state:
-            self.opt.load_state_dict(state["optimizer"])
+        model_sd, opt_sd = state["model"], state.get("optimizer")
+        if self.shards is not None:
+            model_sd, opt_sd = tp.local_state(model_sd, opt_sd, self.shards,
+                                              self.mesh)
+        self.model.load_state_dict(model_sd)
+        if opt_sd is not None:
+            self.opt.load_state_dict(opt_sd)
         self.step = int(state.get("step", 0))
-        if identity.read_identity(self.ckpt.directory) is None:
+        self.mesh.barrier()
+        if writer and identity.read_identity(self.ckpt.directory) is None:
             print(f"# identity: stamping the unstamped checkpoint under "
                   f"{self.ckpt.directory!r} with the model it was restored "
                   f"into", file=sys.stderr)
             identity.write_identity(self.ckpt.directory, self.model)
+        self.mesh.barrier()
         return self.step
 
     def save(self, epoch: int):
-        self.ckpt.save(epoch, self.state_dict())
+        state = self.state_dict()
+        if self.mesh.is_writer:
+            self.ckpt.save(epoch, state)
+        self.mesh.barrier()
 
     def save_best(self, metric: Optional[float] = None):
-        self.ckpt.save_best(self.state_dict(), metric=metric)
+        state = self.state_dict()
+        if self.mesh.is_writer:
+            self.ckpt.save_best(state, metric=metric)
+        self.mesh.barrier()
 
     def _best_gate(self, mode: str) -> float:
         """The persisted metric of the best checkpoint on disk, so a resumed
@@ -261,9 +368,9 @@ class AMTrainer(_TrainerBase):
     def __init__(self, model, workdir: str, lr: float = 7e-4,
                  decay_steps: int = 5000, min_lr: float = 1e-6,
                  feature_dim: int = 200, augment_noise: bool = False,
-                 augment_spec=None, max_to_keep: int = 5):
+                 augment_spec=None, max_to_keep: int = 5, mesh=None):
         super().__init__(model, workdir, "am", lr, decay_steps, min_lr,
-                         max_to_keep)
+                         max_to_keep, mesh)
         self.fbank_cfg = FbankConfig(nfilt=feature_dim)
         self.augment_noise = augment_noise
         if augment_spec is True:
@@ -298,14 +405,17 @@ class AMTrainer(_TrainerBase):
 
     def _forward(self, batch: AMBatch, generator=None, augment=False):
         """(per-example CTC losses, logits, logit lengths, pinyin, pinyin
-        lengths, weights) on the device."""
+        lengths, weights) of this rank's rows, on the device."""
+        b_global = batch.signals.shape[0]
+        batch = self._rows(batch)
         sig, sig_len, pny, pny_len, w = self._to_device(
             batch.signals, batch.signal_lengths, batch.pinyin,
             batch.pinyin_lengths, batch.weights)
         noise = spec = None
         if augment:
-            noise, spec = self.augment_draws(sig.shape[0], sig.shape[1],
-                                             generator)
+            noise, spec = map(self._rows, self.augment_draws(
+                b_global, sig.shape[1], generator))
+            generator = self._dropout_generator(generator)
         if noise is not None:
             sig = add_noise_from_draws(sig, sig_len, noise)
         feats = self.features(sig, sig_len, batch.bucket_frames, spec)
@@ -319,20 +429,15 @@ class AMTrainer(_TrainerBase):
                    ) -> Dict[str, object]:
         self.model.train()
         losses, _, _, _, _, w = self._forward(batch, generator, augment=True)
-        loss = _weighted_mean(losses, w)
+        loss = _weighted_mean(losses, w, self._sum(w.sum()))
         lr = self._backward_and_update(loss)
-        return {"loss": loss.detach(), "lr": lr}
+        return {"loss": self._sum(loss), "lr": lr}
 
     @torch.no_grad()
     def eval_step(self, batch: AMBatch) -> Dict[str, torch.Tensor]:
         self.model.eval()
         losses, logits, in_len, pny, pny_len, w = self._forward(batch)
-        decoded, dec_len = ctc_greedy_decode(logits, in_len, blank_id=-1,
-                                             max_output_len=pny.shape[1])
-        dist = batched_edit_distance(decoded, dec_len, pny, pny_len)
-        ler = dist.float() / torch.clamp_min(pny_len.float(), 1.0)
-        return {"loss": _weighted_mean(losses, w),
-                "ler": _weighted_mean(ler, w), "weight": w.sum()}
+        return self._ctc_eval(losses, logits, in_len, pny, pny_len, w)
 
     def fit(self, train_batches: Callable[[], Iterator[AMBatch]],
             dev_batches: Callable[[], Iterator[AMBatch]], epochs: int,
@@ -377,9 +482,9 @@ class AttenTrainer(_TrainerBase):
     def __init__(self, model, workdir: str, lr: float = 7e-4,
                  decay_steps: int = 5000, min_lr: float = 1e-6,
                  feature_dim: int = 200, lfr_m: int = 4, lfr_n: int = 3,
-                 max_to_keep: int = 5):
+                 max_to_keep: int = 5, mesh=None):
         super().__init__(model, workdir, "atten", lr, decay_steps, min_lr,
-                         max_to_keep)
+                         max_to_keep, mesh)
         self.fbank_cfg = FbankConfig(nfilt=feature_dim)
         self.lfr_m, self.lfr_n = lfr_m, lfr_n
 
@@ -395,10 +500,12 @@ class AttenTrainer(_TrainerBase):
 
     def _forward(self, batch: AMBatch, generator=None):
         """(per-example CTC losses, logits, logit lengths, hanzi, hanzi
-        lengths, weights) on the device."""
+        lengths, weights) of this rank's rows, on the device."""
+        batch = self._rows(batch)
         sig, sig_len, hz, hz_len, w = self._to_device(
             batch.signals, batch.signal_lengths, batch.hanzi,
             batch.hanzi_lengths, batch.weights)
+        generator = self._dropout_generator(generator)
         feats, valid = self.features(sig, sig_len, batch.bucket_frames)
         logits, in_len = self.model(feats, valid, generator=generator)
         losses = ctc_loss(logits, in_len, hz, hz_len, blank_id=-1)
@@ -409,20 +516,14 @@ class AttenTrainer(_TrainerBase):
                    ) -> Dict[str, object]:
         self.model.train()
         losses, _, _, _, _, w = self._forward(batch, generator)
-        loss = _weighted_mean(losses, w)
+        loss = _weighted_mean(losses, w, self._sum(w.sum()))
         lr = self._backward_and_update(loss)
-        return {"loss": loss.detach(), "lr": lr}
+        return {"loss": self._sum(loss), "lr": lr}
 
     @torch.no_grad()
     def eval_step(self, batch: AMBatch) -> Dict[str, torch.Tensor]:
         self.model.eval()
-        losses, logits, in_len, hz, hz_len, w = self._forward(batch)
-        decoded, dec_len = ctc_greedy_decode(logits, in_len, blank_id=-1,
-                                             max_output_len=hz.shape[1])
-        dist = batched_edit_distance(decoded, dec_len, hz, hz_len)
-        ler = dist.float() / torch.clamp_min(hz_len.float(), 1.0)
-        return {"loss": _weighted_mean(losses, w),
-                "ler": _weighted_mean(ler, w), "weight": w.sum()}
+        return self._ctc_eval(*self._forward(batch))
 
     def fit(self, train_batches: Callable[[], Iterator[AMBatch]],
             dev_batches: Callable[[], Iterator[AMBatch]], epochs: int,
@@ -457,16 +558,23 @@ class LMTrainer(_TrainerBase):
 
     def __init__(self, model, workdir: str, lr: float = 5e-5,
                  decay_steps: int = 5000, min_lr: float = 1e-6,
-                 max_to_keep: int = 5):
+                 max_to_keep: int = 5, mesh=None):
+        """A ``mesh`` with a ``model`` axis above 1 splits the LM over it
+        by ``param_shardings(..., tensor_parallel=True)``
+        (``parallel.tensor.shard_model``)."""
         super().__init__(model, workdir, "lm", lr, decay_steps, min_lr,
-                         max_to_keep)
+                         max_to_keep, mesh)
+        if self.mesh.shape["model"] > 1:
+            self.shards = tp.shard_model(model, self.mesh)
 
     def _forward(self, batch: LMBatch, generator=None):
+        batch = self._rows(batch)
         pny, hz, w = self._to_device(batch.pinyin, batch.hanzi, batch.weights)
-        logits = self.model(pny.long(), generator=generator)
+        logits = self.model(pny.long(),
+                            generator=self._dropout_generator(generator))
         # back-filled rows drop out: their targets become PAD
         tgt = torch.where(w[:, None] > 0, hz.long(), constants.PAD)
-        loss, acc = lm_loss_and_acc(logits, tgt)
+        loss, acc = lm_loss_and_acc(logits, tgt, reduce=self._sum)
         return loss, acc, tgt
 
     def train_step(self, batch: LMBatch,
@@ -475,14 +583,15 @@ class LMTrainer(_TrainerBase):
         self.model.train()
         loss, acc, _ = self._forward(batch, generator)
         lr = self._backward_and_update(loss)
-        return {"loss": loss.detach(), "acc": acc.detach(), "lr": lr}
+        return {"loss": self._sum(loss), "acc": self._sum(acc), "lr": lr}
 
     @torch.no_grad()
     def eval_step(self, batch: LMBatch) -> Dict[str, torch.Tensor]:
         self.model.eval()
         loss, acc, tgt = self._forward(batch)
-        ntok = torch.sum((tgt != constants.PAD).float())
-        return {"loss": loss, "acc": acc, "weight": ntok}
+        ntok = self._sum(torch.sum((tgt != constants.PAD).float()))
+        return {"loss": self._sum(loss), "acc": self._sum(acc),
+                "weight": ntok}
 
     def fit(self, train_batches, dev_batches, epochs: int,
             generator: Optional[torch.Generator] = None,
@@ -521,9 +630,9 @@ class JointTrainer(_TrainerBase):
 
     def __init__(self, model, workdir: str, lr: float = 7e-4,
                  decay_steps: int = 5000, min_lr: float = 1e-6,
-                 feature_dim: int = 200, max_to_keep: int = 5):
+                 feature_dim: int = 200, max_to_keep: int = 5, mesh=None):
         super().__init__(model, workdir, "joint", lr, decay_steps, min_lr,
-                         max_to_keep)
+                         max_to_keep, mesh)
         self.fbank_cfg = FbankConfig(nfilt=feature_dim)
 
     def features(self, signals: torch.Tensor, signal_lengths: torch.Tensor,
@@ -534,12 +643,15 @@ class JointTrainer(_TrainerBase):
         return feats[:, None]
 
     def _forward(self, batch: AMBatch, generator=None):
+        batch = self._rows(batch)
         sig, sig_len, pny, pny_len, hz, w = self._to_device(
             batch.signals, batch.signal_lengths, batch.pinyin,
             batch.pinyin_lengths, batch.hanzi, batch.weights)
         feats = self.features(sig, sig_len, batch.bucket_frames)
         out = self.model(feats, frames_from_samples(sig_len), pny, pny_len,
-                         hz.long(), w, generator=generator)
+                         hz.long(), w,
+                         generator=self._dropout_generator(generator),
+                         reduce=self._sum)
         return out, w
 
     def train_step(self, batch: AMBatch,
@@ -548,8 +660,8 @@ class JointTrainer(_TrainerBase):
         self.model.train()
         out, _ = self._forward(batch, generator)
         lr = self._backward_and_update(out["loss"])
-        m = {k: out[k].detach() for k in ("loss", "am_loss", "lm_loss",
-                                          "lm_acc")}
+        m = {k: self._sum(out[k]) for k in ("loss", "am_loss", "lm_loss",
+                                            "lm_acc")}
         m["lr"] = lr
         return m
 
@@ -557,8 +669,9 @@ class JointTrainer(_TrainerBase):
     def eval_step(self, batch: AMBatch) -> Dict[str, torch.Tensor]:
         self.model.eval()
         out, w = self._forward(batch)
-        m = {k: out[k] for k in ("loss", "am_loss", "lm_loss", "lm_acc")}
-        m["weight"] = w.sum()
+        m = {k: self._sum(out[k])
+             for k in ("loss", "am_loss", "lm_loss", "lm_acc")}
+        m["weight"] = self._sum(w.sum())
         return m
 
     def fit(self, train_batches: Callable[[], Iterator[AMBatch]],
@@ -605,9 +718,9 @@ class E2ETrainer(_TrainerBase):
     def __init__(self, model, workdir: str, lr: float = 3e-4,
                  decay_steps: int = 5000, min_lr: float = 1e-6,
                  feature_dim: int = 80, lfr_m: int = 4, lfr_n: int = 3,
-                 augment_spec=None, max_to_keep: int = 5):
+                 augment_spec=None, max_to_keep: int = 5, mesh=None):
         super().__init__(model, workdir, "e2e", lr, decay_steps, min_lr,
-                         max_to_keep)
+                         max_to_keep, mesh)
         self.fbank_cfg = FbankConfig(nfilt=feature_dim)
         self.lfr_m, self.lfr_n = lfr_m, lfr_n
         if augment_spec is True:
@@ -615,16 +728,16 @@ class E2ETrainer(_TrainerBase):
         self.augment_spec = augment_spec or None
 
     def features(self, signals: torch.Tensor, signal_lengths: torch.Tensor,
-                 bucket_frames: int, augment: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 bucket_frames: int, masks=None):
         """(LFR features [B, T', m*F, 1], valid LFR rows [B]) of a batch:
-        fbank through the ``log_mel`` / ``cmvn`` kernels, SpecAugment when
-        ``augment`` and the trainer has a policy, then LFR."""
+        fbank through the ``log_mel`` / ``cmvn`` kernels, masked within the
+        valid frames with ``masks`` (SpecAugment's draws) when given, then
+        LFR."""
         feats, valid = batched_fbank(signals, signal_lengths,
                                      cfg=self.fbank_cfg,
                                      out_frames=bucket_frames)
-        if augment and self.augment_spec is not None:
-            feats = spec_augment(feats, valid, self.augment_spec, generator)
+        if masks is not None:
+            feats = mask_features(feats, valid, self.augment_spec, masks)
         lfr, lfr_valid = batched_lfr(feats, valid, self.lfr_m, self.lfr_n)
         return lfr[..., None], lfr_valid
 
@@ -646,12 +759,22 @@ class E2ETrainer(_TrainerBase):
 
     def _forward(self, batch: AMBatch, dec_in: np.ndarray,
                  targets: np.ndarray, augment=False, generator=None):
+        """(loss, accuracy, targets) of this rank's rows of a global batch
+        and its decoder inputs / targets."""
+        b_global = batch.signals.shape[0]
+        batch = self._rows(batch)
+        dec_in, targets = self._rows((dec_in, targets))
         sig, sig_len, dec_in, tgt = self._to_device(
             batch.signals, batch.signal_lengths, dec_in, targets)
+        masks = None
+        if augment and self.augment_spec is not None:
+            masks = self._rows(spec_draws(b_global, self.augment_spec,
+                                          generator, sig.device))
         feats, valid = self.features(sig, sig_len, batch.bucket_frames,
-                                     augment, generator)
-        logits = self.model(feats, valid, dec_in, generator=generator)
-        loss, acc = e2e_loss(logits, tgt)
+                                     masks)
+        logits = self.model(feats, valid, dec_in,
+                            generator=self._dropout_generator(generator))
+        loss, acc = e2e_loss(logits, tgt, reduce=self._sum)
         return loss, acc, tgt
 
     def train_step(self, batch: AMBatch,
@@ -662,7 +785,7 @@ class E2ETrainer(_TrainerBase):
                                                batch.hanzi_lengths)
         loss, acc, _ = self._forward(batch, dec_in, targets, True, generator)
         lr = self._backward_and_update(loss)
-        return {"loss": loss.detach(), "acc": acc.detach(), "lr": lr}
+        return {"loss": self._sum(loss), "acc": self._sum(acc), "lr": lr}
 
     @torch.no_grad()
     def eval_step(self, batch: AMBatch) -> Dict[str, torch.Tensor]:
@@ -674,8 +797,8 @@ class E2ETrainer(_TrainerBase):
                                                batch.hanzi_lengths)
         targets[np.asarray(batch.weights) == 0] = constants.IGNORE_ID
         loss, acc, tgt = self._forward(batch, dec_in, targets)
-        return {"loss": loss, "acc": acc,
-                "weight": torch.sum(tgt != constants.IGNORE_ID)}
+        return {"loss": self._sum(loss), "acc": self._sum(acc),
+                "weight": self._sum(torch.sum(tgt != constants.IGNORE_ID))}
 
     def _epoch_marker_path(self) -> str:
         return os.path.join(self.workdir, "e2e_epochs_completed.json")
@@ -743,6 +866,8 @@ class E2ETrainer(_TrainerBase):
                     best_acc = acc
                     self.save_best(metric=acc)
             self.save(self.step)
-            with open(self._epoch_marker_path(), "w") as f:
-                json.dump({"epochs_completed": epoch + 1}, f)
+            if self.mesh.is_writer:
+                with open(self._epoch_marker_path(), "w") as f:
+                    json.dump({"epochs_completed": epoch + 1}, f)
+            self.mesh.barrier()
         return last

@@ -239,6 +239,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     for bit; (g) ``e2e --small --synthetic 16 --tensorboard`` through the
     CLI, its event file read back with its CRCs checked: scalars and
     attention images. Each part's wall on its own line.
+18. Data and tensor parallelism on the one card, remat and the native
+    loader: (a) two ranks on ``cuda:0`` over gloo on CUDA tensors (NCCL
+    refuses two ranks of one device), each a ``chip_smoke.py
+    --phase18-worker`` process with a ``file://`` store and a time limit,
+    take one ``AMTrainer`` step of the full-width f32 SE-DFCNN (dropout 0,
+    noise off) on 8 of 16 rows at bucket 1600, and (b) one ``LMTrainer``
+    step of the full-width f32 LM with ``fused_ffn="pallas"`` split over
+    (data 1, model 2), each rank holding the shards ``param_shardings``
+    names; each step against one process's on the card (the loss within
+    rtol 1e-5; the gradients within twice what one process's own step
+    shows on inputs one rounding away, 18a in norm, 18b element by element
+    against phase 6's rule and never looser than it; the parameters Adam's
+    update of the rank's own gradient, the running statistics), the
+    launches a rank a
+    step (18a: ``log_mel``, ``cmvn``, ``ctc_alpha``, ``ctc_beta_xi`` once;
+    18b: the masked forward, backward and ``fused_ffn`` 12 times, at 4
+    heads and inner 1024), every kept call against its twin; then 10 bf16
+    tensor-parallel LM steps at dropout 0.5 (ms/step beside phase 5's),
+    and the per-rank shapes timed (the masked backward at [64, 4, 64, 64],
+    ``fused_ffn`` at inner 1024) beside their bounds; (c) the ``am``
+    command under ``torch.distributed.run`` over NCCL (world 1), whose
+    checkpoint a single process restores; (d) ``dryrun_multichip(2)``;
+    (e) AM steps with ``remat_stages`` 0 and 2 (bf16, batch 16, bucket
+    1600): the gradients by phase 6's rule, the running statistics bit for
+    bit, peak memory and ms/step of each; (f) the native wav decoder
+    against the Python one on 512 wavs of 1-10 s (bit for bit, both rates)
+    and 10 AM steps fed by ``DataLoader`` + ``prefetch`` with each step's
+    wait on the loader. Each part's wall on its own line.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -1921,6 +1949,8 @@ def phase_training(results):
     for name in TRAINED:
         require(counts.get(name, 0) > 0, f"{name} was never launched")
         results[name]["launches"] = counts[name]
+    # phase 18 prints the LM's step beside its tensor-parallel one
+    stats["am"]["lm_ms_per_step"] = stats["lm"]["ms_per_step"]
     return stats["am"]
 
 
@@ -4599,6 +4629,668 @@ def phase_families(results):
     print(f"phase 17: {sum(walls.values()):.1f} s")
 
 
+# ------------------------------------------------------------- phase 18
+
+P18_BATCH, P18_BUCKET = 16, 1600      # 18a: the global AM batch, 8 a rank
+P18_LM_BATCH, P18_LM_LEN = 64, 64     # 18b: LmConfig.batch_size x 64
+P18_TIMEOUT = 300                     # each part's limit, seconds
+P18_DP = ("log_mel", "cmvn", "ctc_alpha", "ctc_beta_xi")
+P18_TP = ("masked_attention", "masked_attention_bwd", "fused_ffn")
+P18_WAVS, P18_FEED = 512, 192         # 18f: decoded wavs; fed utterances
+P18_REMAT = (0, 2)
+P18_STEPS = 4                         # 18e: steps of each run (2 untimed)
+
+
+def p18_models(device, *, dropout: float = 0.0, dtype=None):
+    """(SE-DFCNN, LM) at full width from phase 18's seed: f32 with dropout
+    0 unless told, the LM with ``fused_ffn="pallas"``. Every process of the
+    phase builds the same weights (drawn on the CPU)."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.models import (SEDFCNN, SEDFCNNConfig,
+                                                    TransformerLM,
+                                                    TransformerLMConfig)
+    dtype = dtype or torch.float32
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    am = SEDFCNN(SEDFCNNConfig(av.size, dropout_rate=dropout, dtype=dtype),
+                 device=device, generator=torch.Generator().manual_seed(18))
+    lm = TransformerLM(TransformerLMConfig(
+        av.size, lv.size, dropout_rate=dropout, fused_ffn="pallas",
+        dtype=dtype), device=device,
+        generator=torch.Generator().manual_seed(19))
+    return am, lm
+
+
+def p18_batches():
+    from asr_dfcnn_transformer_torch import vocab
+    av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+    rng = np.random.default_rng(SEED + 18)
+    return (am_batch(rng, P18_BATCH, P18_BUCKET, AM_LABELS, av.size),
+            lm_batch(rng, P18_LM_BATCH, P18_LM_LEN, av.size, lv.size))
+
+
+def p18_recording(calls: dict):
+    """The patches (for ``wrapping``) that keep the kernel calls of a
+    phase 18 step in ``calls``: ``log_mel`` and ``cmvn`` where the front
+    end calls them, the CTC pair where ``ops.ctc`` does, the masked
+    attention forward where the models call it and its backward where the
+    autograd Function does, and ``fused_ffn`` where ``FeedForward`` does."""
+    from asr_dfcnn_transformer_torch.kernels import attention, fbank, ffn
+    from asr_dfcnn_transformer_torch.models import layers
+    from asr_dfcnn_transformer_torch.ops import ctc
+    sites = {"log_mel": (fbank, "log_mel"), "cmvn": (fbank, "cmvn"),
+             "ctc_alpha": (ctc, "ctc_alpha"),
+             "ctc_beta_xi": (ctc, "ctc_beta_xi"),
+             "masked_attention": (layers, "masked_attention"),
+             "masked_attention_bwd": (attention, "_backward"),
+             "fused_ffn": (ffn, "fused_ffn")}
+    return [(mod, attr, recorded(calls.setdefault(name, []), 10 ** 6))
+            for name, (mod, attr) in sites.items()]
+
+
+def p18_check_calls(label: str, calls: dict, names) -> dict:
+    """Each kept call against its twin (``check_kept_calls``; ``log_mel``
+    within rtol 1e-4, atol 1e-3, ``cmvn`` within atol 1e-5 and
+    ``fused_ffn`` within 1e-5 in f32, phase 2's tolerances); returns
+    {kernel: sorted shapes of its calls}."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import (cmvn_reference,
+                                                     fused_ffn_reference,
+                                                     log_mel_reference)
+    shapes = {}
+    for name in names:
+        rec = calls.get(name, [])
+        require(len(rec) > 0, f"{label}: no call of {name} was kept")
+        shapes[name] = sorted({str([list(a.shape) for a in args
+                                    if isinstance(a, torch.Tensor)])
+                               for args, _, _ in rec})
+        if name not in ("log_mel", "cmvn", "fused_ffn"):
+            check_kept_calls(label, {name: rec}, (name,))
+            continue
+        worst, bad = 0.0, 0
+        for args, kw, out in rec:
+            if name == "log_mel":
+                ok, err = close_enough(out, log_mel_reference(*args, **kw),
+                                       1e-4, 1e-3)
+            elif name == "cmvn":
+                ok, err = close_enough(out, cmvn_reference(*args), 0.0, 1e-5)
+            else:
+                tol = 2e-2 if args[0].dtype == torch.bfloat16 else 1e-5
+                ok, err = close_enough(out, fused_ffn_reference(*args), tol,
+                                       tol)
+            worst, bad = max(worst, err), bad + (not ok)
+        print(f"{label}: {name} on the path's own inputs ({shapes[name]}): "
+              f"{len(rec)} calls against the twin, max abs err {worst:.3g}, "
+              f"{'ok' if bad == 0 else f'{bad} FAIL'}")
+        require(bad == 0, f"{label}: {bad} {name} calls disagree with the "
+                "twin")
+    return shapes
+
+
+def p18_state(tr, specs=None, mesh=None):
+    """(every gradient, every parameter and buffer) of a trainer on the
+    CPU; a tensor-parallel model's shards gathered whole."""
+    from asr_dfcnn_transformer_torch.parallel import tensor as tp
+    grads = {n: p.grad for n, p in tr.model.named_parameters()}
+    state = dict(tr.model.state_dict())
+    if specs is not None:
+        grads, _ = tp.full_state(grads, {"state": {}}, specs, mesh)
+        state, _ = tp.full_state(state, {"state": {}}, specs, mesh)
+    return ({n: g.detach().cpu() for n, g in grads.items()},
+            {n: v.detach().cpu() for n, v in state.items()})
+
+
+#: the command that runs one rank of 18a / 18b
+P18_WORKER = [sys.executable, os.path.abspath(__file__), "--phase18-worker"]
+
+
+def p18_worker(rank: int, store: str, outdir: str,
+               device: str = "cuda:0") -> None:
+    """One of 18a/18b's two ranks on ``cuda:0``, gloo on CUDA tensors:
+    (a) the data-parallel AM step, (b) the tensor-parallel LM step, then
+    10 timed bf16 tensor-parallel LM steps at dropout 0.5. Writes its
+    results to ``outdir/rank<r>.pt``."""
+    import torch
+    from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
+    from asr_dfcnn_transformer_torch.parallel import (destroy,
+                                                      init_distributed,
+                                                      make_mesh,
+                                                      param_shardings)
+    from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = init_distributed(device, init_method="file://" + store,
+                           world_size=2, rank=rank, timeout=P18_TIMEOUT)
+    if torch.distributed.get_backend() != "gloo":
+        raise RuntimeError(f"18a/18b rank {rank}: backend "
+                           f"{torch.distributed.get_backend()}, not gloo "
+                           f"(two ranks on one card)")
+    out = {}
+    try:
+        amb, lmb = p18_batches()
+        # (a) data parallelism: 8 of the 16 rows a rank
+        am, _ = p18_models(dev)
+        tr = AMTrainer(am, os.path.join(outdir, "am"), mesh=make_mesh(
+            2, 1, dev))
+        calls = {}
+        reset_launches()
+        with wrapping(p18_recording(calls)):
+            loss = float(tr.train_step(amb)["loss"])
+        torch.cuda.synchronize()
+        out["a_launches"] = {k: v for k, v in LAUNCHES.items() if v}
+        out["a_shapes"] = p18_check_calls(f"18a rank {rank}", calls, P18_DP)
+        out["a_loss"] = loss
+        out["a_grads"], out["a_state"] = p18_state(tr)
+        del tr, am, calls
+        torch.cuda.empty_cache()
+        # (b) tensor parallelism: 4 heads and 1024 inner columns a rank
+        _, lm = p18_models(dev)
+        mesh = make_mesh(1, 2, dev)
+        specs = param_shardings(mesh, lm.named_parameters(),
+                                tensor_parallel=True)
+        whole = {n: tuple(p.shape) for n, p in lm.named_parameters()}
+        tr = LMTrainer(lm, os.path.join(outdir, "lm"), lr=LM_LR, mesh=mesh)
+        out["b_shards_named"] = tr.shards == specs and all(
+            tuple(p.shape) == tuple(
+                s // 2 if i == specs[n] else s
+                for i, s in enumerate(whole[n]))
+            for n, p in lm.named_parameters())
+        calls = {}
+        reset_launches()
+        with wrapping(p18_recording(calls)):
+            loss = float(tr.train_step(lmb)["loss"])
+        torch.cuda.synchronize()
+        out["b_launches"] = {k: v for k, v in LAUNCHES.items() if v}
+        out["b_shapes"] = p18_check_calls(f"18b rank {rank}", calls, P18_TP)
+        out["b_loss"] = loss
+        out["b_grads"], out["b_state"] = p18_state(tr, specs, mesh)
+        del tr, lm, calls
+        torch.cuda.empty_cache()
+        # (b) timed: bf16, dropout 0.5
+        _, lm = p18_models(dev, dropout=0.5, dtype=torch.bfloat16)
+        tr = LMTrainer(lm, os.path.join(outdir, "lm_bf16"), lr=LM_LR,
+                       mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        out["b_timed"] = p18_timed(tr, lmb, gen, TRAIN_STEPS, WARMUP_STEPS)
+    finally:
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+        destroy()
+
+
+def p18_timed(tr, batch, gen, steps: int, warmup: int) -> dict:
+    """``steps`` train steps: losses, ms/step by CUDA events over the steps
+    after ``warmup``, and the peak memory from the first step on."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [tr.train_step(batch, gen)["loss"] for _ in range(warmup)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps - warmup):
+        losses.append(tr.train_step(batch, gen)["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    require(all(np.isfinite(losses)), "a timed step's loss is not finite")
+    return {"losses": losses,
+            "ms": start.elapsed_time(end) / (steps - warmup),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def p18_spawn(args, timeout: float = P18_TIMEOUT, env=None):
+    """Run ``args`` (a list of commands) as processes at once; returns
+    their outputs, or fails when one fails or outlives ``timeout``."""
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              env=env or os.environ.copy())
+             for a in args]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f"{p.args[:4]} outlived {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        require(p.returncode == 0, f"{p.args[:4]} failed:\n{o[-4000:]}")
+    return outs
+
+
+#: 18a / 18b: a gradient's error at most this many times the floor, the
+#: same measure for one process's own step on inputs one rounding away
+#: (measured in the run)
+P18_FLOOR_TIMES = 2.0
+
+
+def p18_errors(ref: dict, got: dict, measure: str) -> dict:
+    """Each gradient's error against ``ref``. ``"element"``: the largest
+    |got - ref| over phase 6's limit (rtol 1e-4, atol 1e-5 x max(1,
+    |ref|max)), so 1 is that rule's bound. ``"norm"``: |got - ref| / |ref|
+    where |got - ref| exceeds phase 6's atol in norm form (1e-5 x max(1,
+    |ref|max) x sqrt(n): gradients that are rounding noise, such as a
+    BatchNorm bias that the next BatchNorm cancels), else 0."""
+    import torch
+    out = {}
+    for n, w in ref.items():
+        w, diff = w.float(), got[n].float() - w.float()
+        top = max(1.0, float(w.abs().max()))
+        if measure == "element":
+            out[n] = float((diff.abs() / (1e-4 * w.abs() + 1e-5 * top)).max())
+        else:
+            d = float(torch.linalg.vector_norm(diff))
+            out[n] = (d / float(torch.linalg.vector_norm(w))
+                      if d > 1e-5 * top * w.numel() ** 0.5 else 0.0)
+    return out
+
+
+def p18_step_rule(label, single, got, p0, lr, measure: str, floor: float):
+    """18a / 18b's rule for a rank's step (``got``) against one process's
+    (``single``), each (loss, gradients, state after the step):
+
+    - the loss within rtol 1e-5;
+    - every gradient's error (``p18_errors``; 18a ``"norm"``, 18b
+      ``"element"``) at most ``P18_FLOOR_TIMES`` x ``floor``, the same
+      measure for one process's step on inputs one rounding away (18a the
+      signals, 18b the parameters), and for ``"element"`` never less than
+      phase 6's rule itself. At full width some ReLU inputs lie within
+      rounding of 0, and a side that decides one the other way moves the
+      gradients upstream of it (phase 17e); the sums over 16 x 1600 rows
+      split 8 + 8, or over a row split's two halves, round otherwise. So
+      phase 6's element-wise rule alone cannot hold at this width, and the
+      floor says how far a change of one rounding moves one process's own
+      step (18a's worst element of the logits projection, ``Dense_0``,
+      against that rule is printed);
+    - the parameters after the step are Adam's first update from the
+      rank's own summed gradient, p0 - lr g / (|g| + eps) (PyTorch's
+      arithmetic), within 1e-6;
+    - the running statistics within rtol 1e-4, atol 1e-5 x max(1,
+      |x|max)."""
+    (l1, g1, s1), (l2, g2, s2) = single, got
+    require(abs(l2 - l1) <= 1e-5 * abs(l1),
+            f"{label}: loss {l2} against {l1}")
+    limit = P18_FLOOR_TIMES * (max(1.0, floor) if measure == "element"
+                               else floor)
+    errs = p18_errors(g1, g2, measure)
+    missed = [f"{n} {e:.3g}" for n, e in errs.items() if e > limit]
+    worst_n = max(errs, key=errs.get)
+    adam = 0.0
+    for n in g1:
+        g = g2[n].double()
+        m, v = 0.1 * g, 0.001 * g * g
+        step = p0[n].double() - (lr / 0.1) * m / (
+            v.sqrt() / 0.001 ** 0.5 + 1e-8)
+        adam = max(adam, float((s2[n].double() - step).abs().max()))
+    require(not missed, f"{label}: gradients off ({measure}, limit "
+            f"{limit:.3g}): {missed}")
+    require(adam <= 1e-6, f"{label}: the parameters after the step are "
+            f"not Adam's update of the rank's gradient ({adam:.3g})")
+    stats = [n for n in s1 if "running" in n]
+    for n in stats:
+        ok, e = close_enough(s2[n], s1[n], 1e-4, 1e-5 * max(
+            1.0, float(s1[n].abs().max())))
+        require(ok, f"{label}: running statistic {n} off by {e:.3g}")
+    unit = ("x phase 6's element-wise limit" if measure == "element"
+            else "in norm")
+    head = ""
+    if measure == "norm":
+        el = p18_errors(g1, g2, "element")
+        head = (f"; the head's worst element at "
+                f"{max(el[n] for n in el if n.startswith('Dense_0.')):.3g}"
+                f" x phase 6's limit")
+    print(f"{label}: loss {l2:.6f} vs {l1:.6f}; gradients within "
+          f"{errs[worst_n]:.3g} {unit} "
+          f"({worst_n if errs[worst_n] else 'all within the atol'}; "
+          f"limit {limit:.3g} = "
+          f"{P18_FLOOR_TIMES:g} x one process on inputs one rounding "
+          f"away, {floor:.3g}){head}; parameters Adam's update of the "
+          f"rank's gradient within {adam:.3g}; {len(stats)} running "
+          f"statistics ok")
+
+
+def p18_parallel(results, outdir: str, walls: dict):
+    """18a and 18b: the two ranks (``p18_worker``) against one process on
+    the card, by ``p18_step_rule``; the launches a rank a step."""
+    import torch
+    from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer
+    t = time.perf_counter()
+    store = os.path.join(outdir, "store")
+    procs = [subprocess.Popen(P18_WORKER + [str(r), store, outdir],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        # the single process's steps while the ranks start, each also on
+        # inputs one rounding away (the AM's signals, the LM's parameters):
+        # the floor of its gradients' error
+        amb, lmb = p18_batches()
+        near = copy.copy(amb)
+        near.signals = (amb.signals.astype(np.float64) * (1 + 2 ** -22)
+                        ).astype(np.float32)
+        single, p0 = {}, {}
+        for key, batch in (("a", amb), ("a near", near), ("b", lmb),
+                           ("b near", lmb)):
+            am, lm = p18_models(DEVICE)
+            if key == "b near":
+                with torch.no_grad():
+                    for p in lm.parameters():
+                        p.copy_(p.double() * (1 + 2 ** -22))
+            tr = (AMTrainer(am, os.path.join(outdir, "am1"))
+                  if key[0] == "a" else
+                  LMTrainer(lm, os.path.join(outdir, "lm1"), lr=LM_LR))
+            p0[key] = {n: v.detach().cpu().clone()
+                       for n, v in tr.model.state_dict().items()}
+            single[key] = (float(tr.train_step(batch)["loss"]),) + \
+                p18_state(tr)
+            del tr, am, lm
+        torch.cuda.empty_cache()
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=P18_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f"18a/b: a rank outlived {P18_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        print("\n".join(f"  [rank {r}] {ln}" for ln in log.splitlines()))
+        require(p.returncode == 0, f"18a/b: rank {r} failed")
+    ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    for part, names, lr, measure in (("a", P18_DP, 7e-4, "norm"),
+                                     ("b", P18_TP, LM_LR, "element")):
+        floor = max(p18_errors(single[part][1], single[f"{part} near"][1],
+                               measure).values())
+        for r, got in enumerate(ranks):
+            p18_step_rule(f"18{part} rank {r} vs one process", single[part],
+                          (got[f"{part}_loss"], got[f"{part}_grads"],
+                           got[f"{part}_state"]), p0[part], lr, measure,
+                          floor)
+            counts = got[f"{part}_launches"]
+            want = 12 if part == "b" else 1
+            print(f"18{part} rank {r}: launches a step {counts}; kernel "
+                  f"inputs {got[f'{part}_shapes']}")
+            for name in names:
+                require(counts.get(name, 0) == want,
+                        f"18{part} rank {r}: {name} launched "
+                        f"{counts.get(name, 0)} times, not {want}")
+                results[name].setdefault("phase18_launches", {})[
+                    f"18{part} rank {r}"] = counts.get(name, 0)
+    from asr_dfcnn_transformer_torch.models import TransformerLMConfig
+    c = TransformerLMConfig(1, 1)         # p18_models' widths: the defaults
+    heads = f"{c.num_heads // 2}, {P18_LM_LEN}, {c.d_model // c.num_heads}]"
+    inner = f"[{2 * c.d_model}, {c.d_model}]"       # 4 d / 2 ranks
+    for r, got in enumerate(ranks):
+        require(got["b_shards_named"], f"18b rank {r}: its parameters are "
+                "not the shards param_shardings names")
+        shapes = got["b_shapes"]
+        require(all(heads in s for s in shapes["masked_attention"]),
+                f"18b rank {r}: the attention ran at {shapes}")
+        require(all(inner in s for s in shapes["fused_ffn"]),
+                f"18b rank {r}: fused_ffn ran at {shapes['fused_ffn']}")
+    walls["a+b parallel steps"] = time.perf_counter() - t
+    return [got["b_timed"] for got in ranks]
+
+
+def p18_cli(outdir: str, walls: dict):
+    """18c: the ``am`` command under ``torch.distributed.run``, one process
+    over NCCL, two steps; a single process restores its checkpoint."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.models import SEDFCNN, SEDFCNNConfig
+    from asr_dfcnn_transformer_torch.train import AMTrainer
+    t = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(outdir, "cli")
+    env = dict(os.environ, PYTHONPATH=root)
+    (log,) = p18_spawn([[sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc_per_node", "1", "-m",
+                         "asr_dfcnn_transformer_torch.train.cli", "am",
+                         "--distributed", "--small", "--synthetic", "16",
+                         "--batch-size", "8", "--epochs", "1", "--workdir",
+                         work]], env=env)
+    lines = [ln for ln in log.splitlines() if "[distributed]" in ln
+             or "training done" in ln]
+    print("\n".join(f"  [18c] {ln}" for ln in lines))
+    require(any("[distributed] process 0/1, local devices 1, global 1" in ln
+                for ln in lines), "18c: no [distributed] line")
+    require(any("backend nccl" in ln for ln in lines),
+            "18c: the process group is not on NCCL")
+    am = SEDFCNN(SEDFCNNConfig(vocab.acoustic_vocab().size,
+                               stage_features=(4, 4, 8, 8, 8),
+                               head_features=8, dtype=torch.float32),
+                 device=DEVICE)
+    tr = AMTrainer(am, work)
+    step = tr.restore_or_init()
+    saved = tr.ckpt.restore_latest()["model"]
+    same = all(torch.equal(v.cpu(), saved[k].cpu())
+               for k, v in am.state_dict().items())
+    print(f"18c: a single process restored the distributed run's "
+          f"checkpoint at step {step}, equal to it: {same}")
+    require(step == 2 and same, "18c: the checkpoint did not restore")
+    walls["c CLI over NCCL"] = time.perf_counter() - t
+
+
+def p18_remat(walls: dict):
+    """18e: full-width AM steps (bf16 compute, dropout 0.3, batch 16,
+    bucket 1600) with ``remat_stages`` 0 and 2 from the same weights and
+    generator: the first step's loss and gradients by phase 6's rule, the
+    running statistics bit for bit; peak memory and ms/step of each."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.models import SEDFCNN, SEDFCNNConfig
+    from asr_dfcnn_transformer_torch.train import AMTrainer
+    t = time.perf_counter()
+    amb, _ = p18_batches()
+    av = vocab.acoustic_vocab()
+    runs = {}
+    for remat in P18_REMAT:
+        am = SEDFCNN(SEDFCNNConfig(av.size, remat_stages=remat,
+                                   dtype=torch.bfloat16), device=DEVICE,
+                     generator=torch.Generator().manual_seed(SEED))
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+        try:
+            tr = AMTrainer(am, workdir)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss = float(tr.train_step(amb, gen)["loss"])
+            first = (loss,) + p18_state(tr)
+            timed = p18_timed(tr, amb, gen, P18_STEPS - 1, 1)
+            timed["peak"] = max(timed["peak"],
+                                torch.cuda.max_memory_allocated())
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        runs[remat] = (first, timed)
+        losses = [first[0]] + timed["losses"]
+        print(f"18e remat_stages {remat}: peak memory "
+              f"{timed['peak'] / 2**30:.3f} GiB, {timed['ms']:.2f} ms/step "
+              f"over steps 3-{P18_STEPS} (CUDA events), losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)}")
+        del tr, am
+    (l0, g0, s0), (l2, g2, s2) = runs[0][0], runs[2][0]
+    compare_steps("18e remat_stages 2 vs 0", (l0, g0), (l2, g2))
+    stats = [n for n in s0 if "running" in n]
+    require(all(torch.equal(s0[n], s2[n]) for n in stats),
+            "18e: the running statistics differ")
+    print(f"18e: {len(stats)} running statistics equal bit for bit; peak "
+          f"{runs[2][1]['peak'] / runs[0][1]['peak']:.3f} x remat 0's")
+    walls["e remat"] = time.perf_counter() - t
+
+
+def p18_loader(walls: dict):
+    """18f: the native decoder built and held against the Python decoder on
+    512 synthetic 16 kHz wavs of 1-10 s (bit for bit), both rates; then 10
+    AM steps fed by ``DataLoader`` + ``prefetch`` and each step's wait on
+    the loader."""
+    import torch
+    from asr_dfcnn_transformer_torch import vocab
+    from asr_dfcnn_transformer_torch.audio.wav import write_wav
+    from asr_dfcnn_transformer_torch.data import (DataLoader, load_manifests,
+                                                  make_synthetic_corpus,
+                                                  native_loader, prefetch)
+    from asr_dfcnn_transformer_torch.train import AMTrainer
+    t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wavs_")
+    try:
+        t0 = time.perf_counter()
+        native_loader.build()
+        build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED + 181)
+        paths = []
+        for i in range(P18_WAVS):
+            n = int(rng.uniform(1.0, 10.0) * SAMPLE_RATE)
+            paths.append(os.path.join(tmp, f"u{i}.wav"))
+            write_wav(paths[-1], tone_utterance(rng, n), SAMPLE_RATE)
+        rates, outs = {}, {}
+        for dec in ("native", "python"):
+            t0 = time.perf_counter()
+            outs[dec] = native_loader.decode_batch(paths, 10 * SAMPLE_RATE,
+                                                   decoder=dec)
+            rates[dec] = P18_WAVS / (time.perf_counter() - t0)
+        same = all(np.array_equal(a, b) for a, b in zip(outs["native"],
+                                                         outs["python"]))
+        print(f"18f: native decoder built in {build_s:.2f} s; {P18_WAVS} "
+              f"wavs of 1-10 s: native {rates['native']:.1f} utt/s, python "
+              f"{rates['python']:.1f} utt/s ({os.cpu_count()} CPUs), "
+              f"arrays and lengths equal bit for bit: {same}")
+        require(same, "18f: the native and Python decoders disagree")
+        del outs
+        av, lv = vocab.acoustic_vocab(), vocab.language_vocab()
+        data_dir, wav_root, _, _ = make_synthetic_corpus(
+            os.path.join(tmp, "corpus"), num_utts=P18_FEED, seed=SEED,
+            modes=("train",))
+        dl = DataLoader(load_manifests(data_dir, "train", corpora=("thchs",),
+                                       shuffle=True, seed=SEED),
+                        av, lv, speech_root=wav_root)
+        am, _ = p18_models(DEVICE, dtype=torch.bfloat16)
+        tr = AMTrainer(am, os.path.join(tmp, "am"))
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        waits, it = [], prefetch(dl.am_batches(AM_BATCH, seed=SEED))
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            batch = next(it)
+            waits.append(1e3 * (time.perf_counter() - t0))
+            float(tr.train_step(batch, gen)["loss"])
+        print(f"18f: {TRAIN_STEPS} AM steps (batch {AM_BATCH}, bucket "
+              f"{batch.bucket_frames}) fed by DataLoader + prefetch: wait on "
+              f"the loader per step (ms) "
+              f"{' '.join(f'{w:.2f}' for w in waits)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls["f native loader"] = time.perf_counter() - t
+
+
+def p18_shapes(results):
+    """The tensor-parallel step's per-rank kernel shapes timed: the masked
+    backward at [64, 4, 64, 64] bf16 causal at keep 0.5 and ``fused_ffn``
+    at [4096, 512] inner 1024 with a zero b2, beside their twins, their
+    bounds and (``fused_ffn``) the library call."""
+    import torch
+    import torch.nn.functional as F
+    from asr_dfcnn_transformer_torch.bounds import masked_attention_bwd_work
+    from asr_dfcnn_transformer_torch.kernels import attention as attn
+    from asr_dfcnn_transformer_torch.kernels import (fused_ffn,
+                                                     fused_ffn_reference)
+    from asr_dfcnn_transformer_torch.timing import cuda_ms
+    rng = np.random.default_rng(SEED + 182)
+    dev = torch.device(DEVICE)
+    b, h, t, dh = P18_LM_BATCH, 4, P18_LM_LEN, 64
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+        (b, h, t, dh)).astype(np.float32)).to(dev, torch.bfloat16)
+        for _ in range(4))
+    k_valid = torch.from_numpy(rng.uniform(size=(b, t)) > 0.3).to(dev)
+    k_valid[:, 0] = True
+    keep = torch.from_numpy(rng.uniform(size=(b, h, t, t)) < 0.5).to(dev)
+    got = attn._backward(q, k, v, k_valid, dout, True, keep, 0.5)
+    want = attn.masked_attention_bwd_reference(q, k, v, k_valid, dout, True,
+                                               keep, 0.5)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    k_ms, p_ms = paired_ms(
+        lambda: attn._backward(q, k, v, k_valid, dout, True, keep, 0.5),
+        lambda: attn.masked_attention_bwd_reference(q, k, v, k_valid, dout,
+                                                    True, keep, 0.5))
+    bwd = {}
+    set_bound(bwd, *masked_attention_bwd_work(q, k, v, k_valid, dout, keep,
+                                              got, True))
+    bwd.update(shape=[b, h, t, dh], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+               library_ms=None)
+    print(f"18 shapes: masked_attention_bwd [{b}, {h}, {t}, {dh}] bf16 keep "
+          f"0.5: max abs err {err:.3g}, kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, bound {bwd['bound_ms']:.5f} ms "
+          f"({bwd['bound_by']}), no library call takes a keep mask")
+    results["masked_attention_bwd"]["tp_rank_shape"] = bwd
+    x, w1, b1, w2, b2 = ffn_problem(rng, b * t, torch.bfloat16, 512, 1024)
+    b2 = torch.zeros_like(b2)
+    out = fused_ffn(x, w1, b1, w2, b2)
+    ok, err = close_enough(out, fused_ffn_reference(x, w1, b1, w2, b2),
+                           2e-2, 2e-2)
+    require(ok, f"18 shapes: fused_ffn at inner 1024 differs by {err:.3g}")
+    k_ms, p_ms = paired_ms(lambda: fused_ffn(x, w1, b1, w2, b2),
+                           lambda: fused_ffn_reference(x, w1, b1, w2, b2))
+    lib_ms = cuda_ms(lambda: F.linear(torch.relu(F.linear(x, w1) + b1), w2))
+    ffn = {}
+    set_bound(ffn, nbytes(x, w1, b1, w2, b2, out),
+              {"bf16": 4 * b * t * 512 * 1024})
+    ffn.update(shape=[b * t, 512, 1024], max_abs_err=err, ms=k_ms,
+               plain_ms=p_ms, library_ms=lib_ms)
+    print(f"18 shapes: fused_ffn [{b * t}, 512] inner 1024 bf16, b2 0: max "
+          f"abs err {err:.3g}, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms, bound {ffn['bound_ms']:.5f} ms "
+          f"({ffn['bound_by']})")
+    results["fused_ffn"]["tp_rank_shape"] = ffn
+
+
+def phase_parallel(results, lm_single_ms=None):
+    """Phase 18: data and tensor parallelism on the one card (two ranks on
+    ``cuda:0`` over gloo), the CLI over NCCL, the dry run, remat and the
+    native loader. ``lm_single_ms``: phase 5's LM ms/step, printed beside
+    the tensor-parallel one."""
+    import torch
+    from asr_dfcnn_transformer_torch.parallel.dryrun import dryrun_multichip
+    walls = {}
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_p18_")
+    try:
+        timed = p18_parallel(results, outdir, walls)
+        for r, tm in enumerate(timed):
+            print(f"18b rank {r}: {TRAIN_STEPS} bf16 tensor-parallel LM steps "
+                  f"(dropout 0.5, fused_ffn pallas, gloo on cuda:0): "
+                  f"{tm['ms']:.2f} ms/step over steps {WARMUP_STEPS + 1}-"
+                  f"{TRAIN_STEPS}, peak {tm['peak'] / 2**30:.2f} GiB, "
+                  f"losses {' '.join(f'{x:.4f}' for x in tm['losses'])}")
+        if lm_single_ms is not None:
+            print(f"18b: phase 5's single-process LM step {lm_single_ms:.2f} "
+                  f"ms/step (bf16, dropout 0.5, fused_ffn auto)")
+        t = time.perf_counter()
+        p18_shapes(results)
+        walls["shapes"] = time.perf_counter() - t
+        p18_cli(outdir, walls)
+        t = time.perf_counter()
+        torch.cuda.empty_cache()
+        line = dryrun_multichip(2, device=DEVICE, timeout=P18_TIMEOUT)
+        require("sharded-pipeline outputs == single-device" in line,
+                "18d: the dry run's line")
+        walls["d dry run"] = time.perf_counter() - t
+        p18_remat(walls)
+        p18_loader(walls)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    for part, wall in walls.items():
+        print(f"phase 18 ({part}): {wall:.1f} s")
+    print(f"phase 18: {sum(walls.values()):.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4630,10 +5322,12 @@ def main() -> int:
     phase_gates(results)
     phase_serving(results)
     phase_families(results)
+    phase_parallel(results, clean_am["lm_ms_per_step"])
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("stream_launches", "artifact_launches")   # phase 16's counts
+    extra = ("stream_launches", "artifact_launches",   # phase 16's counts
+             "phase18_launches", "tp_rank_shape")       # phase 18's
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results.values()]}))
@@ -4644,4 +5338,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase18-worker"]:
+        p18_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -149,3 +149,22 @@ def test_trainers_from_config(tmp_path):
     assert np.isfinite(float(out["loss"]))
     grad = lm.model.block0_0_ffn.Dense_0.weight.grad
     assert grad is not None and bool(torch.isfinite(grad).all())
+
+
+def test_build_mesh_from_config(tmp_path):
+    """``build_mesh`` lays ``cfg.mesh`` over the process group: without
+    one, the default (-1, 1) is a mesh of one and any larger grid raises,
+    as JAX's ``make_mesh`` does past its devices; the builders take the
+    mesh as ``mesh=``, and build it from the config without one."""
+    port, _ = _configs(**SMALL)
+    mesh = factory.build_mesh(port, "cpu")
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.is_writer
+    assert mesh.data_group is None and mesh.model_group is None
+    wide = port.replace(mesh=dataclasses.replace(port.mesh, data_parallel=2))
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        factory.build_mesh(wide, "cpu")
+    am = factory.build_am_trainer(port, str(tmp_path / "am"), device="cpu",
+                                  mesh=mesh)
+    assert am.mesh is mesh
+    lm = factory.build_lm_trainer(port, str(tmp_path / "lm"), device="cpu")
+    assert lm.mesh.shape == mesh.shape and lm.shards is None

@@ -49,7 +49,7 @@ def _jax_variables(vocab=30, dense_units=24, feat=40, seed=0):
     """A JAX KerasDFCNN's variables with random BatchNorm statistics (the
     init's would hide a swapped gamma / moving_variance)."""
     model = JaxKerasDFCNN(vocab, dense_units=dense_units, dtype=jnp.float32)
-    v = jax.tree.map(np.asarray, model.init(
+    v = jax.tree.map(np.asarray, jax.jit(model.init)(
         jax.random.PRNGKey(seed), jnp.zeros((1, 16, feat, 1))))
     rng = np.random.default_rng(seed)
     for cell in v["batch_stats"].values():
@@ -186,7 +186,7 @@ def test_cli_eval_am_hdf5_prints_the_jax_cli_lines(tmp_path, capsys):
     jh.save_keras_dfcnn_hdf5(am_path, am_vars, vocab_size=av.size)
     lm = TransformerLM(av.size, lv.size, d_model=32, num_heads=4,
                        num_blocks=1, dropout_rate=0.0, dtype=jnp.float32)
-    lm_vars = jax.tree.map(np.asarray, lm.init(jax.random.PRNGKey(2),
+    lm_vars = jax.tree.map(np.asarray, jax.jit(lm.init)(jax.random.PRNGKey(2),
                                                jnp.ones((1, 8), jnp.int32)))
     lm_bundle = str(tmp_path / "lm" / "lm.ckpt")
     jax_tf.write_tf_checkpoint(lm_bundle,
@@ -210,7 +210,7 @@ def test_cli_eval_am_hdf5_prints_the_jax_cli_lines(tmp_path, capsys):
     from asr_dfcnn_transformer_tpu.models import BiGRUCTC
     bigru = BiGRUCTC(av.size, hidden=24, keras_parity=True,
                      dtype=jnp.float32)
-    gru_vars = jax.tree.map(np.asarray, bigru.init(
+    gru_vars = jax.tree.map(np.asarray, jax.jit(bigru.init)(
         jax.random.PRNGKey(5), jnp.zeros((1, 8, 200), jnp.float32)))
     gru_path = str(tmp_path / "bigru.hdf5")
     jh.save_keras_bigru_hdf5(gru_path, gru_vars, av.size, hidden=24)
