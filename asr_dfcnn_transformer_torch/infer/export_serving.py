@@ -9,7 +9,8 @@ them, the weights and the vocabularies into one ``.zip``:
 
     meta.json             format version, artifact kind, decode config,
                           program table, parameter groups, vocab lists,
-                          the device the programs were exported on
+                          the platforms the artifact serves on and the
+                          device its programs were exported on
     params.npz            every weight (stored once, shared by all entry
                           points)
     prog_b{B}_f{F}.pt2    one ``torch.export.save`` blob per (batch,
@@ -36,9 +37,17 @@ The kernels on these programs (``log_mel``, ``cmvn``,
 (``kernels.OPS``): the programs call them, so loading an artifact imports
 the port's kernel op library (``asr_dfcnn_transformer_torch.kernels``),
 and nothing of ``models/`` or ``train/``; no checkpoint and no asset file.
-A program bakes the device of the tensors it creates, so an artifact runs
-on the device it was exported on (``meta["device"]``); there is no
-cross-lowering to another device.
+
+``platforms`` (the JAX exporter's argument) names where the artifact may
+be served: any non-empty subset of ``("cpu", "cuda")``, whatever the
+exporting device, so an artifact for the card can be exported on a CPU
+host. A program is device-neutral: each kernel is one op with a CPU and a
+CUDA implementation, and no serving forward branches on the device while
+it is traced; what the trace keeps of the exporting device are the
+``device=`` of the tensors it creates. A loader moves each program to its
+device (``torch.export.passes.move_to_device_pass``) as it deserialises
+it, and refuses a device the artifact was not exported for, or ``cuda``
+where there is none.
 
 Larger batches are served in chunks of the largest exported batch size;
 frame counts pick the smallest exported bucket that fits (the largest
@@ -56,6 +65,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.export.passes import move_to_device_pass
 
 import asr_dfcnn_transformer_torch.kernels  # noqa: F401  (registers the ops)
 from asr_dfcnn_transformer_torch.audio.fbank import (frames_for_samples,
@@ -119,28 +129,38 @@ def _weights(models: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+#: the devices an artifact can be served on
+PLATFORMS = ("cpu", "cuda")
+
+
 def _check_platforms(platforms: Optional[Sequence[str]],
-                     device: torch.device) -> List[str]:
-    """The JAX exporter's ``platforms``: here only the exporting device's
-    own type can be named."""
-    if platforms and list(platforms) != [device.type]:
+                     device: str) -> List[str]:
+    """The JAX exporter's ``platforms``: the devices the artifact may be
+    served on, any non-empty subset of :data:`PLATFORMS` whatever the
+    exporting ``device``; by default the exporting device's own."""
+    names = list(dict.fromkeys(platforms or [device]))
+    bad = [p for p in names if p not in PLATFORMS]
+    if bad:
         raise ValueError(
-            f"--serve-platforms {','.join(platforms)}: a torch.export "
-            f"program runs on the device it was exported on; this export "
-            f"runs on {device.type}, so the only platform is "
-            f"{device.type!r} (export on a {'/'.join(platforms)} host "
-            f"for that device)")
-    return [device.type]
+            f"platforms {','.join(names)}: a program exported on "
+            f"{device} is served on {' or '.join(PLATFORMS)}, not on "
+            f"{','.join(bad)}")
+    return names
+
+
+def trace(body, models: dict, weights, args):
+    """The ``ExportedProgram`` of ``body(*models, *args)`` with the
+    weights as its first argument."""
+    with torch.no_grad():
+        return torch.export.export(_Traced(_Program(body, **models)),
+                                   (weights, *args), strict=False)
 
 
 def _export(body, models: dict, weights, args) -> Tuple[bytes, float]:
-    """One program ``body(*models, *args)`` with the weights as its first
-    argument -> (its ``torch.export.save`` blob, the export's wall
-    seconds: trace + serialise)."""
+    """One program (``trace``) -> (its ``torch.export.save`` blob, the
+    export's wall seconds: trace + serialise)."""
     t0 = time.perf_counter()
-    with torch.no_grad():
-        ep = torch.export.export(_Traced(_Program(body, **models)),
-                                 (weights, *args), strict=False)
+    ep = trace(body, models, weights, args)
     # save would keep the example inputs, the weights among them: one
     # more copy of them in every program
     ep.example_inputs = None
@@ -192,23 +212,28 @@ def _write_artifact(path, meta, weights: Dict[str, torch.Tensor], blobs):
 
 
 def _resolve_device(meta, device) -> torch.device:
-    """The artifact's device; a ``device`` that differs raises, as does an
-    artifact exported on CUDA where there is none."""
-    dev = torch.device(meta["device"])
-    if device is not None and torch.device(device).type != dev.type:
-        raise ValueError(f"this artifact runs on {dev.type}, where it was "
-                         f"exported, not on {torch.device(device).type}")
+    """The device to serve on: ``device``, by default ``cuda`` if the
+    artifact lists it, else the one platform it lists. Raises for a device
+    the artifact was not exported for, and for ``cuda`` where there is
+    none: nothing goes to the CPU unasked."""
+    platforms = meta["platforms"]
+    dev = torch.device(device if device is not None else
+                       "cuda" if "cuda" in platforms else platforms[0])
+    if dev.type not in platforms:
+        raise ValueError(f"this artifact runs on {' and '.join(platforms)}, "
+                         f"the platforms it was exported for, not on "
+                         f"{dev.type}")
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("this artifact was exported on cuda and there is "
-                           "no CUDA device")
+        raise RuntimeError("this artifact is to run on cuda and there is no "
+                           "CUDA device")
     return dev
 
 
 def _read_artifact(path, kind: str, device=None):
-    """(meta, weights on the artifact's device, {(batch, bucket): {part:
-    the program's saved bytes}}); parts are "file" (the program, for e2e
-    its start), "step" and "finish" (e2e only). A program is deserialised
-    at its first call (``_ArtifactBase._call``)."""
+    """(meta, the device to serve on, {(batch, bucket): {part: the
+    program's saved bytes}}, the weights there); parts are "file" (the
+    program, for e2e its start), "step" and "finish" (e2e only). A program is
+    deserialised at its first call (``_ArtifactBase._call``)."""
     with zipfile.ZipFile(path, "r") as z:
         meta = json.loads(z.read("meta.json"))
         if meta["version"] != _FORMAT_VERSION:
@@ -228,22 +253,18 @@ def _read_artifact(path, kind: str, device=None):
                  {part: z.read(p[part])
                   for part in ("file", "step", "finish") if part in p}
                  for p in meta["programs"]}
-    return meta, params, blobs
+    return meta, dev, blobs, params
 
 
-def export_pipeline(pipeline, path: str, *,
-                    batch_sizes: Sequence[int] = (1, 8),
-                    buckets: Sequence[int] = (128, 512, 1600),
-                    platforms: Optional[Sequence[str]] = None) -> dict:
-    """Write ``pipeline``'s inference programs + weights + vocabs to
-    ``path`` (a zip), one entry point per (batch, bucket) pair, on the
-    pipeline's device. Returns the meta dict that was written; its
-    ``export_seconds`` holds each program's export wall (trace +
-    serialise)."""
+def pipeline_programs(pipeline, batch_sizes: Sequence[int] = (1, 8),
+                      buckets: Sequence[int] = (128, 512, 1600)):
+    """(models, [(program table entry, {part: (body, example args)})],
+    meta) of ``export_pipeline``: one entry point per (batch, bucket), its
+    example inputs on the pipeline's device; meta holds the artifact's
+    decode config and vocabs."""
     from asr_dfcnn_transformer_torch.infer.pipeline import pipeline_program
 
     cfg = pipeline.fbank_cfg
-    platforms = _check_platforms(platforms, pipeline.device)
 
     def body_for_bucket(bucket):
         def body(am, lm, signals, lengths):
@@ -256,17 +277,14 @@ def export_pipeline(pipeline, path: str, *,
             return pny, pny_len, han
         return body
 
-    models = {"am": pipeline.am_model, "lm": pipeline.lm_model}
-    weights = _weights(models)
-    programs, blobs, walls = [], {}, {}
+    entries = []
     for batch, bucket, samples in _entry_points(batch_sizes, buckets,
                                                 cfg.win_len, cfg.hop):
-        name = f"prog_b{batch}_f{bucket}.pt2"
-        blobs[name], walls[name] = _export(
-            body_for_bucket(bucket), models, weights,
-            _example(batch, samples, pipeline.device))
-        programs.append({"batch": batch, "bucket": bucket,
-                         "samples": samples, "file": name})
+        entries.append((
+            {"batch": batch, "bucket": bucket, "samples": samples,
+             "file": f"prog_b{batch}_f{bucket}.pt2"},
+            {"file": (body_for_bucket(bucket),
+                      _example(batch, samples, pipeline.device))}))
     meta = {
         "kind": "am_lm",
         "decode": pipeline.decode,
@@ -276,33 +294,57 @@ def export_pipeline(pipeline, path: str, *,
         "hop": cfg.hop,
         "lm_max_len": pipeline.lm_max_len,
         "has_lm": pipeline.lm_model is not None,
-        "platforms": platforms,
         "device": pipeline.device.type,
-        "programs": programs,
         "acoustic_vocab": list(pipeline.av.symbols),
         "language_vocab": (list(pipeline.lv.symbols)
                            if pipeline.lv is not None else None),
     }
-    out = _write_artifact(path, meta, weights, blobs)
+    return {"am": pipeline.am_model, "lm": pipeline.lm_model}, entries, meta
+
+
+def _export_artifact(path: str, platforms: Optional[Sequence[str]],
+                     models: dict, entries, meta: dict) -> dict:
+    """Export ``pipeline_programs`` / ``e2e_programs``' entries to
+    ``path`` for ``platforms``. Returns the meta dict that was written;
+    its ``export_seconds`` holds each program's export wall (trace +
+    serialise)."""
+    meta = dict(meta, platforms=_check_platforms(platforms, meta["device"]))
+    weights = _weights(models)
+    programs, blobs, walls = [], {}, {}
+    for entry, parts in entries:
+        for part, (body, args) in parts.items():
+            name = entry[part]
+            blobs[name], walls[name] = _export(body, models, weights, args)
+        programs.append(entry)
+    out = _write_artifact(path, dict(meta, programs=programs), weights,
+                          blobs)
     return dict(out, export_seconds=walls)
 
 
-def export_e2e(model, path: str, *, vocab: Vocab, feature_dim: int = 80,
-               lfr_m: int = 4, lfr_n: int = 3, decode: str = "greedy",
-               beam_width: int = 3, lp_alpha: float = 0.6, max_len: int = 64,
-               batch_sizes: Sequence[int] = (1, 8),
-               buckets: Sequence[int] = (128, 512, 1600),
-               platforms: Optional[Sequence[str]] = None) -> dict:
-    """Write the end-to-end SpeechTransformer's recognition program:
-    fbank -> LFR -> encoder -> KV-cached decode (greedy, or the
-    length-penalised beam of ``beam_width``), on the model's device.
-    ``vocab`` is the e2e hanzi vocab (pad / sos / eos first).
+def export_pipeline(pipeline, path: str, *,
+                    platforms: Optional[Sequence[str]] = None,
+                    **kw) -> dict:
+    """Write ``pipeline``'s inference programs + weights + vocabs to
+    ``path`` (a zip), one entry point per (batch, bucket) pair (``kw``:
+    :func:`pipeline_programs`' ``batch_sizes`` and ``buckets``), traced
+    on the pipeline's device, to be served on ``platforms`` (default:
+    that device's). Returns the meta dict that was written; its
+    ``export_seconds`` holds each program's export wall (trace +
+    serialise)."""
+    return _export_artifact(path, platforms, *pipeline_programs(pipeline,
+                                                                **kw))
 
-    Each entry point is three programs: the start (fbank -> encoder ->
-    the decode state before step 0; ``file``), one decode ``step`` whose
-    position is a tensor argument, run ``max_len`` times by the loader,
-    and the ``finish`` (ids and lengths). Tracing the decode as one
-    program would unroll its ``max_len`` steps into one graph."""
+
+def e2e_programs(model, *, feature_dim: int = 80, lfr_m: int = 4,
+                 lfr_n: int = 3, decode: str = "greedy", beam_width: int = 3,
+                 lp_alpha: float = 0.6, max_len: int = 64,
+                 batch_sizes: Sequence[int] = (1, 8),
+                 buckets: Sequence[int] = (128, 512, 1600)):
+    """(models, [(program table entry, {part: (body, example args)})],
+    meta) of ``export_e2e``: the start, step and finish of each (batch,
+    bucket), their example inputs on the model's device (the step's and
+    the finish's from one run of the start there); meta holds the
+    artifact's decode config."""
     from asr_dfcnn_transformer_torch.audio.fbank import FbankConfig
     from asr_dfcnn_transformer_torch.infer.e2e_serving import (e2e_finish,
                                                                 e2e_start,
@@ -310,7 +352,6 @@ def export_e2e(model, path: str, *, vocab: Vocab, feature_dim: int = 80,
 
     cfg = FbankConfig(nfilt=feature_dim)
     device = next(model.parameters()).device
-    platforms = _check_platforms(platforms, device)
     model.eval()
     kw = dict(fbank_cfg=cfg, lfr_m=lfr_m, lfr_n=lfr_n, decode=decode,
               beam_width=beam_width, max_len=max_len)
@@ -329,26 +370,22 @@ def export_e2e(model, path: str, *, vocab: Vocab, feature_dim: int = 80,
     def finish(e2e, *state):
         return e2e_finish(state, decode=decode, lp_alpha=lp_alpha)
 
-    models = {"e2e": model}
-    weights = _weights(models)
-    programs, blobs, walls = [], {}, {}
+    entries = []
     for batch, bucket, samples in _entry_points(batch_sizes, buckets,
                                                 cfg.win_len, cfg.hop):
         start = start_for_bucket(bucket)
         args = _example(batch, samples, device)
         with torch.no_grad():
             flat = start(model, *args)
-        entry = {"batch": batch, "bucket": bucket, "samples": samples}
-        for part, body, ex in (
-                ("file", start, args),
-                ("step", step, (*flat, torch.zeros((), dtype=torch.int64,
-                                                   device=device))),
-                ("finish", finish, flat[:n_state])):
-            name = (f"prog_b{batch}_f{bucket}.pt2" if part == "file"
-                    else f"prog_b{batch}_f{bucket}_{part}.pt2")
-            blobs[name], walls[name] = _export(body, models, weights, ex)
-            entry[part] = name
-        programs.append(entry)
+        stem = f"prog_b{batch}_f{bucket}"
+        entries.append((
+            {"batch": batch, "bucket": bucket, "samples": samples,
+             "file": f"{stem}.pt2", "step": f"{stem}_step.pt2",
+             "finish": f"{stem}_finish.pt2"},
+            {"file": (start, args),
+             "step": (step, (*flat, torch.zeros((), dtype=torch.int64,
+                                                device=device))),
+             "finish": (finish, flat[:n_state])}))
     meta = {
         "kind": "e2e",
         "decode": decode,
@@ -361,21 +398,36 @@ def export_e2e(model, path: str, *, vocab: Vocab, feature_dim: int = 80,
         "lfr_m": lfr_m,
         "lfr_n": lfr_n,
         "state_size": n_state,
-        "platforms": platforms,
         "device": device.type,
-        "programs": programs,
-        "language_vocab": list(vocab.symbols),
     }
-    out = _write_artifact(path, meta, weights, blobs)
-    return dict(out, export_seconds=walls)
+    return {"e2e": model}, entries, meta
+
+
+def export_e2e(model, path: str, *, vocab: Vocab,
+               platforms: Optional[Sequence[str]] = None, **kw) -> dict:
+    """Write the end-to-end SpeechTransformer's recognition program:
+    fbank -> LFR -> encoder -> KV-cached decode (greedy, or the
+    length-penalised beam; ``kw``: :func:`e2e_programs`' settings), traced
+    on the model's device, to be served on ``platforms`` (default: that
+    device's). ``vocab`` is the e2e hanzi vocab (pad / sos / eos first).
+
+    Each entry point is three programs: the start (fbank -> encoder ->
+    the decode state before step 0; ``file``), one decode ``step`` whose
+    position is a tensor argument, run ``max_len`` times by the loader,
+    and the ``finish`` (ids and lengths). Tracing the decode as one
+    program would unroll its ``max_len`` steps into one graph."""
+    models, entries, meta = e2e_programs(model, **kw)
+    return _export_artifact(path, platforms, models, entries,
+                            dict(meta, language_vocab=list(vocab.symbols)))
 
 
 class _ArtifactBase:
-    """Shared program selection, padding and chunking."""
+    """Shared program selection, padding and chunking, on ``device``."""
 
-    def __init__(self, meta, blobs, params: Dict[str, torch.Tensor]):
+    def __init__(self, meta, device: torch.device, blobs,
+                 params: Dict[str, torch.Tensor]):
         self.meta = meta
-        self.device = torch.device(meta["device"])
+        self.device = device
         self._blobs = blobs                  # (batch, bucket) -> {part: bytes}
         self._params = params
         self._calls = {}
@@ -389,8 +441,10 @@ class _ArtifactBase:
         return self._buckets[-1]             # truncate overlong signals
 
     def exported(self, batch: int, bucket: int) -> dict:
-        """{part: ExportedProgram} of one entry point, deserialised."""
-        return {part: torch.export.load(io.BytesIO(blob))
+        """{part: ExportedProgram} of one entry point, deserialised and
+        moved to the serving device."""
+        return {part: move_to_device_pass(torch.export.load(io.BytesIO(blob)),
+                                          self.device)
                 for part, blob in self._blobs[(batch, bucket)].items()}
 
     def _call(self, batch: int, bucket: int) -> dict:
@@ -448,8 +502,8 @@ class ServingPipeline(_ArtifactBase):
     """Artifact-only AM -> LM inference: ``load`` + ``recognize_*`` with no
     model code, checkpoint or vocabulary asset."""
 
-    def __init__(self, meta, blobs, params):
-        super().__init__(meta, blobs, params)
+    def __init__(self, meta, device, blobs, params):
+        super().__init__(meta, device, blobs, params)
         self.acoustic_vocab = build_vocab(meta["acoustic_vocab"])
         self.language_vocab = (build_vocab(meta["language_vocab"])
                                if meta["language_vocab"] is not None
@@ -457,8 +511,7 @@ class ServingPipeline(_ArtifactBase):
 
     @classmethod
     def load(cls, path: str, device=None) -> "ServingPipeline":
-        meta, params, blobs = _read_artifact(path, "am_lm", device)
-        return cls(meta, blobs, params)
+        return cls(*_read_artifact(path, "am_lm", device))
 
     def recognize_batch(self, signals: np.ndarray, lengths: np.ndarray
                         ) -> Tuple[np.ndarray, np.ndarray,
@@ -494,8 +547,8 @@ class ServingPipeline(_ArtifactBase):
 class E2EServing(_ArtifactBase):
     """Artifact-only end-to-end SpeechTransformer recognition."""
 
-    def __init__(self, meta, blobs, params):
-        super().__init__(meta, blobs, params)
+    def __init__(self, meta, device, blobs, params):
+        super().__init__(meta, device, blobs, params)
         self.language_vocab = build_vocab(meta["language_vocab"])
         self._steps = [torch.tensor(i, dtype=torch.int64, device=self.device)
                        for i in range(meta["max_len"])]
@@ -511,8 +564,7 @@ class E2EServing(_ArtifactBase):
 
     @classmethod
     def load(cls, path: str, device=None) -> "E2EServing":
-        meta, params, blobs = _read_artifact(path, "e2e", device)
-        return cls(meta, blobs, params)
+        return cls(*_read_artifact(path, "e2e", device))
 
     def recognize_batch(self, signals: np.ndarray, lengths: np.ndarray
                         ) -> Tuple[np.ndarray, np.ndarray]:
@@ -534,8 +586,8 @@ class E2EServing(_ArtifactBase):
 
 def load_artifact(path: str, device=None):
     """Open either artifact kind: ServingPipeline (am_lm) or E2EServing
-    (e2e), on the device it was exported on (``device``, when given, must
-    name that device's type)."""
+    (e2e), on ``device``: one of the artifact's platforms, by default
+    ``cuda`` if it lists it, else the one it lists."""
     with zipfile.ZipFile(path, "r") as z:
         kind = json.loads(z.read("meta.json")).get("kind", "am_lm")
     return (E2EServing if kind == "e2e" else ServingPipeline).load(

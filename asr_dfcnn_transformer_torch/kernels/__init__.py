@@ -3,7 +3,8 @@
 ``LAUNCHES`` counts each kernel's launches since ``reset_launches()``.
 ``OPS`` names the ``torch.library`` custom ops that hold the forwards
 serving runs (an exported program calls them; importing this package
-registers them).
+registers them); ``bf16_matmul`` (the bf16 logits head's cuBLAS product)
+is an op of the same library but no kernel of the package.
 """
 
 from asr_dfcnn_transformer_torch.kernels._build import (  # noqa: F401
@@ -19,6 +20,9 @@ from asr_dfcnn_transformer_torch.kernels.attention import (  # noqa: F401
 from asr_dfcnn_transformer_torch.kernels.beam import (  # noqa: F401
     beam_search,
     beam_search_reference,
+)
+from asr_dfcnn_transformer_torch.kernels.bf16_matmul import (  # noqa: F401
+    bf16_matmul,
 )
 from asr_dfcnn_transformer_torch.kernels.ctc import (  # noqa: F401
     alpha_stack_reference,

@@ -232,6 +232,8 @@ class BiGRUCTC(nn.Module):
         c = self.config
         if x.dim() == 4:
             x = x[:, 0]
+        # every dropout input is [B, T, ...], batch first: the axis whose
+        # rows a data rank keeps of the global batch's mask (data_rows)
         drop = lambda y: self.dropout(y, generator)       # noqa: E731
         if c.keras_parity:
             x = x.float()

@@ -12,7 +12,10 @@ copies to ``device``; trained weights come through ``convert.py``. In
 training mode (``.train()``) BatchNorm normalises with batch statistics and
 updates its running ones, and dropout draws its keep masks from the
 ``generator`` a forward is given (on the tensor's device), as Flax draws
-from its ``dropout`` rng.
+from its ``dropout`` rng. Inside ``data_rows(rank, size)`` (a trainer's
+step on one data rank of ``size``) each draw is the global batch's, and
+this rank keeps its rows, as JAX's one ``dropout`` rng serves the global
+batch under ``pjit``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from torch import nn
 from asr_dfcnn_transformer_torch.kernels import ffn as ffn_kernel
 from asr_dfcnn_transformer_torch.kernels.attention import (BIG_NEG, MAX_DH,
                                                           masked_attention)
+from asr_dfcnn_transformer_torch.kernels.bf16_matmul import bf16_matmul
 from asr_dfcnn_transformer_torch.kernels.dual_attention import (
     dual_axis_attention, supports as dual_supports)
 
@@ -169,10 +173,12 @@ def gather_last(x: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
 class Bf16Matmul(torch.autograd.Function):
     """``bf16_dot_general`` (layers.py:33) as ``nn.Dense`` applies it:
     y = x W^T with both operands rounded to bf16, the products summed and
-    returned in f32. On the card one cuBLAS product with bf16 operands and
-    an f32 output (``torch.mm(..., out_dtype=torch.float32)``); on the CPU
-    its twin, an f32 product of the rounded operands (a product of two
-    bf16 values is exact in f32). ``F.linear`` on bf16 tensors would
+    returned in f32, through the op ``kernels.bf16_matmul``: on the card
+    one cuBLAS product with bf16 operands and an f32 output
+    (``torch.mm(..., out_dtype=torch.float32)``); on the CPU an f32
+    product of the rounded operands (a product of two bf16 values is exact
+    in f32). One op for both devices, so an exported program takes no
+    device's route at trace time. ``F.linear`` on bf16 tensors would
     round the result to bf16 as well: a different function.
 
     The backward is JAX's transpose of that product: each cotangent is an
@@ -186,12 +192,7 @@ class Bf16Matmul(torch.autograd.Function):
         wb = weight.to(torch.bfloat16)
         ctx.save_for_backward(xb, wb)
         ctx.shapes = (x.shape, x.dtype, weight.dtype)
-        if x.is_cuda:
-            y = torch.mm(xb, wb.t(), out_dtype=torch.float32)
-        elif x.device.type == "cpu":
-            y = xb.float() @ wb.float().t()
-        else:
-            raise ValueError(f"bf16 logits head: no route for {x.device}")
+        y = bf16_matmul(xb, wb)
         return y.reshape(*x.shape[:-1], weight.shape[0])
 
     @staticmethod
@@ -358,13 +359,38 @@ def recomputing():
         _RECOMPUTE.on = prev
 
 
+_DATA_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def data_rows(rank: int, size: int):
+    """Marks a forward that runs rank ``rank`` of ``size`` data ranks: a
+    :func:`keep_mask` inside it draws the mask of the global batch (the
+    rank's batch times ``size`` along the batch axis, axis 0 at every call
+    site) from the step's generator, the same on every rank, and keeps
+    this rank's rows, so the ranks' masks are the rows of the mask that
+    one process draws for the whole batch. Each rank draws ``size`` times
+    the numbers of its own rows."""
+    prev = getattr(_DATA_ROWS, "rows", (0, 1))
+    _DATA_ROWS.rows = (rank, size)
+    try:
+        yield
+    finally:
+        _DATA_ROWS.rows = prev
+
+
 def keep_mask(shape, keep_prob: float, device,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """A bool keep mask: uniform [0, 1) draws below ``keep_prob``, as
-    ``jax.random.bernoulli`` draws them (from ``generator``, on
-    ``device``; None = torch's default generator)."""
-    u = torch.rand(shape, generator=generator, device=device)
-    return u < keep_prob
+    """A bool keep mask of ``shape`` (its batch axis first): uniform
+    [0, 1) draws below ``keep_prob``, as ``jax.random.bernoulli`` draws
+    them (from ``generator``, on ``device``; None = torch's default
+    generator). Inside :func:`data_rows`, this rank's rows of the global
+    batch's mask."""
+    rank, size = getattr(_DATA_ROWS, "rows", (0, 1))
+    b = shape[0]
+    u = torch.rand((b * size, *shape[1:]), generator=generator,
+                   device=device)
+    return u[rank * b:(rank + 1) * b] < keep_prob
 
 
 class Dropout(nn.Module):
@@ -608,7 +634,8 @@ class MultiHeadAttention(nn.Module):
     def _keep(self, b: int, tq: int, tk: int, device, generator):
         """The dropout keep mask [B, local heads, Tq, Tk]: drawn for every
         head and cut to this rank's, so a split draws the masks of the
-        whole layer."""
+        whole layer (inside ``data_rows``: this data rank's rows first,
+        then the heads)."""
         keep = keep_mask((b, self.num_heads, tq, tk), 1.0 - self.dropout_rate,
                          device, generator)
         return keep if self.split is None else \
@@ -779,3 +806,9 @@ def label_smoothing(one_hot: torch.Tensor, epsilon: float = 0.1
     """Uniform label smoothing (layers.py:456)."""
     v = one_hot.shape[-1]
     return (1.0 - epsilon) * one_hot + epsilon / v
+
+
+def shift_right(ids: torch.Tensor, bos: int) -> torch.Tensor:
+    """Decoder-input shift (layers.py:462): ``bos`` prepended to ids
+    [B, L], the last position dropped."""
+    return torch.cat([torch.full_like(ids[:, :1], bos), ids[:, :-1]], dim=1)

@@ -437,7 +437,11 @@ def _top_k(x: torch.Tensor, k: int):
 def _init_tokens(shape, device) -> torch.Tensor:
     tokens = torch.full(shape, constants.PAD, dtype=torch.int64,
                         device=device)
-    tokens[..., 0] = constants.SOS
+    # fill_ of a scalar, not item assignment: on the CPU, PyTorch traces
+    # ``t[i] = scalar`` through a CPU tensor of the scalar, elsewhere
+    # through ``scalar_tensor``, and an exported program would differ by
+    # the device it was traced on
+    tokens[..., 0].fill_(constants.SOS)
     return tokens
 
 
@@ -544,7 +548,7 @@ def beam_start(model: SpeechTransformer, memory: torch.Tensor,
     finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
     # a finished beam continues only with PAD, at no cost
     pad_only = torch.full((c.vocab_size,), NEG_INF, device=dev)
-    pad_only[constants.PAD] = 0.0
+    pad_only[constants.PAD].fill_(0.0)       # as in _init_tokens
     rows = torch.arange(b, device=dev)[:, None] * k
     return ((tokens, logp, finished, self_k, self_v),
             (cross_k, cross_v, pos_table, mem_len, pad_only, rows))

@@ -4,7 +4,9 @@
   side, the eval protocol's golden path);
 - :func:`batched_edit_distance`: the [B]-batched row DP of the JAX package
   in torch ops on either device, with the in-row insertion chain as a
-  prefix minimum (``torch.cummin``); the AM trainer's label error rate.
+  prefix minimum (``torch.cummin``); the AM trainer's label error rate;
+- :func:`label_error_rate`: its mean over the label lengths, the
+  reference's ``tf.reduce_mean(tf.edit_distance)`` metric.
 """
 
 from __future__ import annotations
@@ -60,3 +62,15 @@ def batched_edit_distance(a: torch.Tensor, a_len: torch.Tensor,
         prev = torch.where(i <= a_len, cur, prev)
     dist = torch.gather(prev, 1, b_len.to(dev, torch.int64)[:, None])[:, 0]
     return torch.clamp_max(dist, la + lb + 1).to(torch.int32)
+
+
+def label_error_rate(decoded: torch.Tensor, decoded_len: torch.Tensor,
+                     labels: torch.Tensor, label_len: torch.Tensor
+                     ) -> torch.Tensor:
+    """Mean normalised edit distance (ops/edit_distance.py:91): each row's
+    :func:`batched_edit_distance` over ``max(label_len, 1)``, averaged, as
+    ``tf.edit_distance`` normalises by the reference length
+    (acoustic_model.py:60-62) -> a 0-d f32 tensor."""
+    d = batched_edit_distance(decoded, decoded_len, labels, label_len)
+    n = torch.clamp_min(label_len.to(d.device, torch.float32), 1.0)
+    return torch.mean(d.to(torch.float32) / n)

@@ -29,10 +29,13 @@ outside the config tree; ``--tensorboard`` on the five training commands
 writes TensorBoard event files under ``<workdir>/tb/<name>`` (e2e: with
 attention images).
 
-A serving artifact (``export-serving``) runs on the device it was exported
-on: ``infer-artifact`` and ``serve --artifact`` take ``--platform cpu`` for
-one exported with ``--platform cpu``, and ``--serve-platforms`` can only
-name the exporting device.
+A serving artifact (``export-serving``) is served on the platforms that
+``--serve-platforms`` names (``cpu``, ``cuda`` or ``cpu,cuda``; default:
+the exporting device's), whatever the exporting device: ``--platform cpu
+--serve-platforms cpu,cuda`` exports one for the card on a CPU host.
+``infer-artifact`` and ``serve --artifact`` load it on ``--platform``, as
+the other commands run there (default cuda), and refuse a device that it
+was not exported for.
 
 ``--distributed`` joins a process group of one process per device before
 anything runs, from ``torchrun``'s environment or from
@@ -216,10 +219,10 @@ def _build_parser():
     sp.add_argument("--serve-buckets", default="128,512,1600",
                     help="comma-separated bucket_frames (multiples of 8)")
     sp.add_argument("--serve-platforms", default=None,
-                    help="the device the programs run on: only the "
-                         "exporting device (cuda, or cpu with --platform "
-                         "cpu) can be named; a torch.export program runs "
-                         "where it was exported")
+                    help="comma-separated devices the artifact is served "
+                         "on: cpu, cuda or cpu,cuda, whatever the "
+                         "exporting device (default: the exporting "
+                         "device's)")
 
     sp = sub.add_parser(
         "infer-artifact",
@@ -228,8 +231,8 @@ def _build_parser():
     sp.add_argument("--artifact", required=True, help=".zip path")
     sp.add_argument("--wav", required=True)
     sp.add_argument("--platform", default=None,
-                    help="the artifact's device (default cuda; 'cpu' for "
-                         "an artifact exported with --platform cpu)")
+                    help="the device to serve on (default cuda), one of "
+                         "the platforms the artifact was exported for")
 
     sp = sub.add_parser(
         "serve",
@@ -845,7 +848,8 @@ def cmd_export_serving(args):
                       for k, v in meta["export_seconds"].items())
     print(f"exported serving artifact -> {args.out} "
           f"(kind={meta['kind']}, {len(meta['programs'])} entry points, "
-          f"decode={meta['decode']}, device={meta['device']}; {walls})")
+          f"decode={meta['decode']}, device={meta['device']}, platforms="
+          f"{','.join(meta['platforms'])}; {walls})")
 
 
 def _load_artifact(args):
@@ -855,7 +859,7 @@ def _load_artifact(args):
     try:
         return load_artifact(args.artifact,
                              device=default_device(args.platform))
-    except ValueError as e:
+    except (ValueError, RuntimeError) as e:   # not its device; no CUDA
         raise SystemExit(f"error: {e}")
 
 

@@ -31,9 +31,10 @@ numerator over the denominator summed across ``data``, the gradients are
 summed over ``data``, and a step reports the summed loss, so the
 non-finite-loss guard, the dev gates and the best-checkpoint decision take
 the same branch on every rank. BatchNorm statistics are global. The AM's
-noise and the SpecAugment masks are drawn for the global batch from the
-step's generator on every rank, then cut to the rank's rows; dropout draws
-from a generator seeded from that generator and the data rank. Rank 0
+noise, the SpecAugment masks and every dropout mask are drawn for the
+global batch from the step's generator on every rank, then cut to the
+rank's rows (dropout through ``models.layers.data_rows``), so a meshed
+step with dropout is the one-process step, as under ``pjit``. Rank 0
 alone writes checkpoints (of the whole model), the identity stamp,
 metrics, TensorBoard files and traces; the others wait at a barrier.
 ``LMTrainer`` splits the LM over ``model`` (``parallel/tensor.py``).
@@ -62,7 +63,7 @@ from asr_dfcnn_transformer_torch.core import constants
 from asr_dfcnn_transformer_torch.data.batches import AMBatch, LMBatch
 from asr_dfcnn_transformer_torch.models.dfcnn import (frames_from_samples,
                                                       logit_lengths)
-from asr_dfcnn_transformer_torch.models.layers import BatchNorm
+from asr_dfcnn_transformer_torch.models.layers import BatchNorm, data_rows
 from asr_dfcnn_transformer_torch.models.speech_transformer import e2e_loss
 from asr_dfcnn_transformer_torch.models.transformer_lm import lm_loss_and_acc
 from asr_dfcnn_transformer_torch.ops.ctc import ctc_loss
@@ -182,17 +183,10 @@ class _TrainerBase:
         dist.all_reduce(t, group=self.mesh.data_group)
         return t
 
-    def _dropout_generator(self, generator):
-        """The generator of a step's dropout masks: ``generator`` in a
-        single data rank; under data parallelism a generator seeded from a
-        draw of ``generator`` (the same on every rank) and the data rank,
-        so the ranks' masks differ."""
-        if generator is None or self.mesh.shape["data"] == 1:
-            return generator
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                 device=generator.device))
-        g = torch.Generator(device=generator.device)
-        return g.manual_seed(seed + self.mesh.data_rank)
+    def _global_draws(self):
+        """The context of a forward on this rank's rows: its dropout masks
+        are the global batch's, cut to the rank's rows."""
+        return data_rows(self.mesh.data_rank, self.mesh.shape["data"])
 
     def _ctc_eval(self, losses, logits, in_len, labels, label_len, w):
         """The dev metrics of a CTC model: the weighted loss and label error
@@ -415,11 +409,11 @@ class AMTrainer(_TrainerBase):
         if augment:
             noise, spec = map(self._rows, self.augment_draws(
                 b_global, sig.shape[1], generator))
-            generator = self._dropout_generator(generator)
         if noise is not None:
             sig = add_noise_from_draws(sig, sig_len, noise)
         feats = self.features(sig, sig_len, batch.bucket_frames, spec)
-        logits = self.model(feats, generator=generator)
+        with self._global_draws():
+            logits = self.model(feats, generator=generator)
         in_len = logit_lengths(frames_from_samples(sig_len), logits.shape[1])
         losses = ctc_loss(logits, in_len, pny, pny_len, blank_id=-1)
         return losses, logits, in_len, pny, pny_len, w
@@ -505,9 +499,9 @@ class AttenTrainer(_TrainerBase):
         sig, sig_len, hz, hz_len, w = self._to_device(
             batch.signals, batch.signal_lengths, batch.hanzi,
             batch.hanzi_lengths, batch.weights)
-        generator = self._dropout_generator(generator)
         feats, valid = self.features(sig, sig_len, batch.bucket_frames)
-        logits, in_len = self.model(feats, valid, generator=generator)
+        with self._global_draws():
+            logits, in_len = self.model(feats, valid, generator=generator)
         losses = ctc_loss(logits, in_len, hz, hz_len, blank_id=-1)
         return losses, logits, in_len, hz, hz_len, w
 
@@ -570,8 +564,8 @@ class LMTrainer(_TrainerBase):
     def _forward(self, batch: LMBatch, generator=None):
         batch = self._rows(batch)
         pny, hz, w = self._to_device(batch.pinyin, batch.hanzi, batch.weights)
-        logits = self.model(pny.long(),
-                            generator=self._dropout_generator(generator))
+        with self._global_draws():
+            logits = self.model(pny.long(), generator=generator)
         # back-filled rows drop out: their targets become PAD
         tgt = torch.where(w[:, None] > 0, hz.long(), constants.PAD)
         loss, acc = lm_loss_and_acc(logits, tgt, reduce=self._sum)
@@ -648,10 +642,10 @@ class JointTrainer(_TrainerBase):
             batch.signals, batch.signal_lengths, batch.pinyin,
             batch.pinyin_lengths, batch.hanzi, batch.weights)
         feats = self.features(sig, sig_len, batch.bucket_frames)
-        out = self.model(feats, frames_from_samples(sig_len), pny, pny_len,
-                         hz.long(), w,
-                         generator=self._dropout_generator(generator),
-                         reduce=self._sum)
+        with self._global_draws():
+            out = self.model(feats, frames_from_samples(sig_len), pny,
+                             pny_len, hz.long(), w, generator=generator,
+                             reduce=self._sum)
         return out, w
 
     def train_step(self, batch: AMBatch,
@@ -772,8 +766,8 @@ class E2ETrainer(_TrainerBase):
                                           generator, sig.device))
         feats, valid = self.features(sig, sig_len, batch.bucket_frames,
                                      masks)
-        logits = self.model(feats, valid, dec_in,
-                            generator=self._dropout_generator(generator))
+        with self._global_draws():
+            logits = self.model(feats, valid, dec_in, generator=generator)
         loss, acc = e2e_loss(logits, tgt, reduce=self._sum)
         return loss, acc, tgt
 

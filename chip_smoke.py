@@ -216,8 +216,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     launches of ``log_mel``, ``cmvn``, ``masked_attention``,
     ``topk_last``, ``beam_search`` and ``dual_axis_attention`` there and
     the artifact's ms per batch beside the live Pipeline's at (8, 1600);
-    ``infer-artifact`` and ``serve --artifact --max-requests 2`` through
-    the CLI.
+    the greedy AM -> LM at (8, 1600) and e2e at (8, 512) exported on the
+    CPU on copies of the same weights with ``platforms=("cpu", "cuda")``
+    (each export's wall), loaded on cuda in that fresh process, equal to
+    the live card Pipeline (bucket 1600) and ``E2EServing`` by the margin
+    rule with ``log_mel``, ``cmvn``, ``masked_attention`` (and e2e's
+    ``dual_axis_attention``) launched there, and their ms per batch
+    beside the card-exported artifact's; the card-exported artifact
+    refused on the CPU; ``infer-artifact`` and ``serve --artifact
+    --max-requests 2`` through the CLI.
 17. The last three model families at full width, bf16 compute: (a) 4
     ``AttenTrainer`` steps on ``CTCAttention(6345)`` (d 512, 12 blocks, 8
     heads, dropout 0.1) at batch 16, bucket 1600 (LFR 534 rows, 66 logit
@@ -266,7 +273,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     bit, peak memory and ms/step of each; (f) the native wav decoder
     against the Python one on 512 wavs of 1-10 s (bit for bit, both rates)
     and 10 AM steps fed by ``DataLoader`` + ``prefetch`` with each step's
-    wait on the loader. Each part's wall on its own line.
+    wait on the loader; (g) in (a)'s two ranks, a data-parallel
+    ``LMTrainer`` step at dropout 0.5 (f32, global batch 64 x 64) and an
+    ``AMTrainer`` step at dropout 0.3 (f32, batch 16, bucket 1600), every
+    mask drawn for the global batch from one generator, each against one
+    process's step on the same weights and generator by 18b's and 18a's
+    rule, with their launches; then 10 bf16 data-parallel LM steps at
+    dropout 0.5 (ms/step by CUDA events) and the device time of their mask
+    draws (torch.profiler). Each part's wall on its own line.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -3367,6 +3381,12 @@ E2E_ARTIFACT = ((8,), (512,))    # one e2e entry point: phase 16's budget
 STREAMED = ("log_mel", "masked_attention", "topk_last")   # the pool's run
 ARTIFACT_KERNELS = ("log_mel", "cmvn", "masked_attention", "topk_last",
                     "beam_search", "dual_axis_attention")
+#: (d) the artifacts exported on the CPU for both platforms, served on
+#: cuda: the greedy AM -> LM's one entry point, and e2e's (E2E_ARTIFACT)
+X_ARTIFACT = ((8,), (1600,))
+X_KERNELS = {"x_greedy": ("log_mel", "cmvn", "masked_attention"),
+             "x_e2e": ("log_mel", "cmvn", "masked_attention",
+                       "dual_axis_attention")}
 
 
 def cuda_timed(fn, log: list):
@@ -3879,12 +3899,26 @@ out["e2e"], out["e2e_len"] = e2e.recognize_batch(d["sig7"], d["len7"])
 torch.cuda.synchronize()
 counts = dict(LAUNCHES)
 t2 = time.perf_counter()
+# the artifacts exported on the CPU for cpu and cuda: loaded by default on
+# cuda, each program moved there as it is deserialised
+x_greedy, x_e2e = (load_artifact(p) for p in sys.argv[6:8])
+x_counts = {}
+for name, run, keys in (
+        ("x_greedy", lambda: x_greedy.recognize_batch(d["sig3"], d["len3"]),
+         ("x_pny", "x_pny_len", "x_han")),
+        ("x_e2e", lambda: x_e2e.recognize_batch(d["sig7"], d["len7"]),
+         ("x_e2e", "x_e2e_len"))):
+    reset_launches()
+    out.update(zip(keys, run()))
+    torch.cuda.synchronize()
+    x_counts[name] = dict(LAUNCHES)
 np.savez(sys.argv[5], **out)
 bad = sorted(m for m in sys.modules if m.startswith((
     "asr_dfcnn_transformer_torch.models", "asr_dfcnn_transformer_torch.train",
     "asr_dfcnn_transformer_tpu", "jax")))
 print(json.dumps({"bad": bad, "load_s": t1 - t0, "run_s": t2 - t1,
-                  "launches": counts}))
+                  "launches": counts, "x_launches": x_counts,
+                  "x_devices": [str(a.device) for a in (x_greedy, x_e2e)]}))
 """
 
 
@@ -3929,11 +3963,52 @@ def live_chunks(sig, lens, buckets, fn):
     return [np.concatenate(parts) for parts in zip(*outs)]
 
 
+def cpu_exports(pipe, e2e_model, ev, paths: dict, walls: dict):
+    """(d) the greedy AM -> LM at ``X_ARTIFACT`` and the e2e model at
+    ``E2E_ARTIFACT`` exported on the CPU, on copies of the card's
+    weights, for ``platforms=("cpu", "cuda")``; each export's wall (and
+    each program's) into ``walls``."""
+    import torch
+    from asr_dfcnn_transformer_torch.infer import (Pipeline, export_e2e,
+                                                   export_pipeline)
+    t = time.perf_counter()
+    cpu_pipe = Pipeline(copy.deepcopy(pipe.am_model).cpu(),
+                        copy.deepcopy(pipe.lm_model).cpu(),
+                        acoustic_vocab=pipe.av, language_vocab=pipe.lv)
+    meta = export_pipeline(cpu_pipe, paths["x_greedy"],
+                           batch_sizes=X_ARTIFACT[0], buckets=X_ARTIFACT[1],
+                           platforms=("cpu", "cuda"))
+    require(meta["platforms"] == ["cpu", "cuda"] and meta["device"] == "cpu",
+            f"the CPU export's meta: {meta['platforms']} {meta['device']}")
+    walls["cpu-exported pipeline greedy (the call)"] = time.perf_counter() - t
+    walls.update({f"cpu-exported pipeline greedy {k}": v
+                  for k, v in meta["export_seconds"].items()})
+    del cpu_pipe
+    t = time.perf_counter()
+    cpu_e2e = copy.deepcopy(e2e_model).cpu()
+    meta = export_e2e(cpu_e2e, paths["x_e2e"], vocab=ev,
+                      feature_dim=E2E_NFILT, lfr_m=E2E_LFR[0],
+                      lfr_n=E2E_LFR[1], max_len=E2E_MAX_LEN,
+                      batch_sizes=E2E_ARTIFACT[0], buckets=E2E_ARTIFACT[1],
+                      platforms=("cpu", "cuda"))
+    require(meta["platforms"] == ["cpu", "cuda"] and meta["device"] == "cpu",
+            f"the CPU e2e export's meta: {meta['platforms']}")
+    walls["cpu-exported e2e greedy (the call, its start run on the CPU "
+          "included)"] = time.perf_counter() - t
+    walls.update({f"cpu-exported e2e greedy {k}": v
+                  for k, v in meta["export_seconds"].items()})
+    del cpu_e2e
+    torch.cuda.empty_cache()
+
+
 def artifacts(results, pipe):
-    """(d) export_pipeline (greedy and beam) and export_e2e; in a fresh
-    process, load_artifact against the live paths by the margin rule and
-    the launches of the custom ops' kernels; the artifact's ms beside the
-    live Pipeline's; infer-artifact and serve through the CLI."""
+    """(d) export_pipeline (greedy and beam) and export_e2e on the card,
+    and the greedy and e2e artifacts exported on the CPU for both
+    platforms; in a fresh process, load_artifact on cuda against the live
+    paths by the margin rule and the launches of the custom ops' kernels;
+    the card-exported artifact refused on the CPU; both greedy artifacts'
+    ms beside the live Pipeline's; infer-artifact and serve through the
+    CLI."""
     import torch
     from asr_dfcnn_transformer_torch.audio.wav import write_wav
     from asr_dfcnn_transformer_torch.infer import (E2EServing, Pipeline,
@@ -3943,7 +4018,8 @@ def artifacts(results, pipe):
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_artifacts_"))
     try:
         walls = {}
-        paths = {k: str(work / f"{k}.zip") for k in ("greedy", "beam", "e2e")}
+        paths = {k: str(work / f"{k}.zip")
+                 for k in ("greedy", "beam", "e2e", "x_greedy", "x_e2e")}
         meta = export_pipeline(pipe, paths["greedy"],
                                batch_sizes=ARTIFACT_BATCHES,
                                buckets=ARTIFACT_BUCKETS)
@@ -3965,6 +4041,7 @@ def artifacts(results, pipe):
                           buckets=E2E_ARTIFACT[1])
         walls.update({f"e2e greedy {k}": v
                       for k, v in meta["export_seconds"].items()})
+        cpu_exports(pipe, e2e_model, ev, paths, walls)
         for name, sec in walls.items():
             print(f"artifact export wall: {name}: {sec:.2f} s")
         print("artifact sizes: " + ", ".join(
@@ -3977,7 +4054,7 @@ def artifacts(results, pipe):
         r = subprocess.run(
             [sys.executable, "-c", LOAD_SCRIPT, paths["greedy"],
              paths["beam"], paths["e2e"], str(inputs),
-             str(work / "ids.npz")],
+             str(work / "ids.npz"), paths["x_greedy"], paths["x_e2e"]],
             capture_output=True, text=True, timeout=600,
             env=dict(os.environ, PYTHONPATH=str(Path(__file__).parent)))
         require(r.returncode == 0, f"load_artifact subprocess failed:\n"
@@ -4021,15 +4098,29 @@ def artifacts(results, pipe):
             require(counts.get(name, 0) > 0,
                     f"{name} was never launched by an artifact")
             results[name]["artifact_launches"] = counts[name]
+        cpu_exported(results, pipe, res, got, (sig3, len3),
+                     (w_ids, w_len, e2e_ok))
+        try:
+            load_artifact(paths["greedy"], device="cpu")
+        except ValueError as e:
+            print(f"the card-exported greedy artifact refused on the CPU: "
+                  f"{e}")
+        else:
+            raise PhaseError("the card-exported artifact loaded on the CPU")
         served = load_artifact(paths["greedy"])
+        x_served = load_artifact(paths["x_greedy"])
         runs = {"live": lambda: live_chunks(sig3[8:], len3[8:],
                                             ARTIFACT_BUCKETS,
                                             pipe.recognize_batch),
                 "artifact": lambda: served.recognize_batch(sig3[8:],
-                                                           len3[8:])}
+                                                           len3[8:]),
+                "cpu-exported": lambda: x_served.recognize_batch(sig3[8:],
+                                                                 len3[8:])}
         runs["artifact"]()                          # loads its program
+        runs["cpu-exported"]()
         ms = {k: [] for k in runs}
-        for name in ("live", "artifact", "artifact", "live") * 3:
+        for name in ("live", "artifact", "cpu-exported", "cpu-exported",
+                     "artifact", "live") * 3:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             runs[name]()
@@ -4037,10 +4128,12 @@ def artifacts(results, pipe):
             ms[name].append(1e3 * (time.perf_counter() - t0))
         med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
         print(f"artifact ms per batch at (8, 1600), greedy, in turns with "
-              f"the live Pipeline: artifact {med['artifact']:.2f}, live "
-              f"{med['live']:.2f} (p50 of 6 each; ranges "
-              f"{min(ms['artifact']):.2f}-{max(ms['artifact']):.2f} and "
-              f"{min(ms['live']):.2f}-{max(ms['live']):.2f})")
+              f"the live Pipeline: card-exported artifact "
+              f"{med['artifact']:.2f}, CPU-exported artifact "
+              f"{med['cpu-exported']:.2f}, live {med['live']:.2f} (p50 of 6 "
+              f"each; ranges " + ", ".join(
+                  f"{k} {min(v):.2f}-{max(v):.2f}" for k, v in ms.items())
+              + ")")
 
         wav = str(work / "utt.wav")
         write_wav(wav, sig3[3][:len3[3]])
@@ -4050,6 +4143,49 @@ def artifacts(results, pipe):
         serve_cli(paths["greedy"], wav)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def cpu_exported(results, pipe, res, got, inputs3, e2e_want):
+    """(d) the CPU-exported greedy and e2e artifacts as the fresh process
+    served them on cuda: the ids against the live card Pipeline (its
+    bucket 1600) and ``E2EServing`` by the margin rule, and their custom
+    ops' kernels launched there."""
+    import torch
+    sig3, len3 = inputs3
+    w_ids, w_len, e2e_ok = e2e_want
+    require(res["x_devices"] == ["cuda", "cuda"],
+            f"the CPU-exported artifacts loaded on {res['x_devices']}")
+    with torch.inference_mode():
+        want = live_chunks(sig3, len3, X_ARTIFACT[1], pipe.recognize_batch)
+        ok = np.concatenate(live_chunks(
+            sig3, len3, X_ARTIFACT[1],
+            lambda s, n, b: (am_margins(pipe, s, n, b),)))
+    same = [bool((got[f"x_{k}"][ok] == w[ok]).all())
+            for k, w in zip(("pny", "pny_len", "han"), want)]
+    every = [bool((got[f"x_{k}"] == w).all())
+             for k, w in zip(("pny", "pny_len", "han"), want)]
+    print(f"CPU-exported greedy artifact on cuda vs the live card Pipeline "
+          f"at bucket 1600: {int(ok.sum())}/{len(ok)} rows with every "
+          f"margin >= 1e-3, ids / lengths / hanzi equal there {same}, on "
+          f"every row {every}")
+    require(all(same), "the CPU-exported artifact's ids differ from the "
+            "live card Pipeline's")
+    same = bool((got["x_e2e"][e2e_ok] == w_ids[e2e_ok]).all()
+                and (got["x_e2e_len"][e2e_ok] == w_len[e2e_ok]).all())
+    print(f"CPU-exported e2e artifact on cuda vs the live E2EServing: "
+          f"{int(e2e_ok.sum())}/{len(e2e_ok)} rows with every step's margin "
+          f">= 1e-3, equal there {same}, on every row "
+          f"{bool((got['x_e2e'] == w_ids).all())}")
+    require(same, "the CPU-exported e2e artifact's ids differ from the live "
+            "E2EServing's")
+    for label, names in X_KERNELS.items():
+        counts = res["x_launches"][label]
+        print(f"{label} launch counts on cuda: {counts}")
+        for name in names:
+            require(counts.get(name, 0) > 0, f"{name} was never launched by "
+                    f"the CPU-exported {label[2:]} artifact on cuda")
+            results[name].setdefault("cpu_exported_launches", {})[
+                label] = counts[name]
 
 
 def e2e_margin_rows(model, sig, lens):
@@ -4639,6 +4775,13 @@ P18_TP = ("masked_attention", "masked_attention_bwd", "fused_ffn")
 P18_WAVS, P18_FEED = 512, 192         # 18f: decoded wavs; fed utterances
 P18_REMAT = (0, 2)
 P18_STEPS = 4                         # 18e: steps of each run (2 untimed)
+#: 18g: the data-parallel dropout steps' rates (LmConfig's, AmConfig's),
+#: their generators' seed, and what each must launch a rank a step
+P18_LM_DROP, P18_AM_DROP, P18_DROP_SEED = 0.5, 0.3, SEED + 180
+P18_DROP_KERNELS = {"gb": ("masked_attention_drop", "masked_attention_bwd",
+                           "fused_ffn"),
+                    "ga": P18_DP}
+P18_DRAW_KERNELS = ("distribution_elementwise", "uniform", "philox")
 
 
 def p18_models(device, *, dropout: float = 0.0, dtype=None):
@@ -4746,10 +4889,13 @@ P18_WORKER = [sys.executable, os.path.abspath(__file__), "--phase18-worker"]
 
 def p18_worker(rank: int, store: str, outdir: str,
                device: str = "cuda:0") -> None:
-    """One of 18a/18b's two ranks on ``cuda:0``, gloo on CUDA tensors:
+    """One of 18a/18b/18g's two ranks on ``cuda:0``, gloo on CUDA tensors:
     (a) the data-parallel AM step, (b) the tensor-parallel LM step, then
-    10 timed bf16 tensor-parallel LM steps at dropout 0.5. Writes its
-    results to ``outdir/rank<r>.pt``."""
+    10 timed bf16 tensor-parallel LM steps at dropout 0.5; (g) the
+    data-parallel LM step at dropout 0.5 and AM step at 0.3 (f32, every
+    mask drawn for the global batch from one generator), then 10 timed
+    bf16 data-parallel LM steps at dropout 0.5 and the device time of
+    their mask draws. Writes its results to ``outdir/rank<r>.pt``."""
     import torch
     from asr_dfcnn_transformer_torch.kernels import LAUNCHES, reset_launches
     from asr_dfcnn_transformer_torch.parallel import (destroy,
@@ -4813,6 +4959,33 @@ def p18_worker(rank: int, store: str, outdir: str,
                        mesh=mesh)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         out["b_timed"] = p18_timed(tr, lmb, gen, TRAIN_STEPS, WARMUP_STEPS)
+        del tr, lm
+        torch.cuda.empty_cache()
+        # (g) dropout under data parallelism, 32 and 8 rows a rank
+        dp = make_mesh(2, 1, dev)
+        for part, batch in (("gb", lmb), ("ga", amb)):
+            am, lm = p18_models(dev, dropout=(P18_LM_DROP if part == "gb"
+                                              else P18_AM_DROP))
+            tr = (LMTrainer(lm, os.path.join(outdir, part), lr=LM_LR,
+                            mesh=dp) if part == "gb" else
+                  AMTrainer(am, os.path.join(outdir, part), mesh=dp))
+            del am, lm
+            reset_launches()
+            loss = float(tr.train_step(batch, torch.Generator(
+                device=dev).manual_seed(P18_DROP_SEED))["loss"])
+            torch.cuda.synchronize()
+            out[f"{part}_launches"] = {k: v for k, v in LAUNCHES.items()
+                                       if v}
+            out[f"{part}_loss"] = loss
+            out[f"{part}_grads"], out[f"{part}_state"] = p18_state(tr)
+            del tr
+            torch.cuda.empty_cache()
+        _, lm = p18_models(dev, dropout=P18_LM_DROP, dtype=torch.bfloat16)
+        tr = LMTrainer(lm, os.path.join(outdir, "gb_bf16"), lr=LM_LR,
+                       mesh=dp)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        out["g_timed"] = p18_timed(tr, lmb, gen, TRAIN_STEPS, WARMUP_STEPS)
+        out["g_draws"] = p18_draw_us(lambda: tr.train_step(lmb, gen))
     finally:
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
         destroy()
@@ -4837,6 +5010,30 @@ def p18_timed(tr, batch, gen, steps: int, warmup: int) -> dict:
     return {"losses": losses,
             "ms": start.elapsed_time(end) / (steps - warmup),
             "peak": torch.cuda.max_memory_allocated()}
+
+
+def p18_draw_us(step, steps: int = 3) -> dict:
+    """Device time a step (us, torch.profiler over ``steps`` steps) of the
+    random-number kernels (names holding one of ``P18_DRAW_KERNELS``: the
+    dropout masks' ``torch.rand``) and of every kernel; None where the
+    profiler showed no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total]
+    draws = [e for e in events
+             if any(k in e.key for k in P18_DRAW_KERNELS)]
+    total = sum(e.self_device_time_total for e in events)
+    return {"draw_us": (sum(e.self_device_time_total for e in draws) / steps
+                        if draws else None),
+            "total_us": total / steps if events else None,
+            "draw_launches": sum(e.count for e in draws) / steps,
+            "names": sorted({e.key[:80] for e in draws})}
 
 
 def p18_spawn(args, timeout: float = P18_TIMEOUT, env=None):
@@ -4975,18 +5172,24 @@ def p18_parallel(results, outdir: str, walls: dict):
                         ).astype(np.float32)
         single, p0 = {}, {}
         for key, batch in (("a", amb), ("a near", near), ("b", lmb),
-                           ("b near", lmb)):
-            am, lm = p18_models(DEVICE)
-            if key == "b near":
+                           ("b near", lmb), ("ga", amb), ("ga near", near),
+                           ("gb", lmb), ("gb near", lmb)):
+            part = key.split()[0]
+            drop = {"ga": P18_AM_DROP, "gb": P18_LM_DROP}.get(part, 0.0)
+            am, lm = p18_models(DEVICE, dropout=drop)
+            if part.endswith("b") and key.endswith("near"):
                 with torch.no_grad():
                     for p in lm.parameters():
                         p.copy_(p.double() * (1 + 2 ** -22))
             tr = (AMTrainer(am, os.path.join(outdir, "am1"))
-                  if key[0] == "a" else
+                  if part.endswith("a") else
                   LMTrainer(lm, os.path.join(outdir, "lm1"), lr=LM_LR))
+            # 18g: the ranks' generator, one process's whole draws
+            gen = (torch.Generator(device=DEVICE).manual_seed(P18_DROP_SEED)
+                   if drop else None)
             p0[key] = {n: v.detach().cpu().clone()
                        for n, v in tr.model.state_dict().items()}
-            single[key] = (float(tr.train_step(batch)["loss"]),) + \
+            single[key] = (float(tr.train_step(batch, gen)["loss"]),) + \
                 p18_state(tr)
             del tr, am, lm
         torch.cuda.empty_cache()
@@ -5006,8 +5209,10 @@ def p18_parallel(results, outdir: str, walls: dict):
         require(p.returncode == 0, f"18a/b: rank {r} failed")
     ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"),
                         weights_only=False) for r in range(2)]
-    for part, names, lr, measure in (("a", P18_DP, 7e-4, "norm"),
-                                     ("b", P18_TP, LM_LR, "element")):
+    for part, names, lr, measure in (
+            ("a", P18_DP, 7e-4, "norm"), ("b", P18_TP, LM_LR, "element"),
+            ("ga", P18_DROP_KERNELS["ga"], 7e-4, "norm"),
+            ("gb", P18_DROP_KERNELS["gb"], LM_LR, "element")):
         floor = max(p18_errors(single[part][1], single[f"{part} near"][1],
                                measure).values())
         for r, got in enumerate(ranks):
@@ -5016,9 +5221,10 @@ def p18_parallel(results, outdir: str, walls: dict):
                            got[f"{part}_state"]), p0[part], lr, measure,
                           floor)
             counts = got[f"{part}_launches"]
-            want = 12 if part == "b" else 1
-            print(f"18{part} rank {r}: launches a step {counts}; kernel "
-                  f"inputs {got[f'{part}_shapes']}")
+            want = 12 if part.endswith("b") else 1
+            shapes = got.get(f"{part}_shapes")
+            print(f"18{part} rank {r}: launches a step {counts}"
+                  + (f"; kernel inputs {shapes}" if shapes else ""))
             for name in names:
                 require(counts.get(name, 0) == want,
                         f"18{part} rank {r}: {name} launched "
@@ -5037,8 +5243,8 @@ def p18_parallel(results, outdir: str, walls: dict):
                 f"18b rank {r}: the attention ran at {shapes}")
         require(all(inner in s for s in shapes["fused_ffn"]),
                 f"18b rank {r}: fused_ffn ran at {shapes['fused_ffn']}")
-    walls["a+b parallel steps"] = time.perf_counter() - t
-    return [got["b_timed"] for got in ranks]
+    walls["a+b+g parallel steps"] = time.perf_counter() - t
+    return ranks
 
 
 def p18_cli(outdir: str, walls: dict):
@@ -5262,13 +5468,26 @@ def phase_parallel(results, lm_single_ms=None):
     walls = {}
     outdir = tempfile.mkdtemp(prefix="chip_smoke_p18_")
     try:
-        timed = p18_parallel(results, outdir, walls)
-        for r, tm in enumerate(timed):
-            print(f"18b rank {r}: {TRAIN_STEPS} bf16 tensor-parallel LM steps "
-                  f"(dropout 0.5, fused_ffn pallas, gloo on cuda:0): "
-                  f"{tm['ms']:.2f} ms/step over steps {WARMUP_STEPS + 1}-"
-                  f"{TRAIN_STEPS}, peak {tm['peak'] / 2**30:.2f} GiB, "
-                  f"losses {' '.join(f'{x:.4f}' for x in tm['losses'])}")
+        ranks = p18_parallel(results, outdir, walls)
+        for r, got in enumerate(ranks):
+            for label, tm in (("18b", got["b_timed"]),
+                              ("18g", got["g_timed"])):
+                kind = ("tensor" if label == "18b" else "data")
+                print(f"{label} rank {r}: {TRAIN_STEPS} bf16 {kind}-parallel"
+                      f" LM steps (dropout 0.5, fused_ffn pallas, gloo on "
+                      f"cuda:0): {tm['ms']:.2f} ms/step over steps "
+                      f"{WARMUP_STEPS + 1}-{TRAIN_STEPS}, peak "
+                      f"{tm['peak'] / 2**30:.2f} GiB, losses "
+                      f"{' '.join(f'{x:.4f}' for x in tm['losses'])}")
+            d = got["g_draws"]
+            us = lambda x: "not measured" if x is None else \
+                f"{x / 1e3:.3f} ms"                         # noqa: E731
+            share = (f"{100 * d['draw_us'] / d['total_us']:.1f} %"
+                     if d["draw_us"] and d["total_us"] else "not measured")
+            print(f"18g rank {r}: the global dropout masks' draws "
+                  f"(torch.profiler, 3 steps): {us(d['draw_us'])} of "
+                  f"{us(d['total_us'])} device time a step ({share}), "
+                  f"{d['draw_launches']:g} launches a step: {d['names']}")
         if lm_single_ms is not None:
             print(f"18b: phase 5's single-process LM step {lm_single_ms:.2f} "
                   f"ms/step (bf16, dropout 0.5, fused_ffn auto)")
@@ -5327,6 +5546,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("stream_launches", "artifact_launches",   # phase 16's counts
+             "cpu_exported_launches",
              "phase18_launches", "tp_rank_shape")       # phase 18's
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}

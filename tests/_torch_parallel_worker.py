@@ -1,5 +1,6 @@
 """One rank of the port's multi-process CPU tests
-(tests/test_torch_parallel.py, tests/test_torch_parallel_tp.py):
+(tests/test_torch_parallel.py, tests/test_torch_parallel_tp.py,
+tests/test_torch_parallel_dropout.py):
 
     python tests/_torch_parallel_worker.py RANK WORLD STORE INPUTS OUTDIR \
         SCENARIO...
@@ -28,13 +29,14 @@ from asr_dfcnn_transformer_torch.parallel import (destroy,  # noqa: E402
                                                   make_mesh,
                                                   param_shardings)
 from asr_dfcnn_transformer_torch.parallel import tensor as tp  # noqa: E402
-from asr_dfcnn_transformer_torch.train import AMTrainer, LMTrainer  # noqa
+from asr_dfcnn_transformer_torch.train import (AMTrainer,  # noqa: E402
+                                               E2ETrainer, LMTrainer)
 
 CPU = torch.device("cpu")
 
 
-def am_model(inputs):
-    am = models.SEDFCNN(models.SEDFCNNConfig(**inputs["am_cfg"]),
+def am_model(inputs, **kw):
+    am = models.SEDFCNN(models.SEDFCNNConfig(**dict(inputs["am_cfg"], **kw)),
                         device="cpu")
     am.load_state_dict(inputs["am_sd"])
     return am
@@ -151,9 +153,54 @@ def nan_abort(inputs, mesh, out, workdir):
     out["aborted_at"] = None
 
 
+def _step_out(tr, m, out, mesh=None):
+    """A dropout step's loss and gradients (a split model's gathered)."""
+    out["loss"] = float(m["loss"])
+    grads = {n: p.grad for n, p in tr.model.named_parameters()}
+    if tr.shards is not None:
+        grads = tp.full_state(grads, {"state": {}}, tr.shards, mesh)[0]
+    out["grads"] = {n: g.clone() for n, g in grads.items()}
+
+
+def _drop_gen(inputs):
+    return torch.Generator().manual_seed(inputs["drop_seed"])
+
+
+def dp_lm_drop(inputs, mesh, out, workdir):
+    """One LMTrainer step at dropout 0.5 on this rank's rows."""
+    tr = LMTrainer(lm_model(inputs, dropout_rate=0.5), workdir, mesh=mesh)
+    _step_out(tr, tr.train_step(LMBatch(**inputs["lm_batch"]),
+                                _drop_gen(inputs)), out, mesh)
+
+
+def dp_am_drop(inputs, mesh, out, workdir):
+    """One AMTrainer step at dropout 0.3 with noise and SpecAugment."""
+    tr = AMTrainer(am_model(inputs, dropout_rate=0.3), workdir,
+                   feature_dim=200, augment_noise=True, augment_spec=True,
+                   mesh=mesh)
+    _step_out(tr, tr.train_step(AMBatch(**inputs["am_drop_batch"]),
+                                _drop_gen(inputs)), out)
+
+
+def dp_e2e_drop(inputs, mesh, out, workdir):
+    """One E2ETrainer step at dropout 0.1 with SpecAugment."""
+    e2e = models.SpeechTransformer(
+        models.SpeechTransformerConfig(**inputs["e2e_cfg"]),
+        feature_dim=4 * inputs["e2e_nfilt"], device="cpu")
+    e2e.load_state_dict(inputs["e2e_sd"])
+    tr = E2ETrainer(e2e, workdir, feature_dim=inputs["e2e_nfilt"],
+                    augment_spec=True, mesh=mesh)
+    _step_out(tr, tr.train_step(AMBatch(**inputs["am_drop_batch"]),
+                                _drop_gen(inputs)), out)
+
+
 SCENARIOS = {"dp_am": (2, 1, dp_am), "tp_lm": (1, 2, tp_lm),
              "dp_tp_lm": (2, 2, dp_tp_lm), "pipeline": (2, 1, pipeline),
-             "batchnorm": (2, 1, batchnorm), "nan_abort": (2, 1, nan_abort)}
+             "batchnorm": (2, 1, batchnorm), "nan_abort": (2, 1, nan_abort),
+             "dp_lm_drop": (2, 1, dp_lm_drop),
+             "dp_am_drop": (2, 1, dp_am_drop),
+             "dp_e2e_drop": (2, 1, dp_e2e_drop),
+             "dp_tp_lm_drop": (2, 2, dp_lm_drop)}
 
 
 def main():

@@ -339,6 +339,33 @@ def test_cli_export_serving_and_infer_artifact(workdir, capsys, tmp_path):
                   _wav(workdir), "--platform", "cuda"])
 
 
+def test_cli_export_serving_for_both_platforms(workdir, capsys, tmp_path,
+                                               monkeypatch):
+    """export-serving --platform cpu --serve-platforms cpu,cuda writes an
+    artifact for the card on this CPU host; infer-artifact serves it on
+    --platform cpu as infer does, and refuses cuda where there is none."""
+    from asr_dfcnn_transformer_torch.audio.fbank import frames_for_samples
+    from asr_dfcnn_transformer_torch.audio.wav import read_wav
+    from asr_dfcnn_transformer_torch.infer import infer_bucket_frames
+    bucket = infer_bucket_frames(frames_for_samples(len(read_wav(
+        _wav(workdir))[0])))
+    path = str(tmp_path / "both.zip")
+    cli.main(["export-serving", "--workdir", workdir, "--out", path,
+              "--serve-batch-sizes", "1", "--serve-buckets", str(bucket),
+              "--serve-platforms", "cpu,cuda"] + SMALL)
+    assert "device=cpu, platforms=cpu,cuda;" in capsys.readouterr().out
+    cli.main(["infer-artifact", "--artifact", path, "--wav", _wav(workdir),
+              "--platform", "cpu"])
+    got = _result_lines(capsys.readouterr().out)
+    cli.main(["infer", "--workdir", workdir, "--wav", _wav(workdir)]
+             + SMALL)
+    assert got == _result_lines(capsys.readouterr().out)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.main(["infer-artifact", "--artifact", path, "--wav",
+                  _wav(workdir), "--platform", "cuda"])
+
+
 def test_cli_export_serving_refusals(workdir, tmp_path):
     with pytest.raises(SystemExit, match="exported on"):
         cli.main(["export-serving", "--workdir", workdir, "--out",

@@ -226,12 +226,20 @@ def test_serving_without_lm(setup, tmp_path):
 
 
 def test_export_refusals(setup, artifact, tmp_path):
-    """A platform other than the exporting device, a bfloat16 parameter,
-    and loading on another device all raise with a message."""
+    """A platform other than cpu and cuda, a bfloat16 parameter, and
+    loading on a device the artifact was not exported for all raise with a
+    message. An artifact for cuda alone exports on the CPU and is then
+    refused there."""
     _, pipe, _ = setup
     with pytest.raises(ValueError, match="exported on"):
         export_pipeline(pipe, str(tmp_path / "x.zip"), batch_sizes=(1,),
-                        buckets=(128,), platforms=("cuda",))
+                        buckets=(128,), platforms=("tpu",))
+    cuda_only = str(tmp_path / "cuda.zip")
+    meta = export_pipeline(pipe, cuda_only, batch_sizes=(1,),
+                           buckets=(128,), platforms=("cuda",))
+    assert meta["platforms"] == ["cuda"] and meta["device"] == "cpu"
+    with pytest.raises(ValueError, match="runs on cuda"):
+        load_artifact(cuda_only, device="cpu")
     with pytest.raises(ValueError, match="multiples of 8"):
         export_pipeline(pipe, str(tmp_path / "x.zip"), batch_sizes=(1,),
                         buckets=(100,))
