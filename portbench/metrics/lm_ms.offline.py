@@ -1,0 +1,10 @@
+"""Device ms a batch of the language model: the activity launched inside
+its forward (``portbench.lm``, forward hooks)."""
+
+from portbench.readers import per
+
+
+def read(rec):
+    tr = rec.get("trace")
+    return None if tr is None else per(rec, tr.device_s_in(
+        ["portbench.lm"]), "batch")
